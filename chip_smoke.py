@@ -7,27 +7,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. build   — compile the CUDA kernels under nats_llm_studio_tpu_torch/csrc
              (one nvcc per source, started together) into build/torch_kernels.
-2. kernels — hold K1 (paged decode), K2 (flash prefill) and K3 (chunk
-             prefill) against their plain PyTorch versions on the card in bf16
-             at Llama-3-8B shapes (max abs error <= 2e-2 on each of four
-             input draws), and time each
-             beside its bound and a scaled_dot_product_attention yardstick.
+2. kernels — hold K1 (paged decode), K1q (the same over an int8 pool), K2
+             (flash prefill), K3 (chunk prefill) and K4 (the same over an
+             int8 cache) against their plain PyTorch versions on the card in
+             bf16 at Llama-3-8B shapes (max abs error <= 2e-2 on each of four
+             input draws), and time each beside its bound and a
+             scaled_dot_product_attention yardstick.
 3. model   — write a bf16 GGUF at Meta-Llama-3-8B's published widths (the
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
              rope_theta 500000, rms_eps 1e-5; 32 layers) with random weights
-             (sigma 0.02) from --seed and a byte-level gpt2 tokenizer, load it
-             through TorchRegistry(device="cuda") and compare prompt-end
-             prefill logits of the kernel path with the plain path
-             (float32: relative L2 <= 2e-2; bf16: no more than 1.25 x the
-             plain path's distance to float32).
-4. serve   — an embedded broker and the port's Worker answer list_models, a
+             (sigma 0.02) from --seed and a byte-level gpt2 tokenizer.
+Then, once with the bf16 KV cache and once with the int8 one
+(TPU_KV_QUANT=int8), each through TorchRegistry(device="cuda", kv_quant=):
+4. gate    — compare logits of the kernel path with the plain path, for a
+             512-token fresh prefill and for the same prompt in two chunks
+             followed by one paged decode step (float32: relative L2 <= 2e-2;
+             bf16: no more than 1.25 x the plain path's distance to float32).
+5. serve   — an embedded broker and the port's Worker answer list_models, a
              short greedy chat twice (identical text), a seeded sampled
              chat twice (identical text), a ~700-token chat into
              the idle batcher (prefill_full), a long chat beside a live stream
-             (prefill1, so K3 runs between decode bursts) and a streamed chat.
-             Every envelope must be ok, and K1, K2 and K3 must each have been
-             launched by this phase.
+             (prefill1, so K3 or K4 runs between decode bursts) and a
+             streamed chat. Every envelope must be ok; bf16 KV must launch
+             K1, K2 and K3 and not K1q or K4, int8 KV K1q, K2 and K4 and not
+             K1 or K3.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -95,9 +99,12 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 ERR_SEEDS = 4  # the error check draws inputs from seed, seed + 1, ...
 
 
-def k1_inputs(torch, g, c: dict) -> dict:
+def k1_inputs(torch, g, c: dict, quant: bool = False) -> dict:
     """K1 at the serving shape: B=8 slots, mixed contexts up to 4096,
-    16-token blocks in a shuffled pool, layer 7."""
+    16-token blocks in a shuffled pool, layer 7. With ``quant`` (K1q) the
+    pool is ``quantize_rows`` of the same draws: int8 codes, f32 scales."""
+    from nats_llm_studio_tpu_torch.ops.kvcache import quantize_rows
+
     hq, hkv, d, L = c["n_heads"], c["n_kv_heads"], c["head_dim"], c["n_layers"]
     dev, bf = "cuda", torch.bfloat16
     T, nbt, layer = 16, 4096 // 16, 7
@@ -115,9 +122,15 @@ def k1_inputs(torch, g, c: dict) -> dict:
         o += n
     q = torch.randn((B, 1, hq, d), generator=g, device=dev, dtype=bf)
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    if quant:
+        kp, vp = quantize_rows(kp), quantize_rows(vp)
     return dict(args=(q, kp, vp, tbl.to(dev), pos, layer, d ** -0.5),
-                shape=f"q[{B},1,{hq},{d}] pool[{nb},{L},{hkv},{T},{d}] bf16 pos={pos_l} "
-                      f"layer={layer}")
+                shape=f"q[{B},1,{hq},{d}] bf16 pool[{nb},{L},{hkv},{T},{d}] "
+                      f"{'int8 + f32 scales' if quant else 'bf16'} pos={pos_l} layer={layer}")
+
+
+def k1q_inputs(torch, g, c: dict) -> dict:
+    return k1_inputs(torch, g, c, quant=True)
 
 
 def k2_inputs(torch, g, c: dict) -> dict:
@@ -143,6 +156,37 @@ def k3_inputs(torch, g, c: dict) -> dict:
                       f"start={start}")
 
 
+def k4_inputs(torch, g, c: dict) -> dict:
+    """K4: K3's chunk over strided views of an int8 row cache, codes
+    [1, L, Hkv, 4096, D] and scales [1, L, Hkv, 4096] quantized from bf16
+    draws."""
+    from nats_llm_studio_tpu_torch.ops.kvcache import quantize_rows
+
+    hq, hkv, d, L = c["n_heads"], c["n_kv_heads"], c["head_dim"], c["n_layers"]
+    C, start, kw, S, layer = 256, 1024, 2048, 4096, 7
+    kc = quantize_rows(torch.randn((1, L, hkv, S, d), generator=g, device="cuda",
+                                   dtype=torch.bfloat16))
+    vc = quantize_rows(torch.randn((1, L, hkv, S, d), generator=g, device="cuda",
+                                   dtype=torch.bfloat16))
+    q = torch.randn((1, C, hq, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    return dict(args=(q, kc.q[:, layer, :, :kw], kc.s[:, layer, :, :kw],
+                      vc.q[:, layer, :, :kw], vc.s[:, layer, :, :kw], d ** -0.5, start),
+                shape=f"q[1,{C},{hq},{d}] bf16 codes[1,{hkv},{kw},{d}] int8 + scales "
+                      f"[1,{hkv},{kw}] f32 of cache[1,{L},{hkv},{S},{d}] start={start}")
+
+
+def dense_pool_kv(torch, pool, tbl, layer: int, dtype):
+    """The [B, Hkv, NB*T, D] K or V of each slot gathered through its
+    table, dequantized to ``dtype`` from a KVQ pool (not timed)."""
+    from nats_llm_studio_tpu_torch.ops.kvcache import KVQ, dequantize, is_quantized
+
+    idx = tbl.long()
+    x = (dequantize(KVQ(pool.q[idx, layer], pool.s[idx, layer]), dtype)
+         if is_quantized(pool) else pool[idx, layer])
+    b, nb, hkv, t, d = x.shape
+    return x.permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * t, d)
+
+
 def kernel_phase(torch, seed: int) -> dict[str, dict]:
     """Each kernel against its plain version on ERR_SEEDS input draws (the
     gate is the largest max abs error), then timed on the first draw
@@ -151,6 +195,7 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
 
     from nats_llm_studio_tpu_torch.ops import flash_attention as fa
     from nats_llm_studio_tpu_torch.ops import paged_attention as pa
+    from nats_llm_studio_tpu_torch.ops.kvcache import KVQ, dequantize
 
     c = LLAMA3_8B
     hq, hkv, d = c["n_heads"], c["n_kv_heads"], c["head_dim"]
@@ -159,9 +204,13 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
     cases = {
         "paged_decode_attention": (k1_inputs, pa.paged_decode_attention,
                                    pa.paged_decode_attention_plain),
+        "paged_decode_attention_kvq": (k1q_inputs, pa.paged_decode_attention_kvq,
+                                       pa.paged_decode_attention_plain),
         "flash_attention": (k2_inputs, fa.flash_attention, fa.flash_attention_plain),
         "flash_attention_chunk": (k3_inputs, fa.flash_attention_chunk,
                                   fa.flash_attention_chunk_plain),
+        "flash_attention_chunk_kvq": (k4_inputs, fa.flash_attention_chunk_kvq,
+                                      fa.flash_attention_chunk_kvq_plain),
     }
     results: dict[str, dict] = {}
     for name, (make, kern, plain) in cases.items():
@@ -178,22 +227,25 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
         results[name] = dict(max_abs_err=max(errs), errs=errs, err_over_max_out=max(rel),
                              shape=first["shape"], args=first["args"], kern=kern, plain=plain)
 
-    # K1: bytes of the live K/V rows; SDPA over the same K/V already
-    # gathered dense (the gather itself is not timed), ragged lengths as a
-    # boolean mask
-    r = results["paged_decode_attention"]
-    q, kp, vp, tbl, pos, layer, scale = r["args"]
-    B, s_max = q.shape[0], tbl.shape[1] * kp.shape[3]
-    keys = int((pos.long() + 1).sum())
-    r["bound"] = bound(2 * keys * hkv * d * 2 + 2 * q.numel() * 2 + tbl.numel() * 4 + B * 4,
-                       4 * keys * hq * d)
-    kd = kp[tbl.long(), layer].permute(0, 2, 1, 3, 4).reshape(B, hkv, s_max, d)
-    vd = vp[tbl.long(), layer].permute(0, 2, 1, 3, 4).reshape(B, hkv, s_max, d)
-    kd, vd = kd.repeat_interleave(group, dim=1), vd.repeat_interleave(group, dim=1)
-    mask = (torch.arange(s_max, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
-    qs = q.transpose(1, 2)
-    r["library"] = lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask,
-                                                          scale=scale)
+    # K1, K1q: bytes of the live K/V rows (bf16 rows of D elements, or D
+    # int8 codes and one f32 scale); SDPA over the same K/V already gathered
+    # dense (and dequantized to bf16 for K1q; neither is timed), ragged
+    # lengths as a boolean mask
+    for name, row_bytes in (("paged_decode_attention", d * 2),
+                            ("paged_decode_attention_kvq", d + 4)):
+        r = results[name]
+        q, kp, vp, tbl, pos, layer, scale = r["args"]
+        B = q.shape[0]
+        keys = int((pos.long() + 1).sum())
+        r["bound"] = bound(2 * keys * hkv * row_bytes + 2 * q.numel() * 2 + tbl.numel() * 4
+                           + B * 4, 4 * keys * hq * d)
+        kd = dense_pool_kv(torch, kp, tbl, layer, q.dtype).repeat_interleave(group, dim=1)
+        vd = dense_pool_kv(torch, vp, tbl, layer, q.dtype).repeat_interleave(group, dim=1)
+        mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        r["library"] = (lambda qs=q.transpose(1, 2), kd=kd, vd=vd, mask=mask, scale=scale:
+                        F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask,
+                                                       scale=scale))
 
     # K2
     r = results["flash_attention"]
@@ -216,6 +268,21 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
     cmask = (torch.arange(kw, device=dev)[None, :]
              <= (start + torch.arange(C, device=dev))[:, None])
     r["library"] = lambda: F.scaled_dot_product_attention(qs3, kd3, vd3, attn_mask=cmask,
+                                                          scale=scale)
+
+    # K4: K3's operations; its bytes are D int8 codes and a f32 scale per
+    # key row. SDPA over the slabs already dequantized to bf16 (not timed)
+    r = results["flash_attention_chunk_kvq"]
+    q, kq, ks, vq, vs, scale, start = r["args"]
+    C, kw = q.shape[1], kq.shape[2]
+    pairs = sum(start + i + 1 for i in range(C))
+    r["bound"] = bound(2 * q.numel() * 2 + 2 * (start + C) * hkv * (d + 4), 4 * pairs * hq * d)
+    kd4 = dequantize(KVQ(kq, ks), q.dtype).repeat_interleave(group, dim=1)
+    vd4 = dequantize(KVQ(vq, vs), q.dtype).repeat_interleave(group, dim=1)
+    cmask4 = (torch.arange(kw, device=dev)[None, :]
+              <= (start + torch.arange(C, device=dev))[:, None])
+    qs4 = q.transpose(1, 2)
+    r["library"] = lambda: F.scaled_dot_product_attention(qs4, kd4, vd4, attn_mask=cmask4,
                                                           scale=scale)
 
     for name, r in results.items():
@@ -300,67 +367,109 @@ def write_gguf(torch, path: Path, n_layers: int, seed: int, widths: dict = LLAMA
     w.write()
 
 
-def model_phase(torch, registry, seed: int):
-    """Prompt-end logits of a 512-token prefill through the kernel path and
-    the plain path, with two gates. In float32 (the bf16 weights upcast
-    exactly) the two paths differ only in the attention arithmetic:
-    relative L2 <= 2e-2. In bf16, the dtype the card serves, both paths
-    also round every activation of 32 layers, and that rounding dominates
-    their distance; so the bf16 kernel path may be no further from the f32
-    plain path than BF16_DRIFT times the bf16 plain path's distance."""
-    from nats_llm_studio_tpu_torch.models.llama import KERNELS, PLAIN, forward, make_cache
+def model_phase(torch, registry, seed: int) -> dict:
+    """Logits of the full-width model through the kernel path and the
+    plain path, in two measurements:
+
+    * ``prefill``: prompt-end logits of a 512-token fresh prefill (K2);
+    * ``decode``: the same prompt prefilled in two 256-token chunks (K2,
+      then K3, or K4 over the int8 cache), its rows written into a paged
+      pool, then one decode step over the pool (K1, or K1q).
+
+    Two gates each. In float32 (the bf16 weights upcast exactly) the paths
+    differ only in the attention arithmetic: relative L2 <= 2e-2. In bf16,
+    the dtype the card serves, both paths also round every activation of 32
+    layers, and that rounding dominates their distance; so the bf16 kernel
+    path may be no further from the f32 plain path than BF16_DRIFT times
+    the bf16 plain path's distance. Returns the engine and the bf16
+    kernel-path logits."""
+    from nats_llm_studio_tpu_torch.device import torch_dtype
+    from nats_llm_studio_tpu_torch.models.llama import (
+        KERNELS,
+        PLAIN,
+        forward,
+        forward_decode_paged,
+        make_cache,
+    )
+    from nats_llm_studio_tpu_torch.ops.kvcache import kv_pool_write_row, kv_pool_zeros
 
     eng = asyncio.run(registry.get_engine(MID))
     cfg, params = eng.cfg, eng.batcher.params
     dev = params["embed"].device
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    n = 512
+    n, T = 512, 16
     toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g, dtype=torch.int32).to(dev)
+    nxt = torch.randint(0, cfg.vocab_size, (1, 1), generator=g, dtype=torch.int32).to(dev)
 
-    def prompt_end_logits(p, c, attn):
+    def prefill(p, c, attn):
         k1, v1 = make_cache(c, 1, n, device=dev)
         logits, _, _ = forward(p, c, toks, k1, v1, torch.zeros((1,), dtype=torch.int32),
                                logit_positions=torch.tensor([n - 1]), fresh_prefill=True,
                                attn=attn)
         return logits[0, 0].float()
 
+    def decode(p, c, attn):
+        k1, v1 = make_cache(c, 1, n, device=dev)
+        C = n // 2
+        for start in (0, C):
+            forward(p, c, toks[:, start:start + C], k1, v1,
+                    torch.full((1,), start, dtype=torch.int32), attn_window=n,
+                    logit_positions=torch.tensor([C - 1]), uniform_start=True, attn=attn)
+        nb = n // T  # the prompt's blocks are 1..nb; block nb + 1 takes the new row
+        shape = (nb + 2, c.n_layers, c.n_kv_heads, T, c.head_dim)
+        quant = c.kv_quant == "int8"
+        kp = kv_pool_zeros(shape, torch_dtype(c.dtype), dev, quant=quant)
+        vp = kv_pool_zeros(shape, torch_dtype(c.dtype), dev, quant=quant)
+        bids = torch.arange(1, nb + 1, dtype=torch.int32)
+        kv_pool_write_row(kp, k1, bids)
+        kv_pool_write_row(vp, v1, bids)
+        tbl = torch.arange(1, nb + 2, dtype=torch.int32, device=dev)[None]
+        logits, _, _ = forward_decode_paged(p, c, nxt, kp, vp, tbl,
+                                            torch.tensor([n], dtype=torch.int32, device=dev),
+                                            attn=attn)
+        return logits[0, 0].float()
+
     def rel(a, b) -> float:
         return float((a - b).norm() / b.norm())
 
-    bf_k = prompt_end_logits(params, cfg, KERNELS)
-    bf_p = prompt_end_logits(params, cfg, PLAIN)
     p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
            for k, v in params.items()}
     c32 = cfg.with_(dtype="float32")
-    f_k = prompt_end_logits(p32, c32, KERNELS)
-    f_p = prompt_end_logits(p32, c32, PLAIN)
+    out = {"engine": eng}
+    for name, fn in (("prefill", prefill), ("decode", decode)):
+        bf_k, bf_p = fn(params, cfg, KERNELS), fn(params, cfg, PLAIN)
+        f_k, f_p = fn(p32, c32, KERNELS), fn(p32, c32, PLAIN)
+        if not (torch.isfinite(bf_k).all() and torch.isfinite(f_k).all()):
+            raise AssertionError(f"{name}: kernel-path logits are not finite")
+        r32, dk, dp = rel(f_k, f_p), rel(bf_k, f_p), rel(bf_p, f_p)
+        log(f"model (kv {cfg.kv_quant}) {name}: logits of a {n}-token prompt"
+            f"{' then one decode step' if name == 'decode' else ''}, kernel path vs plain "
+            f"path: float32 relative L2 {r32:.3e} (limit 2e-2); bf16 {rel(bf_k, bf_p):.3e}; "
+            f"distance to the f32 plain path: bf16 kernel path {dk:.3e}, bf16 plain path "
+            f"{dp:.3e} (limit {BF16_DRIFT} x, ratio {dk / dp if dp else float('nan'):.4f})")
+        if not r32 <= 2e-2:
+            raise AssertionError(f"{name}: relative L2 {r32} > 2e-2")
+        if not dk <= BF16_DRIFT * dp:
+            raise AssertionError(f"{name}: bf16 kernel path {dk} from f32, > {BF16_DRIFT} x "
+                                 f"the plain path's {dp}")
+        out[name] = bf_k.cpu()
     del p32
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    if not (torch.isfinite(bf_k).all() and torch.isfinite(f_k).all()):
-        raise AssertionError("kernel-path logits are not finite")
-    r32, dk, dp = rel(f_k, f_p), rel(bf_k, f_p), rel(bf_p, f_p)
-    log(f"model: prompt-end logits of a {n}-token prefill, kernel path vs plain path: "
-        f"float32 relative L2 {r32:.3e} (limit 2e-2); bf16 {rel(bf_k, bf_p):.3e}; "
-        f"distance to the f32 plain path: bf16 kernel path {dk:.3e}, bf16 plain path "
-        f"{dp:.3e} (limit {BF16_DRIFT} x, ratio {dk / dp if dp else float('nan'):.4f})")
-    if not r32 <= 2e-2:
-        raise AssertionError(f"relative L2 {r32} > 2e-2")
-    if not dk <= BF16_DRIFT * dp:
-        raise AssertionError(f"bf16 kernel path {dk} from f32, > {BF16_DRIFT} x the plain "
-                             f"path's {dp}")
-    return eng
+    return out
 
 
 def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
     """Where one decode step's time goes: 8 slots at ``ctx`` tokens through
-    forward_decode_paged and a greedy pick on a pool of random K/V. Wall
+    forward_decode_paged and a greedy pick on a pool of random K/V (int8
+    codes quantized from the same draws under ``kv_quant == "int8"``). Wall
     time per step (host clock around synchronized steps) beside the device
     time the profiler sees, and the kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     from nats_llm_studio_tpu_torch.models.llama import forward_decode_paged
+    from nats_llm_studio_tpu_torch.ops.kvcache import quantize_rows
 
     cfg, params = eng.cfg, eng.batcher.params
     dev = params["embed"].device
@@ -371,6 +480,8 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
     g = torch.Generator(device=dev).manual_seed(7)
     kp = torch.randn(shape, generator=g, device=dev, dtype=params["embed"].dtype)
     vp = torch.randn(shape, generator=g, device=dev, dtype=params["embed"].dtype)
+    if cfg.kv_quant == "int8":
+        kp, vp = quantize_rows(kp), quantize_rows(vp)
     tbl = torch.arange(1, nb, dtype=torch.int32, device=dev).reshape(B, nbt)
     pos = torch.full((B,), ctx, dtype=torch.int32, device=dev)
     tok = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -396,7 +507,7 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
                and getattr(e, "self_device_time_total", 0) > 0]
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    out = {"ctx": ctx, "slots": B, "wall_ms_per_step": wall_ms,
+    out = {"kv_quant": cfg.kv_quant, "ctx": ctx, "slots": B, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": dev_us / 1e3 / steps if dev_us else None,
            "launches_per_step": sum(e.count for e in kernels) / steps if kernels else None,
            "top": [(e.key[:60], e.self_device_time_total / 1e3 / steps, e.count // steps)
@@ -405,7 +516,8 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
         log("profile: the profiler saw no device time (not measured)")
     else:
         out["device_idle_share"] = 1.0 - out["device_ms_per_step"] / wall_ms
-        log(f"profile: decode step, {B} slots at {ctx} tokens: wall {wall_ms:.2f} ms, device "
+        log(f"profile (kv {cfg.kv_quant}): decode step, {B} slots at {ctx} tokens: wall "
+            f"{wall_ms:.2f} ms, device "
             f"{out['device_ms_per_step']:.2f} ms ({out['launches_per_step']:.0f} kernels), "
             f"device idle {out['device_idle_share']:.1%}")
         for name, ms, cnt in out["top"]:
@@ -520,6 +632,54 @@ async def serve_phase(registry) -> dict:
     return out
 
 
+# which kernel each KV mode's serve phase must launch, and must not
+EXPECTED = {
+    "none": (("paged_decode_attention", "flash_attention", "flash_attention_chunk"),
+             ("paged_decode_attention_kvq", "flash_attention_chunk_kvq")),
+    "int8": (("paged_decode_attention_kvq", "flash_attention", "flash_attention_chunk_kvq"),
+             ("paged_decode_attention", "flash_attention_chunk")),
+}
+
+
+def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters) -> dict:
+    """Load the GGUF with the KV cache ``kv_quant``, gate its logits, profile
+    a decode step, then serve the chats with every launch counter set to 0
+    just before and read just after. Closes the engine and frees the card
+    before it returns."""
+    import gc
+
+    from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+
+    registry = TorchRegistry(model_root, device="cuda", max_seq_len=4096, max_batch_slots=8,
+                             kv_quant=kv_quant)
+    t0 = time.perf_counter()
+    gate = model_phase(torch, registry, seed)
+    eng = gate.pop("engine")
+    pool = eng.batcher.pool_stats()
+    log(f"model (kv {kv_quant}): {eng.cfg.n_layers} layers at Llama-3-8B widths, loaded and "
+        f"checked in {time.perf_counter() - t0:.1f} s; max_seq {eng.batcher.max_seq}, "
+        f"pool {pool}")
+    prof = decode_profile(torch, eng)
+    del eng
+    for f in counters:
+        f.launches = 0
+    served = asyncio.run(serve_phase(registry))
+    launches = {f.__name__: f.launches for f in counters}
+    log(f"serve (kv {kv_quant}): kernel launches {launches}")
+    must, must_not = EXPECTED[kv_quant]
+    for name in must:
+        if launches[name] <= 0:
+            raise AssertionError(f"kv {kv_quant}: {name} was not launched on the main path")
+    for name in must_not:
+        if launches[name] != 0:
+            raise AssertionError(f"kv {kv_quant}: {name} was launched on the main path")
+    asyncio.run(registry.close())
+    del registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(gate=gate, pool=pool, prof=prof, served=served, launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
@@ -535,7 +695,6 @@ def main() -> int:
         from nats_llm_studio_tpu_torch.ops import _build
         from nats_llm_studio_tpu_torch.ops import flash_attention as fa
         from nats_llm_studio_tpu_torch.ops import paged_attention as pa
-        from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}", file=sys.stderr)
         return 1
@@ -559,54 +718,57 @@ def main() -> int:
     mdir = model_root / MID
     mdir.mkdir(parents=True)
     t0 = time.perf_counter()
-    n_layers = LLAMA3_8B["n_layers"]
-    write_gguf(torch, mdir / "model.gguf", n_layers, args.seed)
-    t_write = time.perf_counter() - t0
-    registry = TorchRegistry(model_root, device="cuda", max_seq_len=4096, max_batch_slots=8)
-    t0 = time.perf_counter()
-    eng = model_phase(torch, registry, args.seed)
-    log(f"model: {n_layers} layers at Llama-3-8B widths, bf16 GGUF "
-        f"{(mdir / 'model.gguf').stat().st_size / 2**30:.2f} GiB written in {t_write:.1f} s, "
-        f"loaded and checked in {time.perf_counter() - t0:.1f} s; "
-        f"max_seq {eng.batcher.max_seq}, pool blocks {eng.batcher.pool_stats()}")
+    write_gguf(torch, mdir / "model.gguf", LLAMA3_8B["n_layers"], args.seed)
+    log(f"model: bf16 GGUF {(mdir / 'model.gguf').stat().st_size / 2**30:.2f} GiB written in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    prof = decode_profile(torch, eng)
-
-    counters = (pa.paged_decode_attention, fa.flash_attention, fa.flash_attention_chunk)
-    for f in counters:
-        f.launches = 0
-    served = asyncio.run(serve_phase(registry))
-    launches = {f.__name__: f.launches for f in counters}
-    log(f"serve: kernel launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    asyncio.run(registry.close())
+    counters = (pa.paged_decode_attention, pa.paged_decode_attention_kvq, fa.flash_attention,
+                fa.flash_attention_chunk, fa.flash_attention_chunk_kvq)
+    paths = {kv: serve_path(torch, model_root, kv, args.seed, counters)
+             for kv in ("none", "int8")}
     shutil.rmtree(model_root, ignore_errors=True)
+    for name in ("prefill", "decode"):
+        a, b = paths["int8"]["gate"][name], paths["none"]["gate"][name]
+        log(f"model: {name} logits with the int8 KV cache vs the bf16 one (kernel paths, "
+            f"information only): relative L2 {float((a - b).norm() / b.norm()):.3e}")
+    pb, pq = paths["none"]["pool"], paths["int8"]["pool"]
+    if pb["blocks_total"] != pq["blocks_total"]:
+        raise AssertionError("the two pools hold different block counts")
+    log(f"pool: {pb['blocks_total']} blocks: bf16 {pb['bytes']} bytes, int8 {pq['bytes']} "
+        f"bytes ({pq['bytes'] / pb['bytes']:.4f} x)")
 
     src = {
         "paged_decode_attention": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
                                    "nats_llm_studio_tpu/ops/paged_attention.py:205"),
+        "paged_decode_attention_kvq": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
+                                       "nats_llm_studio_tpu/ops/paged_attention.py:205"),
         "flash_attention": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
                             "nats_llm_studio_tpu/ops/flash_attention.py:143"),
         "flash_attention_chunk": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
                                   "nats_llm_studio_tpu/ops/flash_attention.py:288"),
+        "flash_attention_chunk_kvq": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
+                                      "nats_llm_studio_tpu/ops/flash_attention.py:438"),
     }
     rows = []
     for name, r in kernels.items():
         rows.append({
             "name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"],
+            # K2 serves both KV modes: its launches over both serve phases
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
-    short = served["short"]["stats"]
-    log(json.dumps({
-        "serve": {"ttft_s_short": short["time_to_first_token"],
-                  "decode_tok_s_short": short["tokens_per_second"],
-                  "stream": served["stream"]},
-        "decode_profile": {k: v for k, v in prof.items() if k != "top"},
-    }))
+    summary = {}
+    for kv, p in paths.items():
+        short = p["served"]["short"]["stats"]
+        summary[kv] = {
+            "serve": {"ttft_s_short": short["time_to_first_token"],
+                      "decode_tok_s_short": short["tokens_per_second"],
+                      "stream": p["served"]["stream"]},
+            "pool_bytes": p["pool"]["bytes"],
+            "decode_profile": {k: v for k, v in p["prof"].items() if k != "top"},
+        }
+    log(json.dumps(summary))
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 Mirror of ``nats_llm_studio_tpu/main.py`` ``_run_serve`` for the port: a
 ``Worker`` over a ``TorchRegistry`` of ``LMSTUDIO_MODELS_DIR``, optionally
-behind an in-process broker. The device defaults to the card; with no card
+behind an in-process broker, with the KV cache that ``TPU_KV_QUANT``
+("none" or "int8") names. The device defaults to the card; with no card
 the command fails unless ``--device cpu`` is given.
 """
 
@@ -27,7 +28,7 @@ async def _run_serve(args: argparse.Namespace) -> None:
     cfg = WorkerConfig()
     registry = TorchRegistry(
         cfg.models_dir, device=args.device, max_seq_len=cfg.max_seq_len,
-        max_batch_slots=cfg.max_batch_slots,
+        max_batch_slots=cfg.max_batch_slots, kv_quant=cfg.kv_quant_mode,
     )
     broker = None
     if args.embedded_broker:
@@ -36,8 +37,9 @@ async def _run_serve(args: argparse.Namespace) -> None:
         log.info("embedded broker on %s", broker.url)
     worker = Worker(cfg, registry)
     await worker.start()
-    log.info("worker serving %s.* on %s (device %s, models: %s)", cfg.subject_prefix,
-             cfg.nats_url, registry.device, cfg.models_dir)
+    log.info("worker serving %s.* on %s (device %s, kv cache %s, models: %s)",
+             cfg.subject_prefix, cfg.nats_url, registry.device, registry.kv_quant,
+             cfg.models_dir)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):

@@ -29,6 +29,9 @@ class WorkerConfig:
     subject_prefix: str = field(default_factory=lambda: _env("SUBJECT_PREFIX", "lmstudio"))
     max_batch_slots: int = field(default_factory=lambda: int(_env("MAX_BATCH_SLOTS", "8")))
     max_seq_len: int = field(default_factory=lambda: int(_env("MAX_SEQ_LEN", "4096")))
+    # "none" or "int8": the serving KV cache in the compute dtype, or as int8
+    # codes with f32 scales (ops/kvcache.py KVQ) — about half the bytes
+    kv_quant_mode: str = field(default_factory=lambda: _env("TPU_KV_QUANT", "none"))
     max_reconnects: int = field(
         default_factory=lambda: int(_env("NATS_MAX_RECONNECTS", "60"))
     )

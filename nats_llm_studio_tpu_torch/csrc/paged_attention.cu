@@ -1,14 +1,21 @@
 // Paged-attention decode for Hopper (sm_90a).
 //
 // Replaces the TPU kernel nats_llm_studio_tpu/ops/paged_attention.py:
-// paged_decode_attention (body _paged_kernel): attention of W new tokens per
-// slot over the slot's whole paged history, read block by block through the
-// block table, straight out of the pool [NB, L, Hkv, T, D].
+// paged_decode_attention (body _paged_kernel), both branches of its
+// pallas_call: attention of W new tokens per slot over the slot's whole
+// paged history, read block by block through the block table, straight out
+// of the pool [NB, L, Hkv, T, D]. K1 reads a pool in q's dtype; K1q reads
+// int8 codes [NB, L, Hkv, T, D] with f32 scales [NB, L, Hkv, T] (the KVQ
+// cache) and dequantizes each tile as it copies it into shared memory
+// (code x scale in f32, rounded to q's dtype, as the JAX kernel's
+// quantized branch does). One template body serves both: KV is the
+// storage type (T or int8_t), and the scale pointers are null for K1.
 //
 // What bounds it on the H100: bytes. Each decode step reads every live K/V
 // row of every slot once (2 x context x Hkv x D x 2 bytes per slot per
-// layer) and does ~2 flops per byte read, far below the ~295 flops/byte
-// where the tensor cores would become the limit.
+// layer in bf16; D + 4 bytes per row in int8) and does ~2 flops per byte
+// read, far below the ~295 flops/byte where the tensor cores would become
+// the limit. The int8 pool halves the bytes.
 //
 // What the design does about it:
 //  * one CTA per (slot, kv-head, split): each K/V tile is read from device
@@ -36,6 +43,8 @@
 // q-head r % group); its causal frontier is key_pos <= pos + r / group.
 // Tables that point at the null block 0 give finite junk.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -52,18 +61,22 @@ size_t smem_bytes(int rows, int D, int KT, int itemsize) {
   return nf * 4 + (size_t)(rows + 2 * KT) * (D + 2) * itemsize;
 }
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(NTH)
-paged_decode_kernel(const T* __restrict__ q,       // [B, W, Hq, D]
-                    const T* __restrict__ k_pool,  // [NB, L, Hkv, Tb, D]
-                    const T* __restrict__ v_pool,
-                    const int* __restrict__ tbl,   // [B, nbt]
+paged_decode_kernel(const T* __restrict__ q,         // [B, W, Hq, D]
+                    const KV* __restrict__ k_pool,   // [NB, L, Hkv, Tb, D]
+                    const KV* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,  // [NB, L, Hkv, Tb] (int8 KV)
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ tbl,     // [B, nbt]
                     const int* __restrict__ pos,   // [B]
                     T* __restrict__ out,           // [B, W, Hq, D]
                     float* __restrict__ part_acc,  // [B, Hkv, S, rows, D]
                     float* __restrict__ part_ml,   // [B, Hkv, S, rows, 2]
                     int W, int Hq, int Hkv, int D, int Tb, int L, int nbt,
                     int layer, int n_splits, int tile_blocks, float scale) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  constexpr int EPC = 16 / (int)sizeof(KV);  // K/V elements per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -118,34 +131,41 @@ paged_decode_kernel(const T* __restrict__ q,       // [B, W, Hq, D]
   const int j_begin = split * per_split * tile_blocks;
   const int j_end = min(live, j_begin + per_split * tile_blocks);
 
-  const int64_t blk_stride = (int64_t)L * Hkv * Tb * D;
-  const int64_t head_off = ((int64_t)layer * Hkv + h) * Tb * D;
+  const int64_t sblk_stride = (int64_t)L * Hkv * Tb;  // scales: one per row
+  const int64_t shead_off = ((int64_t)layer * Hkv + h) * Tb;
+  const int64_t blk_stride = sblk_stride * D;
+  const int64_t head_off = shead_off * D;
   const int* trow = tbl + (int64_t)b * nbt;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int total = KT * cpr;
+  const int kcpr = D / EPC;  // 16-byte chunks per K/V row
+  const int total = KT * kcpr;
 
   for (int j0 = j_begin; j0 < j_end; j0 += tile_blocks) {
     __syncthreads();  // the previous tile is done with sK / sV / sS
     for (int base = 0; base < total; base += NTH * LOAD_UNROLL) {
       uint4 kr[LOAD_UNROLL], vr[LOAD_UNROLL];
+      float ksc[LOAD_UNROLL], vsc[LOAD_UNROLL];
 #pragma unroll
       for (int u = 0; u < LOAD_UNROLL; ++u) {
         const int i = base + u * NTH + tid;
         kr[u] = make_uint4(0u, 0u, 0u, 0u);
         vr[u] = kr[u];
+        ksc[u] = 0.f;
+        vsc[u] = 0.f;
         if (i < total) {
-          const int key = i / cpr;
-          const int c = i - key * cpr;
+          const int key = i / kcpr;
+          const int c = i - key * kcpr;
           const int blk = key / Tb;
           const int j = j0 + blk;
           if (j < j_end) {
-            const int64_t off = (int64_t)trow[j] * blk_stride + head_off +
-                                (int64_t)(key - blk * Tb) * D;
-            kr[u] = *reinterpret_cast<const uint4*>(
-                reinterpret_cast<const char*>(k_pool + off) + c * 16);
-            vr[u] = *reinterpret_cast<const uint4*>(
-                reinterpret_cast<const char*>(v_pool + off) + c * 16);
+            const int64_t row = (int64_t)trow[j] * sblk_stride + shead_off + (key - blk * Tb);
+            kr[u] = *reinterpret_cast<const uint4*>(k_pool + row * D + c * EPC);
+            vr[u] = *reinterpret_cast<const uint4*>(v_pool + row * D + c * EPC);
+            if constexpr (QUANT) {
+              ksc[u] = k_scale[row];
+              vsc[u] = v_scale[row];
+            }
           }
         }
       }
@@ -153,20 +173,25 @@ paged_decode_kernel(const T* __restrict__ q,       // [B, W, Hq, D]
       for (int u = 0; u < LOAD_UNROLL; ++u) {
         const int i = base + u * NTH + tid;
         if (i < total) {
-          const int key = i / cpr;
-          const int c = i - key * cpr;
-          uint32_t* dk = reinterpret_cast<uint32_t*>(
-              reinterpret_cast<char*>(sK + key * ds) + c * 16);
-          uint32_t* dv = reinterpret_cast<uint32_t*>(
-              reinterpret_cast<char*>(sV + key * ds) + c * 16);
-          dk[0] = kr[u].x;
-          dk[1] = kr[u].y;
-          dk[2] = kr[u].z;
-          dk[3] = kr[u].w;
-          dv[0] = vr[u].x;
-          dv[1] = vr[u].y;
-          dv[2] = vr[u].z;
-          dv[3] = vr[u].w;
+          const int key = i / kcpr;
+          const int c = i - key * kcpr;
+          T* dk = sK + key * ds + c * EPC;
+          T* dv = sV + key * ds + c * EPC;
+          if constexpr (QUANT) {
+            store_dequant16<T>(dk, kr[u], ksc[u]);
+            store_dequant16<T>(dv, vr[u], vsc[u]);
+          } else {
+            uint32_t* wk = reinterpret_cast<uint32_t*>(dk);
+            uint32_t* wv = reinterpret_cast<uint32_t*>(dv);
+            wk[0] = kr[u].x;
+            wk[1] = kr[u].y;
+            wk[2] = kr[u].z;
+            wk[3] = kr[u].w;
+            wv[0] = vr[u].x;
+            wv[1] = vr[u].y;
+            wv[2] = vr[u].z;
+            wv[3] = vr[u].w;
+          }
         }
       }
     }
@@ -278,20 +303,21 @@ paged_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T>
-int launch_paged(const void* q, const void* kp, const void* vp, const int* tbl,
-                 const int* pos, void* out, float* part_acc, float* part_ml, int B,
-                 int W, int Hq, int Hkv, int D, int Tb, int L, int nbt, int layer,
-                 int n_splits, float scale, cudaStream_t stream) {
+template <typename T, typename KV>
+int launch_paged(const void* q, const void* kp, const void* vp, const float* ks,
+                 const float* vs, const int* tbl, const int* pos, void* out,
+                 float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv, int D,
+                 int Tb, int L, int nbt, int layer, int n_splits, float scale,
+                 cudaStream_t stream) {
   const int rows = (Hq / Hkv) * W;
   const int tile_blocks = tile_blocks_for(Tb);
   const size_t smem = smem_bytes(rows, D, tile_blocks * Tb, sizeof(T));
-  cudaError_t e = allow_smem(paged_decode_kernel<T>, smem);
+  cudaError_t e = allow_smem(paged_decode_kernel<T, KV>, smem);
   if (e != cudaSuccess) return (int)e;
-  paged_decode_kernel<T><<<dim3(Hkv, B, n_splits), NTH, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      tbl, pos, static_cast<T*>(out), part_acc, part_ml, W, Hq, Hkv, D, Tb, L, nbt,
-      layer, n_splits, tile_blocks, scale);
+  paged_decode_kernel<T, KV><<<dim3(Hkv, B, n_splits), NTH, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
+      ks, vs, tbl, pos, static_cast<T*>(out), part_acc, part_ml, W, Hq, Hkv, D, Tb, L,
+      nbt, layer, n_splits, tile_blocks, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return (int)e;
   paged_combine_kernel<T><<<dim3(Hkv, B), NTH, 0, stream>>>(
@@ -309,23 +335,44 @@ size_t paged_decode_smem_bytes(int rows, int D, int Tb, int itemsize) {
   return smem_bytes(rows, D, tile_blocks_for(Tb) * Tb, itemsize);
 }
 
-// Returns cudaGetLastError() after the launches (0 = launched). With
-// n_splits > 1, part_acc [B*Hkv*n_splits*rows*D] and part_ml
-// [B*Hkv*n_splits*rows*2] are f32 scratch allocated by the caller.
-int paged_decode_attention(int dtype, const void* q, const void* k_pool,
-                           const void* v_pool, const int* tbl, const int* pos,
+// q and out in ``dtype`` (DTYPE_F32 or DTYPE_BF16); the pools in
+// ``kv_dtype``: the same, or DTYPE_INT8 with their f32 scales k_scale /
+// v_scale (null otherwise; D % 16 == 0). Returns cudaGetLastError() after
+// the launches (0 = launched). With n_splits > 1, part_acc
+// [B*Hkv*n_splits*rows*D] and part_ml [B*Hkv*n_splits*rows*2] are f32
+// scratch allocated by the caller.
+int paged_decode_attention(int dtype, int kv_dtype, const void* q, const void* k_pool,
+                           const void* v_pool, const float* k_scale,
+                           const float* v_scale, const int* tbl, const int* pos,
                            void* out, float* part_acc, float* part_ml, int B, int W,
                            int Hq, int Hkv, int D, int Tb, int L, int nbt, int layer,
                            int n_splits, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_splits < 1) return (int)cudaErrorInvalidValue;
+  if (kv_dtype == DTYPE_INT8) {
+    if (D % 16 || k_scale == nullptr || v_scale == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == DTYPE_BF16)
+      return launch_paged<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tbl,
+                                                 pos, out, part_acc, part_ml, B, W, Hq,
+                                                 Hkv, D, Tb, L, nbt, layer, n_splits,
+                                                 scale, s);
+    if (dtype == DTYPE_F32)
+      return launch_paged<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tbl, pos,
+                                         out, part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L,
+                                         nbt, layer, n_splits, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kv_dtype != dtype) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_BF16)
-    return launch_paged<__nv_bfloat16>(q, k_pool, v_pool, tbl, pos, out, part_acc,
-                                       part_ml, B, W, Hq, Hkv, D, Tb, L, nbt, layer,
-                                       n_splits, scale, s);
+    return launch_paged<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr,
+                                                      tbl, pos, out, part_acc, part_ml,
+                                                      B, W, Hq, Hkv, D, Tb, L, nbt, layer,
+                                                      n_splits, scale, s);
   if (dtype == DTYPE_F32)
-    return launch_paged<float>(q, k_pool, v_pool, tbl, pos, out, part_acc, part_ml, B,
-                               W, Hq, Hkv, D, Tb, L, nbt, layer, n_splits, scale, s);
+    return launch_paged<float, float>(q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
+                                      part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L, nbt,
+                                      layer, n_splits, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

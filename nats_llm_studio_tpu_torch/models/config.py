@@ -10,6 +10,15 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Any
 
+KV_QUANT_MODES = ("none", "int8")
+
+
+def check_kv_quant(mode: str) -> str:
+    """``mode`` if it names a KV cache storage the port serves, else raise."""
+    if mode not in KV_QUANT_MODES:
+        raise ValueError(f"kv_quant must be one of {KV_QUANT_MODES}, got {mode!r}")
+    return mode
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -39,6 +48,12 @@ class ModelConfig:
     mlp_act: str = "silu"  # "silu" | "gelu"
     norm_plus_one: bool = False
     dtype: str = "bfloat16"  # "bfloat16" (the card) or "float32" (the CPU, tests)
+    # KV cache storage: "none" (the compute dtype) or "int8" (KVQ codes plus
+    # f32 scales, ops/kvcache.py; TPU_KV_QUANT)
+    kv_quant: str = "none"
+
+    def __post_init__(self) -> None:
+        check_kv_quant(self.kv_quant)
 
     @property
     def attn_scale(self) -> float:

@@ -4,13 +4,15 @@ Port of ``nats_llm_studio_tpu/models/llama.py`` (dense FFN; MoE, the ring
 decode slot and ``decode_unroll`` are not ported yet). The layouts are the
 reference's: params are a dict of ``[L, in, out]`` stacks applied as
 ``x @ w``, row caches are ``[B, L, Hkv, S, D]`` and the paged pool is
-``[NB, L, Hkv, T, D]``. A Python loop over layers takes the place of
+``[NB, L, Hkv, T, D]``, each a tensor in the compute dtype or, under
+``kv_quant == "int8"``, a ``KVQ`` pair of int8 codes and f32 scales
+written quantized. A Python loop over layers takes the place of
 ``lax.scan``. Caches and pools are written in place (JAX gets the same
 effect from donated buffers), and the updated tensors are returned so the
 call shape matches the reference.
 
 Attention goes through an ``AttentionOps`` bundle: ``KERNELS`` (the CUDA
-kernels K1-K3, whose wrappers use their plain versions for CPU tensors) is
+kernels K1-K4, whose wrappers use their plain versions for CPU tensors) is
 the default and the only one the serving path uses; ``PLAIN`` is the dense
 reference ``chip_smoke.py`` holds the kernels against on the card.
 """
@@ -23,15 +25,24 @@ from typing import Any, Callable
 
 import torch
 
-from ..device import torch_dtype
+from ..device import resolve_device, torch_dtype
 from ..gguf.constants import GGMLType
 from ..ops.flash_attention import (
     flash_attention,
     flash_attention_chunk,
+    flash_attention_chunk_kvq,
+    flash_attention_chunk_kvq_plain,
     flash_attention_chunk_plain,
     flash_attention_plain,
 )
-from ..ops.kvcache import kv_pool_row_index, kv_pool_write_rows
+from ..ops.kvcache import (
+    KVQ,
+    is_quantized,
+    kv_pool_row_index,
+    kv_pool_write_rows,
+    kv_update_slice,
+    kv_zeros,
+)
 from ..ops.layers import (
     apply_rope,
     gqa_attention_hmajor,
@@ -50,12 +61,14 @@ Params = dict[str, Any]
 class AttentionOps:
     flash: Callable        # K2: fresh causal prefill
     chunk: Callable        # K3: chunked-prefill continuation
-    paged: Callable        # K1: paged decode
+    chunk_kvq: Callable    # K4: the same over the int8 cache
+    paged: Callable        # K1 / K1q (KVQ pool): paged decode
 
 
-KERNELS = AttentionOps(flash_attention, flash_attention_chunk, paged_decode_attention)
+KERNELS = AttentionOps(flash_attention, flash_attention_chunk, flash_attention_chunk_kvq,
+                       paged_decode_attention)
 PLAIN = AttentionOps(flash_attention_plain, flash_attention_chunk_plain,
-                     paged_decode_attention_plain)
+                     flash_attention_chunk_kvq_plain, paged_decode_attention_plain)
 
 
 def _layer(params: Params, l: int) -> Params:
@@ -102,8 +115,8 @@ def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,      # int [B, T]
-    k_cache: torch.Tensor,     # [B, L, Hkv, S, D], written in place
-    v_cache: torch.Tensor,
+    k_cache,                   # [B, L, Hkv, S, D] tensor or KVQ, written in place
+    v_cache,
     start_pos: torch.Tensor,   # int [B] — write offset per row
     attn_window: int | None = None,
     logit_positions: torch.Tensor | None = None,
@@ -114,15 +127,21 @@ def forward(
     """Positional forward: returns (logits f32 [B, T, vocab] — or
     [B, 1, vocab] with ``logit_positions`` — k_cache, v_cache).
 
-    Prefill attention, as in the reference's positional path with flash
-    attention on: a block at start 0 (``fresh_prefill``, or every start 0)
-    runs K2 over the fresh rows; a chunk continuation with ``uniform_start``
-    runs K3 over the cache slab ``[:attn_window]``; other shapes (t == 1,
-    ragged starts) use the dense oracle."""
+    The fresh rows are written into the caches first (quantized on write
+    under KVQ). Prefill attention, as in the reference's positional path
+    with flash attention on: a block at start 0 (``fresh_prefill``, or
+    every start 0) runs K2 over the raw fresh rows; a chunk continuation
+    with ``uniform_start`` runs K3 over the cache slab ``[:attn_window]``,
+    or K4 over its codes and scales under KVQ; other shapes (t == 1, ragged
+    starts) use the dense oracle, whose KVQ branch folds the scales as the
+    reference does. K3 and K4 mask any window edge, so the reference's
+    fallback for windows its kernels cannot tile (``_chunk_tileable``) has
+    no counterpart here."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not ported yet")
     b, t = tokens.shape
     s_max = k_cache.shape[3]
+    quant = is_quantized(k_cache)
     dev = tokens.device
     starts = [int(s) for s in start_pos.tolist()]
     positions = start_pos.to(dev).long()[:, None] + torch.arange(t, device=dev)[None, :]
@@ -137,7 +156,6 @@ def forward(
     # the fresh rows land at start..start+t (clamped to fit, as the
     # reference's dynamic_update_slice clamps its start)
     w0 = [min(max(s, 0), s_max - t) for s in starts]
-    uniform = all(s == w0[0] for s in w0)
 
     x = _embed(params, cfg, tokens)
     for l in range(cfg.n_layers):
@@ -146,44 +164,51 @@ def forward(
         q, k, v = _qkv(h, p, cfg, b, t)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        kh = k.transpose(1, 2).to(k_cache.dtype)  # [B, Hkv, T, D]
-        vh = v.transpose(1, 2).to(v_cache.dtype)
-        if uniform:
-            k_cache[:, l, :, w0[0]:w0[0] + t] = kh
-            v_cache[:, l, :, w0[0]:w0[0] + t] = vh
-        else:
-            for i, s0 in enumerate(w0):
-                k_cache[i, l, :, s0:s0 + t] = kh[i]
-                v_cache[i, l, :, s0:s0 + t] = vh[i]
+        kv_update_slice(k_cache, k.transpose(1, 2), l, w0)  # rows [B, Hkv, T, D]
+        kv_update_slice(v_cache, v.transpose(1, 2), l, w0)
         if flash and fresh:
             out = attn.flash(q, k, v, cfg.attn_scale)
+        elif flash and uniform_start and quant:
+            out = attn.chunk_kvq(q, k_cache.q[:, l, :, :win], k_cache.s[:, l, :, :win],
+                                 v_cache.q[:, l, :, :win], v_cache.s[:, l, :, :win],
+                                 cfg.attn_scale, starts[0])
         elif flash and uniform_start:
             out = attn.chunk(q, k_cache[:, l, :, :win], v_cache[:, l, :, :win],
                              cfg.attn_scale, starts[0])
         else:
-            out = gqa_attention_hmajor(
-                q, k_cache[:, l, :, :win].to(q.dtype), v_cache[:, l, :, :win].to(q.dtype),
-                mask, cfg.attn_scale)
+            out = gqa_attention_hmajor(q, _window(k_cache, l, win, q.dtype),
+                                       _window(v_cache, l, win, q.dtype), mask,
+                                       cfg.attn_scale)
         x = x + _scaled(mm(out.reshape(b, t, -1), p["wo"]), cfg.residual_scale)
         x = _ffn(x, p, cfg)
     return lm_head_logits(params, cfg, x, logit_positions, t), k_cache, v_cache
+
+
+def _window(cache, layer: int, win: int, dtype: torch.dtype):
+    """The attention operand [B, Hkv, win, D] of ``layer``: a slab cast to
+    the compute dtype, or the KVQ slab as it is (the dense attention folds
+    its scales)."""
+    if is_quantized(cache):
+        return KVQ(cache.q[:, layer, :, :win], cache.s[:, layer, :, :win])
+    return cache[:, layer, :, :win].to(dtype)
 
 
 def forward_decode_paged(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,     # int [B, W] — W == 1 decode
-    k_pool: torch.Tensor,     # [NB, L, Hkv, T, D], written in place
-    v_pool: torch.Tensor,
+    k_pool,                   # [NB, L, Hkv, T, D] tensor or KVQ, written in place
+    v_pool,
     tbl: torch.Tensor,        # int32 [B, NBt]
     start_pos: torch.Tensor,  # int32 [B] — tokens already in each slot
     attn: AttentionOps = KERNELS,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode forward straight over the paged pool: per layer, project,
-    rope at each slot's positions, write the W fresh rows into the pool,
-    then attend over the slot's whole paged history with K1 (write-then-
-    attend: the causal frontier includes the fresh rows). Returns
-    (logits [B, W, vocab] f32, k_pool, v_pool)."""
+    rope at each slot's positions, write the W fresh rows into the pool
+    (quantized on write into both leaves of a KVQ pool), then attend over
+    the slot's whole paged history with K1, or K1q on a KVQ pool
+    (write-then-attend: the causal frontier includes the fresh rows).
+    Returns (logits [B, W, vocab] f32, k_pool, v_pool)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not ported yet")
     b, w = tokens.shape
@@ -231,13 +256,18 @@ def ensure_lm_head(params: Params) -> Params:
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None,
-               dtype: str | None = None, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed row-cache pair [B, L, Hkv, S, D]."""
+               dtype: str | None = None, device="cuda") -> tuple[Any, Any]:
+    """Zeroed row-cache pair [B, L, Hkv, S, D] on ``device`` (the card
+    unless the caller asks for the CPU): tensors in ``dtype`` (the
+    config's by default), or KVQ pairs under ``cfg.kv_quant == "int8"``."""
+    dev = resolve_device(device)
     s = seq_len or cfg.max_seq_len
     shape = (batch, cfg.n_layers, cfg.n_kv_heads, s, cfg.head_dim)
+    if cfg.kv_quant == "int8":
+        return kv_zeros(shape, dev), kv_zeros(shape, dev)
     dt = torch_dtype(dtype or cfg.dtype)
-    return (torch.zeros(shape, dtype=dt, device=device),
-            torch.zeros(shape, dtype=dt, device=device))
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
 
 
 # -- GGUF loading -----------------------------------------------------------
@@ -279,12 +309,14 @@ def _gguf_tensor(reader, name: str, device) -> torch.Tensor:
 
 
 def load_params_from_gguf(reader, cfg: ModelConfig, dtype: str | None = None,
-                          device="cpu") -> Params:
-    """The stacked-params dict from a GGUF reader. GGUF stores weights
-    [out, in]; they are transposed to [in, out] here (on the device) so the
-    forward uses plain ``x @ w``."""
+                          device="cuda") -> Params:
+    """The stacked-params dict from a GGUF reader, on ``device`` (the card
+    unless the caller asks for the CPU). GGUF stores weights [out, in];
+    they are transposed to [in, out] here (on the device) so the forward
+    uses plain ``x @ w``."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not ported yet")
+    device = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     L = cfg.n_layers
     blocks: dict[str, torch.Tensor] = {}

@@ -41,7 +41,7 @@ _f = ctypes.c_float
 SIGNATURES = {
     "paged_attention": {
         "paged_decode_attention": (
-            [_i] + [_p] * 8 + [_i] * 10 + [_f, _p], _i),
+            [_i, _i] + [_p] * 10 + [_i] * 10 + [_f, _p], _i),
         "paged_decode_smem_bytes": ([_i, _i, _i, _i], ctypes.c_size_t),
     },
     "flash_attention": {
@@ -51,6 +51,10 @@ SIGNATURES = {
         "flash_attention_chunk": (
             [_i, _i, _p, _i64, _i64, _i64, _p, _i64, _i64, _i64,
              _p, _i64, _i64, _i64, _p, _i, _i, _i, _i, _i, _i, _f, _p], _i),
+        "flash_attention_chunk_kvq": (
+            [_i, _i, _p, _i64, _i64, _i64, _p, _i64, _i64, _i64, _p, _i64, _i64,
+             _p, _i64, _i64, _i64, _p, _i64, _i64,
+             _p, _i, _i, _i, _i, _i, _i, _f, _p], _i),
     },
 }
 
@@ -138,13 +142,16 @@ def current_stream(device) -> ctypes.c_void_p:
 
 
 def dtype_code(dtype) -> int:
+    """The kernels' code of a storage dtype (csrc/common.cuh DTYPE_*)."""
     import torch
 
     if dtype == torch.float32:
         return 0
     if dtype == torch.bfloat16:
         return 1
-    raise TypeError(f"kernels take float32 or bfloat16 tensors, got {dtype}")
+    if dtype == torch.int8:
+        return 2
+    raise TypeError(f"kernels take float32, bfloat16 or int8 tensors, got {dtype}")
 
 
 def check_launch(name: str, rc: int) -> None:

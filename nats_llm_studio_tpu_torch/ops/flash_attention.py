@@ -1,5 +1,5 @@
-"""Causal flash attention for prefill: CUDA kernels K2 and K3 and their
-plain versions.
+"""Causal flash attention for prefill: CUDA kernels K2, K3 and K4 and
+their plain versions.
 
 Port of ``nats_llm_studio_tpu/ops/flash_attention.py``:
 
@@ -7,12 +7,15 @@ Port of ``nats_llm_studio_tpu/ops/flash_attention.py``:
 * ``flash_attention_chunk`` (K3): chunked-prefill continuation, queries at
   [start, start + C) over the heads-major cache slab [B, Hkv, KW, D].
   ``start`` is a kernel argument and the kernel masks the ragged KW edge,
-  so every window is served (the JAX path needs a tileable window).
+  so every window is served (the JAX path needs a tileable window);
+* ``flash_attention_chunk_kvq`` (K4): K3 over an int8 slab, codes
+  [B, Hkv, KW, D] and f32 scales [B, Hkv, KW], dequantized tile by tile.
 
-Both launch the FA2-style kernel of ``csrc/flash_attention.cu``; the slab
-may be a strided view of the row cache (e.g. ``k_cache[:, layer, :, :win]``),
-which the kernel reads in place. Each wrapper launches its kernel for CUDA
-tensors and uses its plain version only for CPU tensors.
+All three launch the FA2-style kernel of ``csrc/flash_attention.cu``; the
+slabs may be strided views of the row cache (e.g.
+``k_cache[:, layer, :, :win]``), which the kernel reads in place. Each
+wrapper launches its kernel for CUDA tensors and uses its plain version
+only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .kvcache import KVQ, dequantize
 from .layers import NEG_INF, softmax_pv
 
 HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
@@ -56,18 +60,31 @@ def flash_attention_chunk_plain(q, k, v, scale: float, start: int) -> torch.Tens
     return softmax_pv(s, v).to(q.dtype).reshape(b, c, hq, d)
 
 
-def _check(name: str, q, k, v) -> None:
+def flash_attention_chunk_kvq_plain(q, kq, ks, vq, vs, scale: float,
+                                    start: int) -> torch.Tensor:
+    """Dense reference of K4: the int8 slabs dequantized to q's dtype
+    (codes x scale in f32, then rounded, where the kernel rounds), then
+    K3's reference."""
+    return flash_attention_chunk_plain(q, dequantize(KVQ(kq, ks), q.dtype),
+                                       dequantize(KVQ(vq, vs), q.dtype), scale, start)
+
+
+def _check(name: str, q, k, v, kv_dtype=None) -> None:
+    """Raise on operands the kernel does not take: k/v in ``kv_dtype``
+    (q's dtype by default), head_dim in HEAD_DIMS, contiguous last axes and
+    16-byte aligned rows."""
     if q.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k and v must be on one device")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k and v must share one dtype")
+    kv_dtype = kv_dtype or q.dtype
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"{name}: k and v must be {kv_dtype}, q {q.dtype}")
     d = q.shape[-1]
     if d not in HEAD_DIMS or k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
-    vec = 16 // q.element_size()  # elements per 16-byte vector load
     for tn, x in (("q", q), ("k", k), ("v", v)):
+        vec = 16 // x.element_size()  # elements per 16-byte vector load
         if x.stride(-1) != 1:
             raise ValueError(f"{name}: {tn} must be contiguous in its last axis")
         if x.data_ptr() % 16 or any(s % vec for s in x.stride()[:-1]):
@@ -125,5 +142,41 @@ def flash_attention_chunk(q, k, v, scale: float, start: int) -> torch.Tensor:
     return out
 
 
+def flash_attention_chunk_kvq(q, kq, ks, vq, vs, scale: float, start: int) -> torch.Tensor:
+    """Chunk-continuation attention over the int8 cache (K4). q: [B, C, Hq,
+    D] at positions [start, start + C); kq/vq: int8 codes [B, Hkv, KW, D];
+    ks/vs: f32 scales [B, Hkv, KW] (strided views of the row cache's codes
+    and scales are fine). Masking and junk rows as K3. Returns [B, C, Hq, D]
+    in q.dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_chunk_kvq_plain(q, kq, ks, vq, vs, scale, start)
+    name = "flash_attention_chunk_kvq"
+    _check(name, q, kq, vq, kv_dtype=torch.int8)
+    b, c, hq, d = q.shape
+    hkv, kw = kq.shape[1], kq.shape[2]
+    if kq.shape != (b, hkv, kw, d) or vq.shape != kq.shape or hq % hkv:
+        raise ValueError(f"{name}: expected q [B,C,Hq,D], codes [B,Hkv,KW,D]")
+    for tn, x in (("ks", ks), ("vs", vs)):
+        if x.device != q.device or x.dtype != torch.float32:
+            raise TypeError(f"{name}: {tn} must be float32 on {q.device}")
+        if x.shape != kq.shape[:-1] or x.stride(-1) != 1:
+            raise ValueError(f"{name}: {tn} must be [B,Hkv,KW] with a contiguous last axis")
+    out = torch.empty((b, c, hq, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library("flash_attention")
+    rc = lib.flash_attention_chunk_kvq(
+        _build.dtype_code(q.dtype), d,
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        kq.data_ptr(), kq.stride(0), kq.stride(1), kq.stride(2),
+        ks.data_ptr(), ks.stride(0), ks.stride(1),
+        vq.data_ptr(), vq.stride(0), vq.stride(1), vq.stride(2),
+        vs.data_ptr(), vs.stride(0), vs.stride(1),
+        out.data_ptr(), b, c, hq, hkv, kw, int(start), float(scale),
+        _build.current_stream(q.device))
+    _build.check_launch(name, rc)
+    flash_attention_chunk_kvq.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 flash_attention_chunk.launches = 0
+flash_attention_chunk_kvq.launches = 0

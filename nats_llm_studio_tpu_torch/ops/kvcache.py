@@ -1,31 +1,117 @@
-"""Paged KV block pool writes.
+"""KV storage: row caches and the paged block pool, in the compute dtype or
+as int8 codes with f32 scales.
 
-Port of the pool ops of ``nats_llm_studio_tpu/ops/kvcache.py`` that the
-serving path runs, for bf16 and f32 pools (the int8 KV pool is not ported
-yet). The pool is [NB, L, Hkv, T, D] with block 0 as the null block: writes
-to it are junk that the causal mask never reads.
+Port of the ops of ``nats_llm_studio_tpu/ops/kvcache.py`` that the serving
+path runs. A cache is either a tensor or a ``KVQ`` pair (int8 codes plus
+one f32 scale per position and kv-head, ``TPU_KV_QUANT=int8``); every op
+below takes both and works per leaf on a ``KVQ``. The pool is
+[NB, L, Hkv, T, D] (scales [NB, L, Hkv, T]) with block 0 as the null block:
+writes to it are junk that the causal mask never reads.
 
-JAX updates the pool through donated buffers and returns a new array; here
-the pool tensor is written in place and the same tensor is returned, so no
-copy of the pool is ever made.
+JAX updates caches through donated buffers and returns new arrays; here the
+tensors are written in place and the same objects are returned, so no copy
+of a cache or the pool is ever made.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 
-def kv_pool_zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
+@dataclass
+class KVQ:
+    """Quantized cache tensor: ``value ~= q * s[..., None]``.
+
+    q: int8 codes in the cache layout [..., S, D]
+    s: f32 scales [..., S] (one per position per kv-head)
+    """
+
+    q: torch.Tensor
+    s: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+def is_quantized(cache) -> bool:
+    return isinstance(cache, KVQ)
+
+
+def kv_zeros(shape, device) -> KVQ:
+    """Zeroed quantized cache: codes 0, scales 1, so never-written positions
+    stay harmless."""
+    return KVQ(q=torch.zeros(shape, dtype=torch.int8, device=device),
+               s=torch.ones(tuple(shape[:-1]), dtype=torch.float32, device=device))
+
+
+def quantize_rows(x: torch.Tensor) -> KVQ:
+    """Symmetric absmax int8 over the last (head_dim) axis, in the
+    reference's order of operations: s = amax / 127 (0 -> 1), codes =
+    clip(round(x / s), -127, 127), with a true division and round half to
+    even, so the codes are the JAX package's bit for bit. Written in few
+    ops, since decode quantizes every layer's rows: the f32 absmax in one
+    reduction, and x / s promotes x to f32 exactly without a cast of x."""
+    amax = torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True,
+                                    dtype=torch.float32)
+    s = amax / 127.0
+    safe = s.masked_fill(s == 0, 1.0)
+    codes = (x / safe).round_().clamp_(-127, 127).to(torch.int8)
+    return KVQ(q=codes, s=safe[..., 0])
+
+
+def dequantize(cache: KVQ, dtype: torch.dtype) -> torch.Tensor:
+    """codes x scale in f32, rounded to ``dtype`` (where the kernels round)."""
+    return (cache.q.float() * cache.s.float()[..., None]).to(dtype)
+
+
+def kv_nbytes(cache) -> int:
+    """Device bytes a cache (tensor or KVQ pair) occupies; 0 for None."""
+    if cache is None:
+        return 0
+    if is_quantized(cache):
+        return kv_nbytes(cache.q) + kv_nbytes(cache.s)
+    return cache.numel() * cache.element_size()
+
+
+def kv_pool_zeros(shape, dtype: torch.dtype, device, quant: bool = False):
+    """A zeroed pool leaf-set [NB, L, Hkv, T, D]: a tensor, or a KVQ pair."""
+    if quant:
+        return kv_zeros(shape, device)
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def kv_pool_write_row(pool: torch.Tensor, row: torch.Tensor,
-                      bids: torch.Tensor) -> torch.Tensor:
+def kv_update_slice(cache, rows: torch.Tensor, layer: int, starts: list[int]):
+    """Write fresh rows [B, Hkv, t, D] into cache[b, layer, :, starts[b]:+t]
+    (in place; the rows are quantized on write under KVQ)."""
+    if is_quantized(cache):
+        rq = quantize_rows(rows)
+        kv_update_slice(cache.q, rq.q, layer, starts)
+        kv_update_slice(cache.s, rq.s, layer, starts)
+        return cache
+    t = rows.shape[2]
+    rows = rows.to(cache.dtype)
+    if all(s == starts[0] for s in starts):
+        cache[:, layer, :, starts[0]:starts[0] + t] = rows
+    else:
+        for i, s0 in enumerate(starts):
+            cache[i, layer, :, s0:s0 + t] = rows[i]
+    return cache
+
+
+def kv_pool_write_row(pool, row, bids: torch.Tensor):
     """Write one prefilled row cache into the pool's blocks ``bids`` (in
-    place). row: [1, L, H, S', D]; bids: [nblk] int. S' <= T writes a
-    partial leading block; otherwise S' must be a multiple of T and block i
-    of the row goes to ``bids[i]``. Entries equal to 0 (the null block) are
-    skipped: they stand for blocks that must not be written."""
+    place). row: [1, L, H, S', D] (already quantized under KVQ); bids:
+    [nblk] int. S' <= T writes a partial leading block; otherwise S' must be
+    a multiple of T and block i of the row goes to ``bids[i]``. Entries
+    equal to 0 (the null block) are skipped: they stand for blocks that
+    must not be written."""
+    if is_quantized(pool):
+        kv_pool_write_row(pool.q, row.q, bids)
+        kv_pool_write_row(pool.s, row.s, bids)
+        return pool
     t = pool.shape[3]
     s = row.shape[3]
     if s <= t:
@@ -34,7 +120,7 @@ def kv_pool_write_row(pool: torch.Tensor, row: torch.Tensor,
     if s % t:
         raise ValueError(f"row length {s} not a multiple of block size {t}")
     blk = row[0].reshape(row.shape[1:3] + (s // t, t) + row.shape[4:])
-    blk = blk.movedim(2, 0)  # [nblk, L, H, T, D]
+    blk = blk.movedim(2, 0)  # [nblk, L, H, T, ...]
     bids = bids.to(device=pool.device, dtype=torch.long)
     keep = bids != 0
     pool[bids[keep]] = blk[keep].to(pool.dtype)
@@ -52,14 +138,20 @@ def kv_pool_row_index(tbl: torch.Tensor, pos: torch.Tensor, w: int,
     return torch.gather(tbl.long(), 1, vb), offs % t
 
 
-def kv_pool_write_rows(pool: torch.Tensor, rows: torch.Tensor, tbl: torch.Tensor,
-                       pos: torch.Tensor, layer: int, index=None) -> torch.Tensor:
+def kv_pool_write_rows(pool, rows: torch.Tensor, tbl: torch.Tensor,
+                       pos: torch.Tensor, layer: int, index=None):
     """Scatter W fresh [Hkv, D] rows per slot into the pool at the slot's
     positions pos..pos+W-1 of ``layer`` (in place; write-then-attend for
-    the paged-decode kernel). rows: [B, W, Hkv, D]; tbl: [B, NB]; pos: [B];
-    ``index``: a precomputed ``kv_pool_row_index`` of (tbl, pos)."""
+    the paged-decode kernel). rows: [B, W, Hkv, D] raw activations,
+    quantized on write under KVQ; tbl: [B, NB]; pos: [B]; ``index``: a
+    precomputed ``kv_pool_row_index`` of (tbl, pos)."""
     if index is None:
         index = kv_pool_row_index(tbl, pos, rows.shape[1], pool.shape[3])
     bids, off = index
+    if is_quantized(pool):
+        rq = quantize_rows(rows)
+        pool.q[bids, layer, :, off] = rq.q
+        pool.s[bids, layer, :, off] = rq.s
+        return pool
     pool[bids, layer, :, off] = rows.to(pool.dtype)
     return pool

@@ -45,23 +45,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def gqa_attention_hmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         mask: torch.Tensor, scale: float) -> torch.Tensor:
+def gqa_attention_hmajor(q: torch.Tensor, k, v, mask: torch.Tensor,
+                         scale: float) -> torch.Tensor:
     """Dense GQA attention over a heads-major cache (the oracle every
     attention kernel is held against).
 
-    q: [B, T, Hq, D]; k, v: [B, Hkv, S, D]; mask: bool [B, T, S] (True =
-    may attend). Scores and softmax in f32, probabilities cast to v's dtype
-    before the PV product. Returns [B, T, Hq, D] in q.dtype."""
+    q: [B, T, Hq, D]; k, v: [B, Hkv, S, D] in q's dtype, or int8 ``KVQ``
+    slabs (ops/kvcache.py); mask: bool [B, T, S] (True = may attend).
+    Scores and softmax in f32, probabilities cast to v's dtype before the
+    PV product. On a KVQ slab the scales fold outside the products, as in
+    the reference: K's onto the scores after the QK dot, V's into the
+    probabilities before the PV dot (so this rounds at other points than
+    the kernels, which dequantize each tile). Returns [B, T, Hq, D] in
+    q.dtype."""
+    from .kvcache import is_quantized
+
     b, t, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, t, hkv, g, d)
-    logits = torch.einsum("bthgd,bhsd->bhgts", qg.float(), k.float()) * scale
+    if is_quantized(k):
+        logits = torch.einsum("bthgd,bhsd->bhgts", qg.float(),
+                              k.q.to(q.dtype).float()) * k.s[:, :, None, None, :]
+    else:
+        logits = torch.einsum("bthgd,bhsd->bhgts", qg.float(), k.float())
+    logits = logits * scale
     logits = torch.where(mask[:, None, None, :, :], logits,
                          torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgts,bhsd->bthgd", probs.to(v.dtype).float(), v.float())
+    if is_quantized(v):
+        pv = (probs * v.s[:, :, None, None, :]).to(q.dtype)
+        out = torch.einsum("bhgts,bhsd->bthgd", pv.float(), v.q.to(q.dtype).float())
+    else:
+        out = torch.einsum("bhgts,bhsd->bthgd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype).reshape(b, t, hq, d)
 
 

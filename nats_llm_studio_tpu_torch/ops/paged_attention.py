@@ -1,16 +1,19 @@
-"""Paged-attention decode: the CUDA kernel K1 and its plain version.
+"""Paged-attention decode: the CUDA kernels K1 (bf16/f32 pool) and K1q
+(int8 pool) and their plain version.
 
 Port of ``nats_llm_studio_tpu/ops/paged_attention.py``
-``paged_decode_attention``. The kernel (``csrc/paged_attention.cu``) runs
-one CTA per (slot, kv-head, split), each walking its share of the slot's
-live blocks through the block table and reading the pool [NB, L, Hkv, T, D]
-in place at the runtime ``layer``; a second kernel merges the splits. The
-Mosaic tiling rule of the JAX path
-(``paged_decode_eligible``) does not apply: any T and any D <= 256 with
-D % 8 == 0 is served.
+``paged_decode_attention``, both branches of its ``pallas_call``. The
+kernel (``csrc/paged_attention.cu``) runs one CTA per (slot, kv-head,
+split), each walking its share of the slot's live blocks through the block
+table and reading the pool [NB, L, Hkv, T, D] in place at the runtime
+``layer``; a second kernel merges the splits. On an int8 ``KVQ`` pool
+(codes [NB, L, Hkv, T, D], f32 scales [NB, L, Hkv, T]) the same kernel body
+dequantizes each tile as it loads it. The Mosaic tiling rule of the JAX
+path (``paged_decode_eligible``) does not apply: any T and any D <= 256
+with D % 8 == 0 (D % 16 == 0 for int8 codes) is served.
 
-``paged_decode_attention`` launches the kernel for CUDA tensors and uses
-``paged_decode_attention_plain`` only for CPU tensors.
+``paged_decode_attention`` launches K1, or K1q for a KVQ pool, for CUDA
+tensors and uses ``paged_decode_attention_plain`` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .kvcache import KVQ, dequantize, is_quantized
 from .layers import NEG_INF, softmax_pv
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
@@ -34,22 +38,33 @@ def _n_splits(device, b: int, hkv: int, nbt: int, t: int) -> int:
     return max(1, min(16, tiles, -(-2 * sms // (b * hkv))))
 
 
+def _gather(pool, idx: torch.Tensor, layer: int, dtype: torch.dtype) -> torch.Tensor:
+    """The blocks ``idx`` [B, NB] of ``layer`` as a dense [B, Hkv, NB*T, D]
+    slab; a KVQ pool is dequantized to ``dtype``, as the kernel does."""
+    if is_quantized(pool):
+        x = dequantize(KVQ(pool.q[idx, layer], pool.s[idx, layer]), dtype)
+    else:
+        x = pool[idx, layer]
+    b, nb, hkv, t, d = x.shape
+    return x.permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * t, d)
+
+
 def paged_decode_attention_plain(q, k_pool, v_pool, tbl, pos, layer: int,
                                  scale: float) -> torch.Tensor:
-    """Dense reference: gather each slot's blocks of ``layer`` through its
-    table, mask keys past ``pos + w`` for query offset w, f32 scores,
-    probabilities rounded where the kernel rounds them. Same signature and
-    result as the kernel."""
+    """Dense reference of K1 and K1q: gather each slot's blocks of ``layer``
+    through its table (dequantizing a KVQ pool to q's dtype), mask keys
+    past ``pos + w`` for query offset w, f32 scores, probabilities rounded
+    where the kernel rounds them. Same signature and result as the
+    kernel."""
     b, w, hq, d = q.shape
-    hkv, t = k_pool.shape[2], k_pool.shape[3]
+    hkv = k_pool.shape[2]
     g = hq // hkv
-    nb = tbl.shape[1]
     idx = tbl.long()
-    kk = k_pool[idx, layer].permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * t, d)
-    vv = v_pool[idx, layer].permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * t, d)
+    kk = _gather(k_pool, idx, layer, q.dtype)
+    vv = _gather(v_pool, idx, layer, q.dtype)
     qg = q.reshape(b, w, hkv, g, d)
     s = torch.einsum("bwhgd,bhsd->bhgws", qg.float(), kk.float()) * scale
-    key = torch.arange(nb * t, device=q.device)
+    key = torch.arange(kk.shape[2], device=q.device)
     front = pos.long()[:, None] + torch.arange(w, device=q.device)[None, :]
     mask = key[None, None, :] <= front[:, :, None]  # [B, W, S]
     s = torch.where(mask[:, None, None], s, torch.full((), NEG_INF, device=q.device))
@@ -58,46 +73,90 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tbl, pos, layer: int,
 
 def paged_decode_attention(q, k_pool, v_pool, tbl, pos, layer: int,
                            scale: float) -> torch.Tensor:
-    """Attention of W new tokens per slot over its whole paged history.
+    """Attention of W new tokens per slot over its whole paged history
+    (K1; K1q when the pools are KVQ pairs).
 
     q: [B, W, Hq, D]; k_pool/v_pool: [NB, L, Hkv, T, D] in q's dtype (bf16
-    or f32), already holding the W fresh rows (write-then-attend); tbl:
-    [B, NBt] int32 block ids; pos: [B] int32 first query position; layer:
-    int. Returns [B, W, Hq, D] in q.dtype."""
+    or f32), or KVQ pairs of int8 codes [NB, L, Hkv, T, D] and f32 scales
+    [NB, L, Hkv, T], already holding the W fresh rows (write-then-attend);
+    tbl: [B, NBt] int32 block ids; pos: [B] int32 first query position;
+    layer: int. Returns [B, W, Hq, D] in q.dtype."""
+    if is_quantized(k_pool) or is_quantized(v_pool):
+        return paged_decode_attention_kvq(q, k_pool, v_pool, tbl, pos, layer, scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tbl, pos, layer, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"paged_decode_attention: unsupported device {q.device}")
-    b, w, hq, d = q.shape
-    nbp, n_layers, hkv, t, dp = k_pool.shape
-    for name, x in (("k_pool", k_pool), ("v_pool", v_pool), ("tbl", tbl), ("pos", pos)):
-        if x.device != q.device:
-            raise ValueError(f"paged_decode_attention: {name} on {x.device}, q on {q.device}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError("paged_decode_attention: q and both pools must share one dtype")
-    if v_pool.shape != k_pool.shape or dp != d:
-        raise ValueError("paged_decode_attention: pool shapes do not match q")
+    out = torch.empty_like(q)
+    _launch("paged_decode_attention", q, k_pool, v_pool, None, None, tbl, pos, layer,
+            scale, out)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention_kvq(q, k_pool: KVQ, v_pool: KVQ, tbl, pos, layer: int,
+                               scale: float) -> torch.Tensor:
+    """K1q: ``paged_decode_attention`` over an int8 KVQ pool. Each tile's
+    codes are taken as signed int8, multiplied by their f32 scale and
+    rounded to q's dtype before the products, as the JAX kernel does."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, tbl, pos, layer, scale)
+    name = "paged_decode_attention_kvq"
+    if not (is_quantized(k_pool) and is_quantized(v_pool)):
+        raise TypeError(f"{name}: both pools must be KVQ pairs")
+    for tn, x in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if x.q.dtype != torch.int8 or x.s.dtype != torch.float32:
+            raise TypeError(f"{name}: {tn} must hold int8 codes and float32 scales")
+        if x.s.shape != x.q.shape[:-1]:
+            raise ValueError(f"{name}: {tn} scales {tuple(x.s.shape)} do not match codes "
+                             f"{tuple(x.q.shape)}")
+    if q.shape[-1] % 16:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} must be a multiple of 16 for "
+                         f"16-byte loads of int8 codes")
+    out = torch.empty_like(q)
+    _launch(name, q, k_pool.q, v_pool.q, k_pool.s, v_pool.s, tbl, pos, layer, scale, out)
+    paged_decode_attention_kvq.launches += 1
+    return out
+
+
+def _launch(name: str, q, kp, vp, ks, vs, tbl, pos, layer: int, scale: float, out) -> None:
+    """Check the operands and launch the decode kernel (and the split
+    merge) on the current stream. kp/vp: pools in q's dtype with ks/vs
+    None, or int8 codes with their f32 scales."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {q.device}")
+    b, w, hq, d = q.shape
+    nbp, n_layers, hkv, t, dp = kp.shape
+    operands = [("k_pool", kp), ("v_pool", vp), ("tbl", tbl), ("pos", pos)]
+    if ks is not None:
+        operands += [("k_scales", ks), ("v_scales", vs)]
+    for tn, x in operands:
+        if x.device != q.device:
+            raise ValueError(f"{name}: {tn} on {x.device}, q on {q.device}")
+    if vp.shape != kp.shape or dp != d:
+        raise ValueError(f"{name}: pool shapes do not match q")
     if hq % hkv:
-        raise ValueError(f"paged_decode_attention: Hq={hq} not a multiple of Hkv={hkv}")
+        raise ValueError(f"{name}: Hq={hq} not a multiple of Hkv={hkv}")
     if d > 256 or d % 8:
-        raise ValueError(f"paged_decode_attention: head_dim {d} must be <= 256 and a multiple of 8")
+        raise ValueError(f"{name}: head_dim {d} must be <= 256 and a multiple of 8")
     if tbl.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("paged_decode_attention: tbl and pos must be int32")
+        raise TypeError(f"{name}: tbl and pos must be int32")
     if tbl.dim() != 2 or tbl.shape[0] != b or pos.shape != (b,):
-        raise ValueError("paged_decode_attention: tbl must be [B, NB] and pos [B]")
+        raise ValueError(f"{name}: tbl must be [B, NB] and pos [B]")
     if not 0 <= layer < n_layers:
-        raise ValueError(f"paged_decode_attention: layer {layer} outside [0, {n_layers})")
-    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("tbl", tbl), ("pos", pos)):
+        raise ValueError(f"{name}: layer {layer} outside [0, {n_layers})")
+    for tn, x in [("q", q)] + operands:
         if not x.is_contiguous():
-            raise ValueError(f"paged_decode_attention: {name} must be contiguous")
+            raise ValueError(f"{name}: {tn} must be contiguous")
+        if tn in ("q", "k_pool", "v_pool") and x.data_ptr() % 16:
+            raise ValueError(f"{name}: {tn} must be 16-byte aligned")
     lib = _build.load_library("paged_attention")
     rows = (hq // hkv) * w
     smem = lib.paged_decode_smem_bytes(rows, d, t, q.element_size())
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"paged_decode_attention: {smem} bytes of shared memory needed "
+            f"{name}: {smem} bytes of shared memory needed "
             f"(rows={rows}, T={t}, D={d}); the card allows {SMEM_LIMIT}")
-    out = torch.empty_like(q)
     splits = _n_splits(q.device, b, hkv, tbl.shape[1], t)
     part_acc = part_ml = None
     if splits > 1:  # per-split accumulators and (max, sum), merged on the card
@@ -106,15 +165,17 @@ def paged_decode_attention(q, k_pool, v_pool, tbl, pos, layer: int,
         part_ml = torch.empty(b * hkv * splits * rows * 2, dtype=torch.float32,
                               device=q.device)
     rc = lib.paged_decode_attention(
-        _build.dtype_code(q.dtype), q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), tbl.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        _build.dtype_code(q.dtype), _build.dtype_code(kp.dtype), q.data_ptr(),
+        kp.data_ptr(), vp.data_ptr(),
+        ks.data_ptr() if ks is not None else None,
+        vs.data_ptr() if vs is not None else None,
+        tbl.data_ptr(), pos.data_ptr(), out.data_ptr(),
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
         b, w, hq, hkv, d, t, n_layers, tbl.shape[1], int(layer), splits, float(scale),
         _build.current_stream(q.device))
-    _build.check_launch("paged_decode_attention", rc)
-    paged_decode_attention.launches += 1
-    return out
+    _build.check_launch(name, rc)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention_kvq.launches = 0

@@ -18,6 +18,10 @@ program names in ``stats.program_ms`` and the same admit regimes:
   plus ``sample_rows`` (``decode_pos_pallas``), with each slot's block
   table grown ahead of the burst.
 
+Under ``cfg.kv_quant == "int8"`` the pool and the transient row caches are
+KVQ pairs (int8 codes + f32 scales): rows are quantized as they are
+written, later chunks run K4 instead of K3, and decode runs K1q.
+
 One owner thread drives the device; asyncio callers talk to it through
 thread-safe queues. PyTorch runs eagerly, so a burst is a Python loop of
 steps (the reference scans them on device); kernel launches queue on the
@@ -52,7 +56,7 @@ from ..models.llama import (
     forward_decode_paged,
     make_cache,
 )
-from ..ops.kvcache import kv_pool_write_row, kv_pool_zeros
+from ..ops.kvcache import kv_nbytes, kv_pool_write_row, kv_pool_zeros
 from .block_pool import BlockPool
 
 log = logging.getLogger(__name__)
@@ -158,6 +162,8 @@ class ContinuousBatcher:
         self.blocks_per_row = self.max_seq // T
         # every slot at max_seq, +1 for the null block 0
         self._pool = BlockPool(max_slots * self.blocks_per_row + 1, T)
+        # the pool pair [NB, L, Hkv, T, D], written in place by every program
+        self._kv = self._new_kv_pool()
         self.stats = BatcherStats()
 
         self._admit_fused_paged = self._timed("admit_fused_paged", self._admit_fused_paged_fn)
@@ -295,8 +301,19 @@ class ContinuousBatcher:
             and self._wl_len == 0
         )
 
+    def _new_kv_pool(self) -> tuple:
+        cfg = self.cfg
+        shape = (self._pool.n_blocks, cfg.n_layers, cfg.n_kv_heads, self.kv_block_tokens,
+                 cfg.head_dim)
+        return tuple(kv_pool_zeros(shape, torch_dtype(cfg.dtype), self.device,
+                                   quant=cfg.kv_quant == "int8") for _ in range(2))
+
     def pool_stats(self) -> dict:
-        return self._pool.stats()
+        """Block counters, the KV mode and the device bytes of the K and V
+        pools."""
+        kp, vp = self._kv
+        return {**self._pool.stats(), "kv_quant": self.cfg.kv_quant,
+                "bytes": kv_nbytes(kp) + kv_nbytes(vp)}
 
     # -- submission ----------------------------------------------------------
 
@@ -386,11 +403,7 @@ class ContinuousBatcher:
         T = self.kv_block_tokens
         MB = self.blocks_per_row
         dev = self.device
-        dt = torch_dtype(cfg.dtype)
-        shape = (pool.n_blocks, cfg.n_layers, cfg.n_kv_heads, T, cfg.head_dim)
-        # the pool pair [NB, L, Hkv, T, D], written in place by every program
-        KP = kv_pool_zeros(shape, dt, dev)
-        VP = kv_pool_zeros(shape, dt, dev)
+        KP, VP = self._kv
         tables: list[list[int]] = [[] for _ in range(B)]
         tbl_dev = torch.zeros((B, MB), dtype=torch.int32, device=dev)
         table_dirty = False
@@ -625,8 +638,7 @@ class ContinuousBatcher:
                 tables[i] = []
             pool.reset()
             table_dirty = True
-            KP = kv_pool_zeros(shape, dt, dev)
-            VP = kv_pool_zeros(shape, dt, dev)
+            KP, VP = self._kv = self._new_kv_pool()
             tok_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
 
         while True:

@@ -26,7 +26,7 @@ from ..device import default_dtype, resolve_device
 from ..engine.generator import GenStats, SamplingParams
 from ..gguf.reader import is_split_shard, open_gguf
 from ..gguf.tokenizer import GGUFTokenizer
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, check_kv_quant
 from ..models.llama import ensure_lm_head, load_params_from_gguf
 from ..utils.nuid import next_nuid
 from .api import ChatEngine, EngineError, ModelNotFound, Registry
@@ -182,6 +182,7 @@ class TorchChatEngine(ChatEngine):
             "max_context_length": self.cfg.max_seq_len,
             "loaded_context_length": self.batcher.max_seq,
             "batch_slots": self.batcher.max_slots,
+            "kv_quant": self.cfg.kv_quant,
         }
 
     async def unload(self) -> None:
@@ -207,10 +208,14 @@ class TorchRegistry(Registry):
 
     ``device`` defaults to "cuda" and raises when no card is visible; the
     CPU is used only when the caller passes ``device="cpu"``. The compute
-    dtype follows the device: bf16 on the card, f32 on the CPU."""
+    dtype follows the device: bf16 on the card, f32 on the CPU.
+    ``kv_quant`` ("none" or "int8", ``TPU_KV_QUANT``) picks the KV cache's
+    storage for every model loaded."""
 
     def __init__(self, models_dir: str | Path, device: str = "cuda",
-                 max_seq_len: int | None = None, max_batch_slots: int = 8):
+                 max_seq_len: int | None = None, max_batch_slots: int = 8,
+                 kv_quant: str = "none"):
+        self.kv_quant = check_kv_quant(kv_quant)
         self.device = resolve_device(device)
         self.models_dir = Path(models_dir).expanduser()
         self.dtype = default_dtype(self.device)
@@ -265,7 +270,8 @@ class TorchRegistry(Registry):
         split = sorted(p for p in paths if is_split_shard(p))
         reader = open_gguf(split[0] if split else paths[0])
         try:
-            cfg = ModelConfig.from_gguf_metadata(reader.metadata).with_(dtype=self.dtype)
+            cfg = ModelConfig.from_gguf_metadata(reader.metadata).with_(
+                dtype=self.dtype, kv_quant=self.kv_quant)
             if cfg.is_moe:
                 raise EngineError(f"{model_id}: MoE models are not served by this worker")
             tokenizer = GGUFTokenizer.from_metadata(reader.metadata)
@@ -278,8 +284,8 @@ class TorchRegistry(Registry):
         batcher = ContinuousBatcher(params, cfg, max_slots=self.max_batch_slots,
                                     max_seq_len=self.max_seq_len)
         batcher.start()
-        log.info("loaded %s in %.1fs (%s, %s, %s)", model_id,
-                 time.perf_counter() - t0, cfg.arch, self.dtype, self.device)
+        log.info("loaded %s in %.1fs (%s, %s, kv %s, %s)", model_id,
+                 time.perf_counter() - t0, cfg.arch, self.dtype, cfg.kv_quant, self.device)
         return TorchChatEngine(model_id, batcher, tokenizer, cfg, meta,
                                quantization="/".join(sorted(quant)))
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from nats_llm_studio_tpu_torch.ops import flash_attention as fa
+from nats_llm_studio_tpu_torch.ops import kvcache as kv
 from nats_llm_studio_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -32,6 +33,23 @@ def gen():
 
 def _rn(gen, *shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def _kvq(gen, *shape):
+    """An int8 KVQ tensor quantized from standard normal f32 draws (the
+    draws of the bf16 cases above, so outputs stay where one bf16 ulp is
+    below the 2e-2 tolerance)."""
+    return kv.quantize_rows(torch.randn(shape, generator=gen, device="cuda"))
+
+
+def _table(b, nbt, w, t):
+    """Block tables of b slots over blocks 1.., the last slot all null
+    blocks, and positions from short to nearly full."""
+    tbl = torch.arange(1, 1 + b * nbt, dtype=torch.int32, device="cuda").reshape(b, nbt)
+    tbl[-1] = 0
+    pos = torch.tensor([min(nbt * t - w, 5 + 37 * i + (nbt * t * 3) // 4 * (i % 2))
+                        for i in range(b)], dtype=torch.int32, device="cuda")
+    return tbl, pos
 
 
 def _check(got, want, dtype):
@@ -98,3 +116,67 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fa.flash_attention(q, q, q, 0.1)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q.float(), q, 0.1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,w,hq,hkv,d,t,layers,nbt,layer", [
+    (3, 1, 4, 2, 64, 16, 2, 8, 1),
+    (3, 3, 8, 2, 128, 16, 3, 8, 2),
+    (2, 2, 32, 8, 128, 32, 2, 4, 0),
+    (1, 4, 32, 8, 128, 16, 2, 256, 1),   # one slot: many splits
+    (8, 1, 32, 8, 128, 16, 2, 64, 1),
+    (2, 4, 8, 2, 64, 32, 2, 20, 1),
+])
+def test_paged_decode_kvq_kernel_matches_plain(gen, dtype, b, w, hq, hkv, d, t, layers, nbt,
+                                               layer):
+    """K1q over an int8 pool whose null block holds codes 0 and scales 1."""
+    nb = 1 + b * nbt
+    kp, vp = _kvq(gen, nb, layers, hkv, t, d), _kvq(gen, nb, layers, hkv, t, d)
+    for p in (kp, vp):
+        p.q[0], p.s[0] = 0, 1.0
+    tbl, pos = _table(b, nbt, w, t)
+    q = _rn(gen, b, w, hq, d, dtype=dtype)
+    before = (pa.paged_decode_attention.launches, pa.paged_decode_attention_kvq.launches)
+    got = pa.paged_decode_attention(q, kp, vp, tbl, pos, layer, d ** -0.5)
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_decode_attention_kvq.launches) == (before[0], before[1] + 1)
+    _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos, layer, d ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,c,hq,hkv,d,kw,s,start", [
+    (2, 16, 4, 2, 64, 70, 96, 24),        # ragged window edge
+    (1, 256, 32, 8, 128, 1000, 1024, 700),
+    (2, 100, 8, 8, 128, 512, 512, 300),
+    (1, 64, 4, 2, 64, 200, 256, 0),
+])
+def test_flash_chunk_kvq_kernel_matches_plain(gen, dtype, b, c, hq, hkv, d, kw, s, start):
+    """K4 over strided views [:, 1, :, :kw] of an int8 row cache."""
+    kc, vc = _kvq(gen, b, 3, hkv, s, d), _kvq(gen, b, 3, hkv, s, d)
+    q = _rn(gen, b, c, hq, d, dtype=dtype)
+    args = (q, kc.q[:, 1, :, :kw], kc.s[:, 1, :, :kw], vc.q[:, 1, :, :kw], vc.s[:, 1, :, :kw],
+            d ** -0.5, start)
+    before = fa.flash_attention_chunk_kvq.launches
+    got = fa.flash_attention_chunk_kvq(*args)
+    assert fa.flash_attention_chunk_kvq.launches == before + 1
+    _check(got, fa.flash_attention_chunk_kvq_plain(*args), dtype)
+
+
+def test_kvq_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = _rn(gen, 1, 1, 4, 64, dtype=torch.bfloat16)
+    pool = _kvq(gen, 3, 1, 2, 16, 64)
+    tbl = torch.ones((1, 2), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    bad = kv.KVQ(pool.q, pool.s[..., :8].contiguous())  # scales of the wrong shape
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q, bad, pool, tbl, pos, 0, 0.1)
+    q40, pool40 = _rn(gen, 1, 1, 4, 40, dtype=torch.bfloat16), _kvq(gen, 3, 1, 2, 16, 40)
+    with pytest.raises(ValueError):  # D % 16 != 0: no 16-byte loads of codes
+        pa.paged_decode_attention(q40, pool40, pool40, tbl, pos, 0, 0.1)
+    qc = _rn(gen, 1, 8, 4, 64, dtype=torch.bfloat16)
+    slab = _kvq(gen, 1, 2, 32, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention_chunk_kvq(qc, slab.q, slab.s[..., :31], slab.q, slab.s, 0.1, 8)
+    qc40, slab40 = _rn(gen, 1, 8, 4, 40, dtype=torch.bfloat16), _kvq(gen, 1, 2, 32, 40)
+    with pytest.raises(ValueError):
+        fa.flash_attention_chunk_kvq(qc40, slab40.q, slab40.s, slab40.q, slab40.s, 0.1, 8)

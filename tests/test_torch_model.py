@@ -3,9 +3,13 @@ package's on one tiny F32 GGUF, loaded by both packages.
 
 Logits must agree within 2e-4 (the tolerance of tests/test_hf_parity.py)
 for a fresh prefill, a two-chunk continuation and three paged decode
-steps. The JAX side runs with flash attention on, so its Pallas kernels run
-in interpret mode; the port's kernel wrappers run their plain versions on
-CPU tensors. TF32 is switched off so no f32 matmul is rounded.
+steps, each with the KV cache in f32 ("none") and as int8 codes with f32
+scales ("int8", TPU_KV_QUANT=int8). The JAX side runs with flash attention
+on, so its Pallas kernels run in interpret mode; the port's kernel wrappers
+run their plain versions on CPU tensors. TF32 is switched off so no f32
+matmul is rounded. Under int8 the two packages quantize slightly different
+f32 rows, so a code may differ by one step where a row sits on a rounding
+edge: caches are compared code by code within one step.
 """
 
 import jax
@@ -18,10 +22,12 @@ from nats_llm_studio_tpu.gguf.reader import open_gguf as j_open_gguf
 from nats_llm_studio_tpu.models import llama as jllama
 from nats_llm_studio_tpu.models.config import ModelConfig as JConfig
 from nats_llm_studio_tpu.models.export import export_params_to_gguf
+from nats_llm_studio_tpu.ops import kvcache as jkv
 from nats_llm_studio_tpu_torch.gguf.reader import open_gguf as t_open_gguf
 from nats_llm_studio_tpu_torch.models import llama as tllama
 from nats_llm_studio_tpu_torch.models.config import ModelConfig as TConfig
-from nats_llm_studio_tpu_torch.models.convert import params_from_numpy
+from nats_llm_studio_tpu_torch.models.convert import kvq_from_numpy, params_from_numpy
+from nats_llm_studio_tpu_torch.ops.kvcache import is_quantized
 
 torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
 torch.backends.cudnn.allow_tf32 = False
@@ -46,8 +52,34 @@ def models(tmp_path_factory):
     return jcfg, jparams, tcfg, tparams, jparams0
 
 
+KV_MODES = ["none", "int8"]
+
+
 def _tokens(n, seed):
     return np.random.default_rng(seed).integers(1, 500, size=(1, n)).astype(np.int32)
+
+
+def _with_kv(models, kv_quant):
+    jcfg, jparams, tcfg, tparams, _ = models
+    return jcfg.with_(kv_quant=kv_quant), jparams, tcfg.with_(kv_quant=kv_quant), tparams
+
+
+def _to_torch(cache):
+    """A JAX cache or pool (array or KVQ) as the port's, on the CPU."""
+    if jkv.is_quantized(cache):
+        return kvq_from_numpy(np.asarray(cache.q), np.asarray(cache.s), "cpu")
+    return torch.from_numpy(np.array(cache))
+
+
+def _assert_cache_close(got, want, sl=np.s_[...]):
+    """Caches agree: f32 values within TOL, or int8 codes within one step
+    and scales within TOL."""
+    if is_quantized(got):
+        dq = np.abs(got.q.numpy()[sl].astype(np.int32) - np.asarray(want.q)[sl].astype(np.int32))
+        assert dq.max() <= 1
+        np.testing.assert_allclose(got.s.numpy()[sl], np.asarray(want.s)[sl], **TOL)
+    else:
+        np.testing.assert_allclose(got.numpy()[sl], np.asarray(want)[sl], **TOL)
 
 
 def test_params_from_numpy_matches_gguf_load(models):
@@ -59,26 +91,31 @@ def test_params_from_numpy_matches_gguf_load(models):
     np.testing.assert_array_equal(conv["lm_head"].numpy(), tparams["lm_head"].numpy())
 
 
-def test_fresh_prefill_logits(models):
-    jcfg, jparams, tcfg, tparams, _ = models
+@pytest.mark.parametrize("kv_quant", KV_MODES)
+def test_fresh_prefill_logits(models, kv_quant):
+    jcfg, jparams, tcfg, tparams = _with_kv(models, kv_quant)
     toks = _tokens(21, 0)
     jk, jv = jllama.make_cache(jcfg, 1, S)
-    want, _, _ = jllama.forward(jparams, jcfg, jnp.asarray(toks), jk, jv,
-                                jnp.zeros((1,), jnp.int32), fresh_prefill=True)
-    tk, tv = tllama.make_cache(tcfg, 1, S)
+    want, jk, _ = jllama.forward(jparams, jcfg, jnp.asarray(toks), jk, jv,
+                                 jnp.zeros((1,), jnp.int32), fresh_prefill=True)
+    tk, tv = tllama.make_cache(tcfg, 1, S, device="cpu")
     got, tk, _ = tllama.forward(tparams, tcfg, torch.from_numpy(toks), tk, tv,
                                 torch.zeros((1,), dtype=torch.int32), fresh_prefill=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert is_quantized(tk) == (kv_quant == "int8")
+    _assert_cache_close(tk, jk)
 
 
-def test_two_chunk_continuation_logits(models):
+@pytest.mark.parametrize("kv_quant", KV_MODES)
+def test_two_chunk_continuation_logits(models, kv_quant):
     """First chunk at start 0 (K2 branch), second at start 16 over a
-    32-token window (K3 branch), each returning the chunk-end logits."""
-    jcfg, jparams, tcfg, tparams, _ = models
+    32-token window (K3 branch, K4 under int8), each returning the
+    chunk-end logits."""
+    jcfg, jparams, tcfg, tparams = _with_kv(models, kv_quant)
     toks = _tokens(28, 1)
     C, n = 16, 28
     jk, jv = jllama.make_cache(jcfg, 1, S)
-    tk, tv = tllama.make_cache(tcfg, 1, S)
+    tk, tv = tllama.make_cache(tcfg, 1, S, device="cpu")
     for start in (0, 16):
         chunk = np.zeros((1, C), np.int32)
         part = toks[:, start:start + C]
@@ -93,18 +130,21 @@ def test_two_chunk_continuation_logits(models):
             torch.full((1,), start, dtype=torch.int32), attn_window=32,
             logit_positions=torch.tensor([last]), uniform_start=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(tk.numpy()[:, :, :, :n], np.asarray(jk)[:, :, :, :n], **TOL)
+    _assert_cache_close(tk, jk, np.s_[:, :, :, :n])
 
 
-def test_three_paged_decode_steps(models):
+@pytest.mark.parametrize("kv_quant", KV_MODES)
+def test_three_paged_decode_steps(models, kv_quant):
     """Two slots at different lengths, prefilled into pool blocks, then
-    three forward_decode_paged steps through the paged-decode kernels."""
-    jcfg, jparams, tcfg, tparams, _ = models
+    three forward_decode_paged steps through the paged-decode kernels (K1,
+    or K1q over an int8 pool)."""
+    jcfg, jparams, tcfg, tparams = _with_kv(models, kv_quant)
     T, nbt = 8, 4
     nb = 1 + 2 * nbt
     shape = (nb, jcfg.n_layers, jcfg.n_kv_heads, T, jcfg.head_dim)
-    jkp, jvp = jnp.zeros(shape, jnp.float32), jnp.zeros(shape, jnp.float32)
-    tkp, tvp = torch.zeros(shape), torch.zeros(shape)
+    quant = kv_quant == "int8"
+    jkp = jkv.kv_pool_zeros(shape, jnp.float32, quant=quant)
+    jvp = jkv.kv_pool_zeros(shape, jnp.float32, quant=quant)
     tbl = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
     lens = [13, 6]
     for i, n in enumerate(lens):
@@ -115,8 +155,7 @@ def test_three_paged_decode_steps(models):
         # the row's first n tokens are the prompt; junk past n is masked
         jkp = jkv_write(jkp, jk, tbl[i, :2])
         jvp = jkv_write(jvp, jv, tbl[i, :2])
-    tkp.copy_(torch.from_numpy(np.array(jkp)))
-    tvp.copy_(torch.from_numpy(np.array(jvp)))
+    tkp, tvp = _to_torch(jkp), _to_torch(jvp)
     pos = np.array(lens, np.int32)
     tok = np.array([[7], [9]], np.int32)
     for step in range(3):
@@ -127,10 +166,8 @@ def test_three_paged_decode_steps(models):
             torch.from_numpy(pos + step))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         tok = np.asarray(want)[:, -1].argmax(-1).astype(np.int32)[:, None]
-    np.testing.assert_allclose(tkp.numpy()[1:], np.asarray(jkp)[1:], **TOL)
+    _assert_cache_close(tkp, jkp, np.s_[1:])
 
 
 def jkv_write(pool, row, bids):
-    from nats_llm_studio_tpu.ops.kvcache import kv_pool_write_row
-
-    return kv_pool_write_row(pool, row, jnp.asarray(bids))
+    return jkv.kv_pool_write_row(pool, row, jnp.asarray(bids))

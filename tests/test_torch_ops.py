@@ -169,14 +169,19 @@ def test_sample_rows_is_per_row_deterministic():
 
 def test_kernel_wrappers_leave_counters_at_zero_on_cpu():
     rng = np.random.default_rng(8)
-    before = (tpaged.paged_decode_attention.launches, tflash.flash_attention.launches,
-              tflash.flash_attention_chunk.launches)
+    counters = (tpaged.paged_decode_attention, tpaged.paged_decode_attention_kvq,
+                tflash.flash_attention, tflash.flash_attention_chunk,
+                tflash.flash_attention_chunk_kvq)
+    before = tuple(f.launches for f in counters)
     q = _t(_rand(rng, 1, 8, 2, 16))
     tflash.flash_attention(q, q, q, 0.25)
     tflash.flash_attention_chunk(q, q.transpose(1, 2), q.transpose(1, 2), 0.25, 0)
+    kq = tkv.quantize_rows(q.transpose(1, 2))
+    tflash.flash_attention_chunk_kvq(q, kq.q, kq.s, kq.q, kq.s, 0.25, 0)
     pool = _t(_rand(rng, 2, 1, 2, 8, 16))
-    tpaged.paged_decode_attention(q[:, :1], pool, pool, torch.ones((1, 1), dtype=torch.int32),
-                                  torch.zeros((1,), dtype=torch.int32), 0, 0.25)
-    after = (tpaged.paged_decode_attention.launches, tflash.flash_attention.launches,
-             tflash.flash_attention_chunk.launches)
-    assert before == after == (0, 0, 0)
+    tbl, pos = torch.ones((1, 1), dtype=torch.int32), torch.zeros((1,), dtype=torch.int32)
+    tpaged.paged_decode_attention(q[:, :1], pool, pool, tbl, pos, 0, 0.25)
+    qpool = tkv.quantize_rows(pool)
+    tpaged.paged_decode_attention(q[:, :1], qpool, qpool, tbl, pos, 0, 0.25)
+    after = tuple(f.launches for f in counters)
+    assert before == after == (0,) * len(counters)

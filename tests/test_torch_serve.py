@@ -29,6 +29,9 @@ from nats_llm_studio_tpu.models.export import export_params_to_gguf
 from nats_llm_studio_tpu.serve.registry import JaxChatEngine
 from nats_llm_studio_tpu.serve.template import render_chat_template, stop_token_ids
 from nats_llm_studio_tpu_torch.config import WorkerConfig
+from nats_llm_studio_tpu_torch.gguf.reader import open_gguf as t_open_gguf
+from nats_llm_studio_tpu_torch.models import llama as tllama
+from nats_llm_studio_tpu_torch.models.config import ModelConfig as TConfig
 from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
 from nats_llm_studio_tpu_torch.serve.worker import Worker
 from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, connect
@@ -191,3 +194,23 @@ def test_registry_without_device_raises_when_no_card(tmp_path):
         pytest.skip("a CUDA device is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchRegistry(tmp_path)
+
+
+@pytest.mark.parametrize("entry", ["make_cache", "load_params_from_gguf"])
+def test_model_entry_points_without_device_raise_when_no_card(tmp_path, entry):
+    """The model's public functions default to the card too: without one
+    they raise unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    if entry == "make_cache":
+        cfg = TConfig.tiny(n_layers=1)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tllama.make_cache(cfg, 1, 8)
+        k, _ = tllama.make_cache(cfg, 1, 8, device="cpu")
+        assert k.device.type == "cpu"
+        return
+    with t_open_gguf(str(_export(tmp_path / "models"))) as r:
+        cfg = TConfig.from_gguf_metadata(r.metadata).with_(dtype="float32")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tllama.load_params_from_gguf(r, cfg)
+        assert tllama.load_params_from_gguf(r, cfg, device="cpu")["embed"].device.type == "cpu"
