@@ -1,5 +1,5 @@
 // Causal flash attention for prefill on Hopper (sm_90a): three entry
-// points over one kernel template.
+// points over two kernel bodies.
 //
 // Replaces the TPU kernels of nats_llm_studio_tpu/ops/flash_attention.py:
 //  * flash_attention (body _flash_kernel): causal self-attention over a
@@ -14,33 +14,59 @@
 //    continuation over the int8 cache, codes [B, Hkv, KW, D] with f32
 //    scales [B, Hkv, KW], each K/V tile dequantized as it is copied into
 //    shared memory (code x scale in f32, rounded to q's dtype, as the JAX
-//    kernel does), so no dequantized slab ever reaches device memory.
+//    kernels do), so no dequantized slab ever reaches device memory.
 // All three are the same computation with different strides, a query
-// offset and a storage type KV for K and V (q's dtype, or int8_t with a
-// scale pointer that is null otherwise), so all launch flash_fwd_kernel;
-// only the wrappers (and their launch counters) differ.
+// offset and a storage type KV for K and V; only the wrappers (and their
+// launch counters) differ.
 //
 // What bounds it on the H100: operations. Prefill attention does
 // 4 x Tq x Tk x D x Hq / 2 flops (causal) on O((Tq + Tk) x D) bytes, far
-// above the ~295 flops/byte where the memory stops being the limit.
+// above the ~295 flops/byte where the memory stops being the limit, so the
+// products belong on the tensor cores.
 //
-// What the design does about it (FA2-style): one CTA per (query tile of 64
-// rows, q-head, batch row); the CTA loops over 64-key tiles with the
-// f32 running max / sum / accumulator of the online softmax kept in
-// registers and shared memory, so the [Tq, Tk] score matrix never reaches
-// device memory; causally dead key tiles are never loaded (the loop stops at
-// the tile holding the last real query's position). Each thread computes a
-// 4 x 4 block of scores and a 4 x D/16 block of the output from padded
-// shared-memory tiles. This first kernel uses f32 FMAs, not the tensor
-// cores; mma / wgmma with TMA-fed tile rings is the next step for speed.
+// Which body serves which (q dtype, K/V storage), chosen by type in
+// dispatch(), with no fallback between them:
+//  * (bf16, bf16), K2 and K3: flash_fwd_mma_kernel<D>, the tensor-core
+//    body. One CTA of 4 warps per (64-row query tile, q-head, batch row);
+//    each warp owns 16 query rows. Q (once) and each 64-key K and V tile
+//    arrive by 16-byte cp.async copies into a three-stage ring: tiles kt+1
+//    and kt+2 load while tile kt is in the tensor cores, with one block
+//    barrier per tile. Shared rows are unpadded with an XOR swizzle of
+//    their 16-byte chunks, so ldmatrix and the copies are free of bank
+//    conflicts and three stages still leave room for two CTAs an SM at
+//    D = 128 (112 KB each). QK^T and PV are mma.sync m16n8k16 bf16
+//    products with f32 accumulators, fed by ldmatrix (V by ldmatrix.trans);
+//    Q's fragments stay in registers across the key loop for D <= 128 and
+//    are reloaded from shared memory per k-step at D = 256 (the O
+//    accumulator there is already 128 f32 registers a thread). Scores stay
+//    in the accumulator registers: the mask (only on tiles that straddle
+//    the diagonal or the kv_len edge) and the online softmax run on the
+//    fragments, with row max and sum reduced over the 4-lane quad that
+//    shares a row; the output is rescaled only when a row's max moved; and
+//    the probabilities, rounded to bf16 in registers, are directly the A
+//    operand of the PV product. Query tiles launch with the most keys first.
+//  * (f32, f32) and (any, int8), f32 K2/K3 and K4: flash_fwd_kernel<T, KV,
+//    D>, f32 FMAs from padded shared-memory tiles (TF32 mma would miss the
+//    f32 tests' 1e-4); each thread computes a 4 x 4 block of scores and a
+//    4 x D/16 block of the output, the score tile goes through shared
+//    memory, and K4 dequantizes its int8 tiles as it copies them.
+// Both are FA2-style: the f32 running max / sum / accumulator of the online
+// softmax never leave the CTA, so the [Tq, Tk] score matrix never reaches
+// device memory, and causally dead key tiles are never loaded (the loop
+// stops at the tile holding the last real query's position).
 //
 // Numerics follow the JAX kernels: dots accumulated in f32 and scaled
-// after, -1e30 mask, probabilities rounded to V's dtype before the PV
-// product, output acc / max(l, 1e-30).
+// after, -1e30 mask, row sums of the unrounded probabilities, probabilities
+// rounded to V's dtype before the PV product, output acc / max(l, 1e-30).
+// The tensor-core body folds log2(e) into the scale and takes ex2.approx of
+// (s - max) in base 2, which is exp(s - max) to ~2^-22 relative, far below
+// the bf16 rounding of p that follows.
 
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -242,6 +268,292 @@ int launch_flash(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
   return (int)cudaGetLastError();
 }
 
+// -- tensor-core body: (bf16, bf16) ----------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_NT = 128;    // 4 warps, 16 query rows each (BQ = 64)
+constexpr int MMA_STAGES = 3;  // K/V ring: tiles kt + 1 and kt + 2 load during tile kt
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared tiles are unpadded, D elements a row, with the 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8): the 8 rows one ldmatrix reads, and the
+// row chunks a warp's cp.async copies write, fall in 8 distinct 16-byte
+// bank groups. Offset (elements) of chunk ``c`` of row ``r``:
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+template <int D>
+size_t flash_mma_smem_bytes() {  // Q, then the K and V rings
+  return (size_t)(BQ + 2 * MMA_STAGES * BK) * D * sizeof(bf16);
+}
+
+// Start the 16-byte cp.async copies of a ROWS x D tile (global row stride
+// ``g_stride`` elements) into swizzled shared memory; rows at or past
+// ``valid`` are zero-filled (no global read).
+template <int D, int ROWS>
+__device__ __forceinline__ void cp_async_tile(bf16* s, const bf16* g, int64_t g_stride,
+                                              int valid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * CH % MMA_NT == 0, "tile chunks must divide among the threads");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / MMA_NT; ++it) {
+    const int i = it * MMA_NT + threadIdx.x;
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const bool ok = r < valid;
+    cp_async16(s + swz<D>(r, c), g + (int64_t)(ok ? r : 0) * g_stride + c * 8, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                     const Operand<bf16> k, const Operand<bf16> v,
+                     bf16* __restrict__ out,  // [B, Lq, Hq, D] contiguous
+                     int Lq, int Hq, int Hkv, int kv_len, int start, float scale_log2) {
+  constexpr int TILE = BK * D;    // elements of one K or V stage
+  constexpr int KSTEPS = D / 16;  // k-steps of QK^T
+  constexpr int NS = BK / 8;      // 8-key n-tiles of a warp's scores
+  constexpr int NO = D / 8;       // 8-column n-tiles of a warp's output
+  // Q's fragments stay in registers across the key loop up to D = 128; at
+  // D = 256 the output tile alone takes 128 registers a thread, so they
+  // are reloaded from shared memory per k-step
+  constexpr bool Q_IN_REGS = D <= 128;
+  static_assert(BQ == 16 * (MMA_NT / 32), "one warp per 16 query rows");
+  static_assert(MMA_STAGES == 3, "tile kt + 2 refills the stage of tile kt - 1");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][D]
+  bf16* sK = sQ + BQ * D;                     // [MMA_STAGES][BK][D]
+  bf16* sV = sK + MMA_STAGES * TILE;          // [MMA_STAGES][BK][D]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the tiles with the most keys first
+  const int hq = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = hq / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = qt * BQ;
+  const int q_valid = min(BQ, Lq - q0);
+
+  // keys past the tile's last real query position are causally dead
+  const int q_last = start + q0 + q_valid - 1;
+  const int n_keys = min(kv_len, q_last + 1);
+  const int n_kt = (n_keys + BK - 1) / BK;
+  const bf16* kb = k.p + b * k.sb + hk * k.sh;
+  const bf16* vb = v.p + b * v.sb + hk * v.sh;
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    const int valid = min(BK, kv_len - k0);
+    cp_async_tile<D, BK>(sK + stage * TILE, kb + (int64_t)k0 * k.ss, k.ss, valid);
+    cp_async_tile<D, BK>(sV + stage * TILE, vb + (int64_t)k0 * v.ss, v.ss, valid);
+  };
+
+  // ring prologue: Q with tile 0, then tile 1, one copy group each
+  cp_async_tile<D, BQ>(sQ, q + b * q_sb + (int64_t)q0 * q_st + hq * q_sh, q_st, q_valid);
+  if (n_kt > 0) load_kv(0, 0);
+  cp_async_commit();
+  if (n_kt > 1) load_kv(1, 1);
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {NEG_INF_F, NEG_INF_F};  // running max of rows g and g + 8 (base 2)
+  float l[2] = {0.f, 0.f};              // this lane's share of their running sums
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+  // q position of this lane's row g (accumulator elements 0, 1); g + 8 holds 2, 3
+  const int qp0 = start + q0 + warp * 16 + (lane >> 2);
+  // ldmatrix row addresses: every row this lane addresses is 8-aligned plus
+  // lane % 8, so its chunk swizzle is a per-lane XOR
+  const int x_qv = (lane >> 4) ^ (lane & 7);        // Q and V: chunk 2 * step + lane / 16
+  const int x_k = ((lane >> 3) & 1) ^ (lane & 7);   // K: chunk 2 * step + (lane / 8) % 2
+  const bf16* sQw = sQ + (warp * 16 + (lane & 15)) * D;
+  const int k_row = ((lane >> 4) * 8 + (lane & 7)) * D;         // + 16 keys per n-pair
+  const int v_row = (((lane >> 3) & 1) * 8 + (lane & 7)) * D;   // + 16 keys per k-step
+
+  int stage = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<1>();  // tile kt has landed; tile kt + 1 may still be in flight
+    __syncthreads();     // ... for every thread, and every warp is done with tile kt - 1
+    if (kt + 2 < n_kt) load_kv(kt + 2, stage == 0 ? 2 : stage - 1);  // tile kt - 1's stage
+    cp_async_commit();
+    const bf16* sKs = sK + stage * TILE;
+    const bf16* sVs = sV + stage * TILE;
+    const int k0 = kt * BK;
+    if constexpr (Q_IN_REGS) {
+      if (kt == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks) ldmatrix_x4(qf[ks], sQw + (((2 * ks) ^ x_qv) << 3));
+      }
+    }
+
+    // S = Q K^T: this warp's 16 rows x BK keys, in NS accumulator tiles
+    float s[NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      } else {
+        ldmatrix_x4(a, sQw + (((2 * ks) ^ x_qv) << 3));
+      }
+      const int kc = ((2 * ks) ^ x_k) << 3;
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kf[4];  // keys np*16 .. +7 and +8 .. +15, dims ks*16 .. +15
+        ldmatrix_x4(kf, sKs + np * 16 * D + k_row + kc);
+        mma_bf16_16816(s[2 * np], a, kf[0], kf[1]);
+        mma_bf16_16816(s[2 * np + 1], a, kf[2], kf[3]);
+      }
+    }
+
+    // scale (base 2) and mask; only tiles that straddle the diagonal or the
+    // kv_len edge need the mask
+    const bool edge = k0 + BK - 1 > start + q0 || k0 + BK > kv_len;
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale_log2;
+        if (edge) {
+          const int kp = k0 + nt * 8 + (lane & 3) * 2 + (e & 1);
+          if (kp > qp0 + (e >> 1) * 8 || kp >= kv_len) x = NEG_INF_F;
+        }
+        s[nt][e] = x;
+      }
+
+    // online softmax on the fragments: row h of this lane is g + 8h
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[h] = fast_exp2(m[h] - mx);
+      m[h] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        const float p0 = fast_exp2(s[nt][2 * h] - mx);
+        const float p1 = fast_exp2(s[nt][2 * h + 1] - mx);
+        s[nt][2 * h] = p0;
+        s[nt][2 * h + 1] = p1;
+        sum += p0 + p1;
+      }
+      l[h] = l[h] * corr[h] + sum;
+    }
+    // rescale the output only when some row's max moved (x 1 is exact)
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int dt = 0; dt < NO; ++dt) {
+        o[dt][0] *= corr[0];
+        o[dt][1] *= corr[0];
+        o[dt][2] *= corr[1];
+        o[dt][3] *= corr[1];
+      }
+    }
+
+    // O += P V: P rounded to bf16 in registers, two score tiles per A operand
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                             pack_bf16(s[2 * j][2], s[2 * j][3]),
+                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];  // keys j*16 .. +15, dims dp*16 .. +7 and +8 .. +15
+        ldmatrix_x4_trans(vf, sVs + j * 16 * D + v_row + (((2 * dp) ^ x_qv) << 3));
+        mma_bf16_16816(o[2 * dp], a, vf[0], vf[1]);
+        mma_bf16_16816(o[2 * dp + 1], a, vf[2], vf[3]);
+      }
+    }
+    stage = stage == MMA_STAGES - 1 ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = warp * 16 + (lane >> 2) + 8 * h;
+    if (row >= q_valid) continue;
+    const float den = fmaxf(lt, 1e-30f);
+    bf16* orow = out + ((int64_t)(b * Lq + q0 + row) * Hq + hq) * D + (lane & 3) * 2;
+#pragma unroll
+    for (int dt = 0; dt < NO; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+          __floats2bfloat162_rn(o[dt][2 * h] / den, o[dt][2 * h + 1] / den);
+  }
+}
+
+// The kernel's attributes, set once a device: its dynamic shared memory, and
+// all of the SM's 228 KB to shared memory, so two 112 KB CTAs fit at D = 128.
+template <int D>
+cudaError_t flash_mma_attributes() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = allow_smem(flash_fwd_mma_kernel<D>, flash_mma_smem_bytes<D>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+  return e;
+}
+
+template <int D>
+int launch_flash_mma(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                     const Operand<bf16>& k, const Operand<bf16>& v, void* out, int B,
+                     int Lq, int Hq, int Hkv, int kv_len, int start, float scale,
+                     cudaStream_t stream) {
+  const size_t smem = flash_mma_smem_bytes<D>();
+  const cudaError_t e = flash_mma_attributes<D>();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Lq + BQ - 1) / BQ, Hq, B);
+  flash_fwd_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), q_sb, q_st, q_sh, k, v, static_cast<bf16*>(out), Lq,
+      Hq, Hkv, kv_len, start, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_mma(int D, const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                 const Operand<bf16>& k, const Operand<bf16>& v, void* out, int B, int Lq,
+                 int Hq, int Hkv, int kv_len, int start, float scale, cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return launch_flash_mma<64>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv, kv_len,
+                                  start, scale, s);
+    case 128:
+      return launch_flash_mma<128>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv, kv_len,
+                                   start, scale, s);
+    case 256:
+      return launch_flash_mma<256>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv, kv_len,
+                                   start, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// -- dispatch by type ---------------------------------------------------------
+
 template <typename T, typename KV>
 int dispatch_d(int D, const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
                const Operand<KV>& k, const Operand<KV>& v, void* out, int B, int Lq,
@@ -261,19 +573,19 @@ int dispatch_d(int D, const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
   }
 }
 
-// K and V in q's dtype (K2, K3)
+// K and V in q's dtype (K2, K3): bf16 to the tensor-core body, f32 to the
+// FMA body
 int dispatch(int dtype, int D, const void* q, int64_t q_sb, int64_t q_st,
              int64_t q_sh, const void* k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
              const void* v, int64_t v_sb, int64_t v_ss, int64_t v_sh, void* out,
              int B, int Lq, int Hq, int Hkv, int kv_len, int start, float scale,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_BF16) {
-    using T = __nv_bfloat16;
-    const Operand<T> ko{static_cast<const T*>(k), k_sb, k_ss, k_sh, nullptr, 0, 0};
-    const Operand<T> vo{static_cast<const T*>(v), v_sb, v_ss, v_sh, nullptr, 0, 0};
-    return dispatch_d<T, T>(D, q, q_sb, q_st, q_sh, ko, vo, out, B, Lq, Hq, Hkv, kv_len,
-                            start, scale, s);
+  if (dtype == DTYPE_BF16) {  // the tensor-core body
+    const Operand<bf16> ko{static_cast<const bf16*>(k), k_sb, k_ss, k_sh, nullptr, 0, 0};
+    const Operand<bf16> vo{static_cast<const bf16*>(v), v_sb, v_ss, v_sh, nullptr, 0, 0};
+    return dispatch_mma(D, q, q_sb, q_st, q_sh, ko, vo, out, B, Lq, Hq, Hkv, kv_len, start,
+                        scale, s);
   }
   if (dtype == DTYPE_F32) {
     const Operand<float> ko{static_cast<const float*>(k), k_sb, k_ss, k_sh, nullptr, 0, 0};

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time one checkout's prefill attention on one GPU: K2 and K3 alone, and a
+fresh prefill through the model forward.
+
+    python3 scripts/prefill_forward_ms.py [--root DIR]
+
+* kernels: K2 (``flash_attention``) at T=512 and T=4096, and K3
+  (``flash_attention_chunk``) at start 1024 over KW 2048 and at start 3840
+  over KW 4096, on the inputs ``chip_smoke.py``'s kernel phase draws from
+  seed 0.
+* prefill: random bf16 weights at Meta-Llama-3-8B's published widths
+  (``chip_smoke.LLAMA3_8B``; sigma 0.02, seeded), all 32 layers, made on
+  the card; ``models.llama.forward`` runs one fresh prefill of 1024 and of
+  4096 tokens (batch 1, prompt-end logits only, as the batcher's
+  ``prefill_full`` does), with K2 as served (``kernels``) and with an
+  attention op that returns q unchanged (``no_attention``), so the
+  difference is the attention's share of the prefill.
+
+Every time is ``chip_smoke.cuda_ms`` (CUDA events around calls queued
+behind a device-side sleep) of the ``chip_smoke.py`` beside this script.
+``--root`` imports ``nats_llm_studio_tpu_torch`` from another checkout (an
+unpacked parent commit, say), so two versions are timed by one yardstick:
+run parent, this tree, this tree, parent back to back on one card. Needs a
+CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+LAYERS = 32
+TOKENS = (1024, 4096)
+SEED = 0
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def random_params(torch, cfg, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def w(*shape):
+        out = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        for i in range(shape[0]):  # one layer at a time: f32 draws stay small
+            out[i] = (torch.randn(shape[1:], generator=g, device="cuda") * 0.02).to(out.dtype)
+        return out
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+
+    blocks = {"attn_norm": ones(L, d), "ffn_norm": ones(L, d), "wq": w(L, d, qd),
+              "wk": w(L, d, kvd), "wv": w(L, d, kvd), "wo": w(L, qd, d),
+              "w_gate": w(L, d, ff), "w_up": w(L, d, ff), "w_down": w(L, ff, d)}
+    return {"embed": w(1, cfg.vocab_size, d)[0], "out_norm": ones(d),
+            "lm_head": w(1, d, cfg.vocab_size)[0], "blocks": blocks}
+
+
+def kernel_times(torch, smoke) -> None:
+    from nats_llm_studio_tpu_torch.ops import flash_attention as fa
+
+    c = smoke.LLAMA3_8B
+    cases = (("flash_attention T=512", smoke.k2_inputs, fa.flash_attention),
+             ("flash_attention T=4096", smoke.k2_long_inputs, fa.flash_attention),
+             ("flash_attention_chunk start=1024 KW=2048", smoke.k3_inputs,
+              fa.flash_attention_chunk),
+             ("flash_attention_chunk start=3840 KW=4096", smoke.k3_long_inputs,
+              fa.flash_attention_chunk))
+    for name, make, kern in cases:
+        args = make(torch, torch.Generator(device="cuda").manual_seed(SEED), c)["args"]
+        print(f"kernel {name}: {smoke.cuda_ms(torch, lambda: kern(*args)):.4f} ms", flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+
+def prefill_times(torch, smoke) -> None:
+    from nats_llm_studio_tpu_torch.models.config import ModelConfig
+    from nats_llm_studio_tpu_torch.models.llama import KERNELS, AttentionOps, forward, make_cache
+
+    w = smoke.LLAMA3_8B
+    cfg = ModelConfig(vocab_size=w["vocab"], d_model=w["d_model"], n_heads=w["n_heads"],
+                      n_kv_heads=w["n_kv_heads"], head_dim=w["head_dim"], d_ff=w["d_ff"],
+                      rope_theta=w["rope_theta"], rms_eps=w["rms_eps"], n_layers=LAYERS,
+                      max_seq_len=max(TOKENS))
+    params = random_params(torch, cfg, SEED)
+    no_attention = AttentionOps(lambda q, k, v, scale: q, KERNELS.chunk, KERNELS.chunk_kvq,
+                                KERNELS.paged)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    for t in TOKENS:
+        toks = torch.randint(0, cfg.vocab_size, (1, t), generator=g, dtype=torch.int32).cuda()
+        k_cache, v_cache = make_cache(cfg, 1, t, device="cuda")
+        pos0 = torch.zeros((1,), dtype=torch.int32)
+        last = torch.tensor([t - 1])
+        times = {}
+        for name, attn in (("kernels", KERNELS), ("no_attention", no_attention)):
+            times[name] = smoke.cuda_ms(
+                torch, lambda attn=attn: forward(params, cfg, toks, k_cache, v_cache, pos0,
+                                                 logit_positions=last, fresh_prefill=True,
+                                                 attn=attn),
+                warmup=2, iters=5)
+        share = times["kernels"] - times["no_attention"]
+        print(f"prefill T={t}: kernels {times['kernels']:.3f} ms; no_attention "
+              f"{times['no_attention']:.3f} ms; attention {share:.3f} ms "
+              f"({share / times['kernels']:.1%})", flush=True)
+        del k_cache, v_cache
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE,
+                    help="checkout whose nats_llm_studio_tpu_torch is timed")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("prefill_forward_ms: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(args.root.resolve()))
+    smoke = load_chip_smoke()
+    print(f"card: {smoke.card_line()}; root {args.root}; {LAYERS} layers", flush=True)
+    kernel_times(torch, smoke)
+    prefill_times(torch, smoke)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,10 @@ of a checkout (the test conftest needs jax, which that machine may lack):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: max abs error 1e-4 in float32 (summation order only) and 2e-2
-in bf16 (the bf16 tolerance of tests/test_flash_attention.py:184).
+in bf16 (the bf16 tolerance of tests/test_flash_attention.py:184). bf16 K2
+and K3 run the tensor-core body of csrc/flash_attention.cu, float32 the
+FMA body; the flash cases cover both at ragged query, key and window
+edges, starts off the 64-key tile grid, groups 1 to 8 and D 64 to 256.
 """
 
 import pytest
@@ -87,6 +90,11 @@ def test_paged_decode_kernel_matches_plain(gen, dtype, b, w, hq, hkv, d, t, laye
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,t,hq,hkv,d", [
     (1, 37, 4, 2, 64), (2, 130, 8, 2, 128), (1, 64, 4, 4, 256), (1, 1000, 32, 8, 128),
+    (2, 77, 8, 1, 64),      # T not a multiple of 16, group 8
+    (1, 17, 32, 4, 128),    # one partial query tile, group 8
+    (1, 200, 8, 8, 256),    # group 1, D=256
+    (2, 300, 16, 2, 256),   # B=2, D=256, group 8
+    (1, 4096, 32, 8, 128),  # the max_seq bucket
 ])
 def test_flash_kernel_matches_plain(gen, dtype, b, t, hq, hkv, d):
     q = _rn(gen, b, t, hq, d, dtype=dtype)
@@ -101,6 +109,10 @@ def test_flash_kernel_matches_plain(gen, dtype, b, t, hq, hkv, d):
     (1, 256, 32, 8, 128, 1000, 1024, 700),
     (2, 100, 8, 8, 128, 512, 512, 300),
     (1, 64, 4, 2, 256, 200, 256, 0),
+    (2, 33, 8, 1, 128, 130, 160, 97),     # start off the tile grid, group 8, ragged KW
+    (2, 7, 4, 4, 64, 45, 64, 38),         # C=7, group 1, KW = start + C
+    (2, 50, 16, 2, 256, 300, 320, 250),   # D=256, the diagonal straddles a tile
+    (1, 256, 32, 8, 128, 4096, 4096, 3840),  # the last chunk of a 4096-token prompt
 ])
 def test_flash_chunk_kernel_matches_plain(gen, dtype, b, c, hq, hkv, d, kw, s, start):
     kc, vc = _rn(gen, b, 3, hkv, s, d, dtype=dtype), _rn(gen, b, 3, hkv, s, d, dtype=dtype)
