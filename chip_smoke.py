@@ -13,9 +13,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              bf16 at Llama-3-8B shapes (on each of four input draws, max abs
              error <= 2e-2, and each output row's L2 error <= 1e-2 of its
              norm), and time each beside its bound and a
-             scaled_dot_product_attention yardstick; K2 and K3 also at the
-             main path's longest calls (a 4096-token fresh prefill, and the
-             last 256-token chunk of a 4096-token prompt).
+             scaled_dot_product_attention yardstick; K2, K3 and K4 also at
+             the main path's longest calls (a 4096-token fresh prefill, and
+             the last 256-token chunk of a 4096-token prompt).
 3. model   — write a bf16 GGUF at Meta-Llama-3-8B's published widths (the
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
@@ -186,14 +186,14 @@ def k3_long_inputs(torch, g, c: dict) -> dict:
     return k3_inputs(torch, g, c, start=3840, kw=4096)
 
 
-def k4_inputs(torch, g, c: dict) -> dict:
+def k4_inputs(torch, g, c: dict, start: int = 1024, kw: int = 2048) -> dict:
     """K4: K3's chunk over strided views of an int8 row cache, codes
     [1, L, Hkv, 4096, D] and scales [1, L, Hkv, 4096] quantized from bf16
     draws."""
     from nats_llm_studio_tpu_torch.ops.kvcache import quantize_rows
 
     hq, hkv, d, L = c["n_heads"], c["n_kv_heads"], c["head_dim"], c["n_layers"]
-    C, start, kw, S, layer = 256, 1024, 2048, 4096, 7
+    C, S, layer = 256, 4096, 7
     kc = quantize_rows(torch.randn((1, L, hkv, S, d), generator=g, device="cuda",
                                    dtype=torch.bfloat16))
     vc = quantize_rows(torch.randn((1, L, hkv, S, d), generator=g, device="cuda",
@@ -203,6 +203,11 @@ def k4_inputs(torch, g, c: dict) -> dict:
                       vc.q[:, layer, :, :kw], vc.s[:, layer, :, :kw], d ** -0.5, start),
                 shape=f"q[1,{C},{hq},{d}] bf16 codes[1,{hkv},{kw},{d}] int8 + scales "
                       f"[1,{hkv},{kw}] f32 of cache[1,{L},{hkv},{S},{d}] start={start}")
+
+
+def k4_long_inputs(torch, g, c: dict) -> dict:
+    """K4 on the last 256-token chunk of a 4096-token prompt."""
+    return k4_inputs(torch, g, c, start=3840, kw=4096)
 
 
 def dense_pool_kv(torch, pool, tbl, layer: int, dtype):
@@ -222,9 +227,9 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
     gates are the largest max abs error and the largest row error over its
     row's norm), then timed on the first draw
     beside its bound and a scaled_dot_product_attention yardstick. Keys are
-    row names; K2 and K3 have a second row at the main path's longest call
-    (``@T4096``, ``@KW4096``), and each row's ``kern`` is the wrapper whose
-    launch counter it reports."""
+    row names; K2, K3 and K4 have a second row at the main path's longest
+    call (``@T4096``, ``@KW4096``), and each row's ``kern`` is the wrapper
+    whose launch counter it reports."""
     import torch.nn.functional as F
 
     from nats_llm_studio_tpu_torch.ops import flash_attention as fa
@@ -249,6 +254,8 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
                                          fa.flash_attention_chunk_plain),
         "flash_attention_chunk_kvq": (k4_inputs, fa.flash_attention_chunk_kvq,
                                       fa.flash_attention_chunk_kvq_plain),
+        "flash_attention_chunk_kvq@KW4096": (k4_long_inputs, fa.flash_attention_chunk_kvq,
+                                             fa.flash_attention_chunk_kvq_plain),
     }
     results: dict[str, dict] = {}
     for name, (make, kern, plain) in cases.items():
@@ -316,18 +323,21 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
 
     # K4: K3's operations; its bytes are D int8 codes and a f32 scale per
     # key row. SDPA over the slabs already dequantized to bf16 (not timed)
-    r = results["flash_attention_chunk_kvq"]
-    q, kq, ks, vq, vs, scale, start = r["args"]
-    C, kw = q.shape[1], kq.shape[2]
-    pairs = sum(start + i + 1 for i in range(C))
-    r["bound"] = bound(2 * q.numel() * 2 + 2 * (start + C) * hkv * (d + 4), 4 * pairs * hq * d)
-    kd4 = dequantize(KVQ(kq, ks), q.dtype).repeat_interleave(group, dim=1)
-    vd4 = dequantize(KVQ(vq, vs), q.dtype).repeat_interleave(group, dim=1)
-    cmask4 = (torch.arange(kw, device=dev)[None, :]
-              <= (start + torch.arange(C, device=dev))[:, None])
-    qs4 = q.transpose(1, 2)
-    r["library"] = lambda: F.scaled_dot_product_attention(qs4, kd4, vd4, attn_mask=cmask4,
-                                                          scale=scale)
+    for name in ("flash_attention_chunk_kvq", "flash_attention_chunk_kvq@KW4096"):
+        r = results[name]
+        q, kq, ks, vq, vs, scale, start = r["args"]
+        C, kw = q.shape[1], kq.shape[2]
+        pairs = sum(start + i + 1 for i in range(C))
+        r["bound"] = bound(2 * q.numel() * 2 + 2 * (start + C) * hkv * (d + 4),
+                           4 * pairs * hq * d)
+        kd4 = dequantize(KVQ(kq, ks), q.dtype).repeat_interleave(group, dim=1)
+        vd4 = dequantize(KVQ(vq, vs), q.dtype).repeat_interleave(group, dim=1)
+        cmask4 = (torch.arange(kw, device=dev)[None, :]
+                  <= (start + torch.arange(C, device=dev))[:, None])
+        r["library"] = (lambda qs4=q.transpose(1, 2), kd4=kd4, vd4=vd4, cmask4=cmask4,
+                        scale=scale:
+                        F.scaled_dot_product_attention(qs4, kd4, vd4, attn_mask=cmask4,
+                                                       scale=scale))
 
     for name, r in results.items():
         args, kern, plain = r.pop("args"), r["kern"], r.pop("plain")
@@ -557,9 +567,12 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
                and getattr(e, "self_device_time_total", 0) > 0]
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # the paged attention kernels (decode and split merge, both KV modes)
+    attn = [e for e in kernels if "paged_" in e.key]
     out = {"kv_quant": cfg.kv_quant, "ctx": ctx, "slots": B, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": dev_us / 1e3 / steps if dev_us else None,
            "launches_per_step": sum(e.count for e in kernels) / steps if kernels else None,
+           "attention_ms_per_step": sum(e.self_device_time_total for e in attn) / 1e3 / steps,
            "top": [(e.key[:60], e.self_device_time_total / 1e3 / steps, e.count // steps)
                    for e in top]}
     if out["device_ms_per_step"] is None:
@@ -569,7 +582,8 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
         log(f"profile (kv {cfg.kv_quant}): decode step, {B} slots at {ctx} tokens: wall "
             f"{wall_ms:.2f} ms, device "
             f"{out['device_ms_per_step']:.2f} ms ({out['launches_per_step']:.0f} kernels), "
-            f"device idle {out['device_idle_share']:.1%}")
+            f"device idle {out['device_idle_share']:.1%}; paged attention kernels "
+            f"{out['attention_ms_per_step']:.3f} ms")
         for name, ms, cnt in out["top"]:
             log(f"profile:   {ms:8.3f} ms/step  x{cnt:<4d} {name}")
     del kp, vp
@@ -791,7 +805,7 @@ def main() -> int:
     # (mma: the tensor-core body; fma: f32 FMAs from shared memory)
     src = {
         "paged_decode_attention": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
-                                   "nats_llm_studio_tpu/ops/paged_attention.py:205", "fma"),
+                                   "nats_llm_studio_tpu/ops/paged_attention.py:205", "mma"),
         "paged_decode_attention_kvq": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
                                        "nats_llm_studio_tpu/ops/paged_attention.py:205", "fma"),
         "flash_attention": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
@@ -799,7 +813,7 @@ def main() -> int:
         "flash_attention_chunk": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
                                   "nats_llm_studio_tpu/ops/flash_attention.py:288", "mma"),
         "flash_attention_chunk_kvq": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
-                                      "nats_llm_studio_tpu/ops/flash_attention.py:438", "fma"),
+                                      "nats_llm_studio_tpu/ops/flash_attention.py:438", "mma"),
     }
     rows = []
     for name, r in kernels.items():

@@ -12,9 +12,9 @@
 //    window or falls back to dense attention; this kernel takes any KW);
 //  * flash_attention_chunk_kvq (body _flash_chunk_kvq_kernel): the same
 //    continuation over the int8 cache, codes [B, Hkv, KW, D] with f32
-//    scales [B, Hkv, KW], each K/V tile dequantized as it is copied into
-//    shared memory (code x scale in f32, rounded to q's dtype, as the JAX
-//    kernels do), so no dequantized slab ever reaches device memory.
+//    scales [B, Hkv, KW], each K/V tile dequantized in shared memory (code
+//    x scale in f32, rounded to q's dtype, as the JAX kernels do), so no
+//    dequantized slab ever reaches device memory.
 // All three are the same computation with different strides, a query
 // offset and a storage type KV for K and V; only the wrappers (and their
 // launch counters) differ.
@@ -25,31 +25,49 @@
 // products belong on the tensor cores.
 //
 // Which body serves which (q dtype, K/V storage), chosen by type in
-// dispatch(), with no fallback between them:
-//  * (bf16, bf16), K2 and K3: flash_fwd_mma_kernel<D>, the tensor-core
-//    body. One CTA of 4 warps per (64-row query tile, q-head, batch row);
-//    each warp owns 16 query rows. Q (once) and each 64-key K and V tile
-//    arrive by 16-byte cp.async copies into a three-stage ring: tiles kt+1
-//    and kt+2 load while tile kt is in the tensor cores, with one block
-//    barrier per tile. Shared rows are unpadded with an XOR swizzle of
+// dispatch(), with no fallback between them (D in {64, 128, 256} for all):
+//  * (bf16, bf16), K2 and K3, and (bf16, int8), K4:
+//    flash_fwd_mma_kernel<KV, D>, the tensor-core body. One CTA of 4 warps
+//    per (64-row query tile, q-head, batch row); each warp owns 16 query
+//    rows. Q (once) and each 64-key K and V tile arrive by 16-byte cp.async
+//    copies into a three-stage ring: tiles kt+1 and kt+2 load while tile kt
+//    is in the tensor cores. Shared rows are unpadded with an XOR swizzle of
 //    their 16-byte chunks, so ldmatrix and the copies are free of bank
-//    conflicts and three stages still leave room for two CTAs an SM at
-//    D = 128 (112 KB each). QK^T and PV are mma.sync m16n8k16 bf16
-//    products with f32 accumulators, fed by ldmatrix (V by ldmatrix.trans);
-//    Q's fragments stay in registers across the key loop for D <= 128 and
-//    are reloaded from shared memory per k-step at D = 256 (the O
-//    accumulator there is already 128 f32 registers a thread). Scores stay
-//    in the accumulator registers: the mask (only on tiles that straddle
-//    the diagonal or the kv_len edge) and the online softmax run on the
-//    fragments, with row max and sum reduced over the 4-lane quad that
-//    shares a row; the output is rescaled only when a row's max moved; and
-//    the probabilities, rounded to bf16 in registers, are directly the A
-//    operand of the PV product. Query tiles launch with the most keys first.
-//  * (f32, f32) and (any, int8), f32 K2/K3 and K4: flash_fwd_kernel<T, KV,
-//    D>, f32 FMAs from padded shared-memory tiles (TF32 mma would miss the
-//    f32 tests' 1e-4); each thread computes a 4 x 4 block of scores and a
+//    conflicts. QK^T and PV are mma.sync m16n8k16 bf16 products with f32
+//    accumulators, fed by ldmatrix (V by ldmatrix.trans); Q's fragments
+//    stay in registers across the key loop for D <= 128 and are reloaded
+//    from shared memory per k-step at D = 256 (the O accumulator there is
+//    already 128 f32 registers a thread). Scores stay in the accumulator
+//    registers: the mask (only on tiles that straddle the diagonal or the
+//    kv_len edge) and the online softmax run on the fragments, with row max
+//    and sum reduced over the 4-lane quad that shares a row; the output is
+//    rescaled only when a row's max moved; and the probabilities, rounded
+//    to bf16 in registers, are directly the A operand of the PV product.
+//    Query tiles launch with the most keys first. Only the load stage
+//    depends on KV:
+//      - bf16: the ring holds the bf16 K and V tiles themselves, with one
+//        block barrier per tile (112 KB a CTA at D = 128: two CTAs an SM);
+//      - int8: the ring holds codes (16-byte copies, half a bf16 tile) and
+//        their f32 row scales (4-byte copies: a scales view of a row cache
+//        need not be 16-byte aligned) in one commit group a tile. The
+//        operands are two bf16 K and two bf16 V tiles: while the warps run
+//        tile kt's products from one pair, they dequantize tile kt + 1's
+//        codes into the other (code -> f32 by a byte permute and one add,
+//        times the row scale, rounded to nearest even: the JAX kernel's
+//        (codes.astype(f32) * scales[:, None]).astype(q.dtype), bit for
+//        bit; 8 codes a thread at a time, K and V interleaved and
+//        unrolled), with one block barrier per tile (faster on the card
+//        than one bf16 pair and two barriers a tile: PERF.md). 129.5 KB a CTA at
+//        D = 128 (Q 16 KB, bf16 tiles 64 KB, code ring 3 x 16.5 KB): one CTA
+//        an SM, which the main path's chunk (128 CTAs) fills in one wave;
+//        at D = 256 the code ring has two stages (225 KB).
+//    Bounded by operations, as above; the int8 body moves half the K/V
+//    bytes and adds ~3.5 instructions a key element to dequantize.
+//  * (f32, f32) and (f32, int8), f32 K2/K3/K4: flash_fwd_kernel<T, KV, D>,
+//    f32 FMAs from padded shared-memory tiles (TF32 mma would miss the f32
+//    tests' 1e-4); each thread computes a 4 x 4 block of scores and a
 //    4 x D/16 block of the output, the score tile goes through shared
-//    memory, and K4 dequantizes its int8 tiles as it copies them.
+//    memory, and an int8 tile is dequantized as it is copied.
 // Both are FA2-style: the f32 running max / sum / accumulator of the online
 // softmax never leave the CTA, so the [Tq, Tk] score matrix never reaches
 // device memory, and causally dead key tiles are never loaded (the loop
@@ -268,12 +286,12 @@ int launch_flash(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
   return (int)cudaGetLastError();
 }
 
-// -- tensor-core body: (bf16, bf16) ----------------------------------------
+// -- tensor-core body: (bf16, bf16) and (bf16, int8) ------------------------
 
 using bf16 = __nv_bfloat16;
 
 constexpr int MMA_NT = 128;    // 4 warps, 16 query rows each (BQ = 64)
-constexpr int MMA_STAGES = 3;  // K/V ring: tiles kt + 1 and kt + 2 load during tile kt
+constexpr int MMA_STAGES = 3;  // copy ring: tiles kt + 1 and kt + 2 load during tile kt
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared tiles are unpadded, D elements a row, with the 16-byte chunk c of
@@ -285,10 +303,24 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * D + ((c ^ (r & 7)) << 3);
 }
 
-template <int D>
-size_t flash_mma_smem_bytes() {  // Q, then the K and V rings
-  return (size_t)(BQ + 2 * MMA_STAGES * BK) * D * sizeof(bf16);
-}
+// Shared memory of the tensor-core body. bf16 K/V: Q, then the K and V
+// rings of MMA_STAGES bf16 tiles. int8 K/V: Q, two bf16 K and two bf16 V
+// tiles (the mma operands of tile kt and, being written, of tile kt + 1),
+// then the code ring: CODE_STAGES stages of K codes, V codes (BK x D bytes
+// each), K scales and V scales (BK f32 each); two stages at D = 256, where
+// three would not fit.
+template <typename KV, int D>
+struct MmaSmem {
+  static constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  static constexpr int TILE = BK * D;  // elements of one K or V tile
+  static constexpr int BUFS = QUANT ? 2 : 1;  // int8: bf16 operand tiles
+  static constexpr int CODE_STAGES = D == 256 ? 2 : 3;
+  static constexpr int CODE_STAGE = 2 * TILE + 2 * BK * 4;  // bytes of one code stage
+  static constexpr size_t bytes =
+      QUANT ? (size_t)(BQ + 2 * BUFS * BK) * D * sizeof(bf16) +
+                  (size_t)CODE_STAGES * CODE_STAGE
+            : (size_t)(BQ + 2 * MMA_STAGES * BK) * D * sizeof(bf16);
+};
 
 // Start the 16-byte cp.async copies of a ROWS x D tile (global row stride
 // ``g_stride`` elements) into swizzled shared memory; rows at or past
@@ -308,13 +340,61 @@ __device__ __forceinline__ void cp_async_tile(bf16* s, const bf16* g, int64_t g_
   }
 }
 
+// The same for a BK x D tile of int8 codes into an unswizzled code stage
+// (row stride D bytes), and its BK f32 scales (sequence stride 1; 4-byte
+// copies, since a scales view need not be 16-byte aligned): thread i < BK
+// copies K scale i, thread BK + i V scale i. Rows at or past ``valid``:
+// codes and scale zero-filled.
 template <int D>
+__device__ __forceinline__ void cp_async_code_tile(int8_t* s, const int8_t* g,
+                                                   int64_t g_stride, int valid) {
+  constexpr int CH = D / 16;
+  static_assert(BK * CH % MMA_NT == 0, "code chunks must divide among the threads");
+#pragma unroll
+  for (int it = 0; it < BK * CH / MMA_NT; ++it) {
+    const int i = it * MMA_NT + threadIdx.x;
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const bool ok = r < valid;
+    cp_async16(s + r * D + c * 16, g + (int64_t)(ok ? r : 0) * g_stride + c * 16, ok);
+  }
+}
+
+// Dequantize a landed code stage into the swizzled bf16 tile ``s``: each
+// thread turns 8 codes (one 8-byte shared read) into one 16-byte bf16 chunk,
+// so a quarter warp writes 8 distinct chunks of one row (no bank conflict).
+// Dequantize a landed code stage into the swizzled bf16 K and V tiles
+// ``sk`` / ``sv``: each thread turns 8 codes (one 8-byte shared read) into
+// one 16-byte bf16 chunk, so a quarter warp writes 8 distinct chunks of one
+// row (no bank conflict). K and V chunks alternate and the loop is
+// unrolled, so one warp has many independent conversions in flight.
+template <int D>
+__device__ __forceinline__ void dequant_kv(bf16* sk, bf16* sv, const int8_t* st,
+                                           const float* sc) {
+  constexpr int CH = D / 8;
+  constexpr int TILE = BK * D;
+  static_assert(BK * CH % MMA_NT == 0, "tile chunks must divide among the threads");
+#pragma unroll
+  for (int it = 0; it < BK * CH / MMA_NT; ++it) {
+    const int i = it * MMA_NT + threadIdx.x;
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const uint2 wk = *reinterpret_cast<const uint2*>(st + r * D + c * 8);
+    const uint2 wv = *reinterpret_cast<const uint2*>(st + TILE + r * D + c * 8);
+    *reinterpret_cast<uint4*>(sk + swz<D>(r, c)) = dequant8_bf16(wk, sc[r]);
+    *reinterpret_cast<uint4*>(sv + swz<D>(r, c)) = dequant8_bf16(wv, sc[BK + r]);
+  }
+}
+
+template <typename KV, int D>
 __global__ void __launch_bounds__(MMA_NT)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int64_t q_sh,
-                     const Operand<bf16> k, const Operand<bf16> v,
+                     const Operand<KV> k, const Operand<KV> v,
                      bf16* __restrict__ out,  // [B, Lq, Hq, D] contiguous
                      int Lq, int Hq, int Hkv, int kv_len, int start, float scale_log2) {
-  constexpr int TILE = BK * D;    // elements of one K or V stage
+  using S = MmaSmem<KV, D>;
+  constexpr bool QUANT = S::QUANT;
+  constexpr int TILE = S::TILE;
   constexpr int KSTEPS = D / 16;  // k-steps of QK^T
   constexpr int NS = BK / 8;      // 8-key n-tiles of a warp's scores
   constexpr int NO = D / 8;       // 8-column n-tiles of a warp's output
@@ -324,10 +404,20 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int
   constexpr bool Q_IN_REGS = D <= 128;
   static_assert(BQ == 16 * (MMA_NT / 32), "one warp per 16 query rows");
   static_assert(MMA_STAGES == 3, "tile kt + 2 refills the stage of tile kt - 1");
+  static_assert(2 * BK == MMA_NT, "one scale copy a thread");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][D]
-  bf16* sK = sQ + BQ * D;                     // [MMA_STAGES][BK][D]
-  bf16* sV = sK + MMA_STAGES * TILE;          // [MMA_STAGES][BK][D]
+  // bf16: the K and V rings [MMA_STAGES][BK][D]; int8: two bf16 tiles each
+  bf16* sK = sQ + BQ * D;
+  bf16* sV = sK + (QUANT ? S::BUFS : MMA_STAGES) * TILE;
+  int8_t* sCodes = reinterpret_cast<int8_t*>(sV + S::BUFS * TILE);  // int8: the code ring
+  constexpr int CS = S::CODE_STAGES;
+  // int8: codes and scales of ring stage ``code_stage`` -> bf16 buffer ``buf``
+  auto dequant = [&](int code_stage, int buf) {
+    const int8_t* st = sCodes + code_stage * S::CODE_STAGE;
+    dequant_kv<D>(sK + buf * TILE, sV + buf * TILE, st,
+                  reinterpret_cast<const float*>(st + 2 * TILE));
+  };
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // the tiles with the most keys first
   const int hq = blockIdx.y;
@@ -342,21 +432,48 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int
   const int q_last = start + q0 + q_valid - 1;
   const int n_keys = min(kv_len, q_last + 1);
   const int n_kt = (n_keys + BK - 1) / BK;
-  const bf16* kb = k.p + b * k.sb + hk * k.sh;
-  const bf16* vb = v.p + b * v.sb + hk * v.sh;
+  const KV* kb = k.p + b * k.sb + hk * k.sh;
+  const KV* vb = v.p + b * v.sb + hk * v.sh;
+  // the copies of tile kt into ring stage ``stage``: bf16 tiles, or codes
+  // and scales
   auto load_kv = [&](int kt, int stage) {
     const int k0 = kt * BK;
     const int valid = min(BK, kv_len - k0);
-    cp_async_tile<D, BK>(sK + stage * TILE, kb + (int64_t)k0 * k.ss, k.ss, valid);
-    cp_async_tile<D, BK>(sV + stage * TILE, vb + (int64_t)k0 * v.ss, v.ss, valid);
+    if constexpr (QUANT) {
+      int8_t* st = sCodes + stage * S::CODE_STAGE;
+      cp_async_code_tile<D>(st, kb + (int64_t)k0 * k.ss, k.ss, valid);
+      cp_async_code_tile<D>(st + TILE, vb + (int64_t)k0 * v.ss, v.ss, valid);
+      // thread i < BK copies K scale i, thread BK + i V scale i: the K and
+      // V scales sit one after the other at the end of the stage
+      const int r = threadIdx.x & (BK - 1);
+      const bool ok = r < valid;
+      const Operand<KV>& o = threadIdx.x < BK ? k : v;
+      cp_async4(st + 2 * TILE + threadIdx.x * 4,
+                o.s + b * o.s_sb + hk * o.s_sh + k0 + (ok ? r : 0), ok);
+    } else {
+      cp_async_tile<D, BK>(sK + stage * TILE, kb + (int64_t)k0 * k.ss, k.ss, valid);
+      cp_async_tile<D, BK>(sV + stage * TILE, vb + (int64_t)k0 * v.ss, v.ss, valid);
+    }
   };
 
-  // ring prologue: Q with tile 0, then tile 1, one copy group each
+  // ring prologue: Q with tile 0, then tile 1 (int8: tiles 1 .. CS - 1), one
+  // copy group each
   cp_async_tile<D, BQ>(sQ, q + b * q_sb + (int64_t)q0 * q_st + hq * q_sh, q_st, q_valid);
   if (n_kt > 0) load_kv(0, 0);
   cp_async_commit();
-  if (n_kt > 1) load_kv(1, 1);
-  cp_async_commit();
+  if constexpr (QUANT) {  // tiles 1 .. CS - 1, then tile 0's bf16 tiles
+#pragma unroll
+    for (int j = 1; j < CS; ++j) {
+      if (j < n_kt) load_kv(j, j);
+      cp_async_commit();
+    }
+    cp_async_wait<CS - 1>();
+    __syncthreads();
+    if (n_kt > 0) dequant(0, 0);
+  } else {
+    if (n_kt > 1) load_kv(1, 1);
+    cp_async_commit();
+  }
 
   float o[NO][4];
 #pragma unroll
@@ -378,12 +495,24 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int
 
   int stage = 0;
   for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<1>();  // tile kt has landed; tile kt + 1 may still be in flight
-    __syncthreads();     // ... for every thread, and every warp is done with tile kt - 1
-    if (kt + 2 < n_kt) load_kv(kt + 2, stage == 0 ? 2 : stage - 1);  // tile kt - 1's stage
-    cp_async_commit();
-    const bf16* sKs = sK + stage * TILE;
-    const bf16* sVs = sV + stage * TILE;
+    const bf16* sKs = sK;
+    const bf16* sVs = sV;
+    if constexpr (QUANT) {
+      cp_async_wait<CS - 2>();  // the codes of tile kt + 1 have landed
+      __syncthreads();  // ... for every thread; tile kt's bf16 tiles are complete, and
+                        // every warp is done with buffer (kt + 1) % 2 (tile kt - 1)
+      if (kt + CS < n_kt) load_kv(kt + CS, stage);  // tile kt's code stage
+      cp_async_commit();
+      sKs += (kt & 1) * TILE;
+      sVs += (kt & 1) * TILE;
+    } else {
+      cp_async_wait<1>();  // tile kt has landed; tile kt + 1 may still be in flight
+      __syncthreads();     // ... for every thread, and every warp is done with tile kt - 1
+      if (kt + 2 < n_kt) load_kv(kt + 2, stage == 0 ? 2 : stage - 1);  // tile kt - 1's stage
+      cp_async_commit();
+      sKs += stage * TILE;
+      sVs += stage * TILE;
+    }
     const int k0 = kt * BK;
     if constexpr (Q_IN_REGS) {
       if (kt == 0) {
@@ -391,7 +520,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int
         for (int ks = 0; ks < KSTEPS; ++ks) ldmatrix_x4(qf[ks], sQw + (((2 * ks) ^ x_qv) << 3));
       }
     }
-
     // S = Q K^T: this warp's 16 rows x BK keys, in NS accumulator tiles
     float s[NS][4];
 #pragma unroll
@@ -480,7 +608,14 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int
         mma_bf16_16816(o[2 * dp + 1], a, vf[2], vf[3]);
       }
     }
-    stage = stage == MMA_STAGES - 1 ? 0 : stage + 1;
+    if constexpr (QUANT) {
+      // tile kt + 1's codes -> the other bf16 buffer, while tile kt's mma
+      // work may still be in flight
+      if (kt + 1 < n_kt) dequant((kt + 1) % CS, (kt + 1) & 1);
+      stage = stage == CS - 1 ? 0 : stage + 1;
+    } else {
+      stage = stage == MMA_STAGES - 1 ? 0 : stage + 1;
+    }
   }
   cp_async_wait<0>();
 
@@ -501,8 +636,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, int64_t q_sb, int64_t q_st, int
 }
 
 // The kernel's attributes, set once a device: its dynamic shared memory, and
-// all of the SM's 228 KB to shared memory, so two 112 KB CTAs fit at D = 128.
-template <int D>
+// all of the SM's 228 KB to shared memory, so two CTAs fit at D = 128 (112 KB
+// each with bf16 K/V, 97.5 KB with int8).
+template <typename KV, int D>
 cudaError_t flash_mma_attributes() {
   constexpr int kMaxDevices = 64;
   static std::atomic<bool> done[kMaxDevices];
@@ -510,43 +646,43 @@ cudaError_t flash_mma_attributes() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  e = allow_smem(flash_fwd_mma_kernel<D>, flash_mma_smem_bytes<D>());
+  e = allow_smem(flash_fwd_mma_kernel<KV, D>, MmaSmem<KV, D>::bytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+    e = cudaFuncSetAttribute(flash_fwd_mma_kernel<KV, D>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
   return e;
 }
 
-template <int D>
+template <typename KV, int D>
 int launch_flash_mma(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
-                     const Operand<bf16>& k, const Operand<bf16>& v, void* out, int B,
+                     const Operand<KV>& k, const Operand<KV>& v, void* out, int B,
                      int Lq, int Hq, int Hkv, int kv_len, int start, float scale,
                      cudaStream_t stream) {
-  const size_t smem = flash_mma_smem_bytes<D>();
-  const cudaError_t e = flash_mma_attributes<D>();
+  const cudaError_t e = flash_mma_attributes<KV, D>();
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+  flash_fwd_mma_kernel<KV, D><<<grid, MMA_NT, MmaSmem<KV, D>::bytes, stream>>>(
       static_cast<const bf16*>(q), q_sb, q_st, q_sh, k, v, static_cast<bf16*>(out), Lq,
       Hq, Hkv, kv_len, start, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
+template <typename KV>
 int dispatch_mma(int D, const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
-                 const Operand<bf16>& k, const Operand<bf16>& v, void* out, int B, int Lq,
+                 const Operand<KV>& k, const Operand<KV>& v, void* out, int B, int Lq,
                  int Hq, int Hkv, int kv_len, int start, float scale, cudaStream_t s) {
   switch (D) {
     case 64:
-      return launch_flash_mma<64>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv, kv_len,
-                                  start, scale, s);
+      return launch_flash_mma<KV, 64>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv,
+                                      kv_len, start, scale, s);
     case 128:
-      return launch_flash_mma<128>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv, kv_len,
-                                   start, scale, s);
+      return launch_flash_mma<KV, 128>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv,
+                                       kv_len, start, scale, s);
     case 256:
-      return launch_flash_mma<256>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv, kv_len,
-                                   start, scale, s);
+      return launch_flash_mma<KV, 256>(q, q_sb, q_st, q_sh, k, v, out, B, Lq, Hq, Hkv,
+                                       kv_len, start, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -584,8 +720,8 @@ int dispatch(int dtype, int D, const void* q, int64_t q_sb, int64_t q_st,
   if (dtype == DTYPE_BF16) {  // the tensor-core body
     const Operand<bf16> ko{static_cast<const bf16*>(k), k_sb, k_ss, k_sh, nullptr, 0, 0};
     const Operand<bf16> vo{static_cast<const bf16*>(v), v_sb, v_ss, v_sh, nullptr, 0, 0};
-    return dispatch_mma(D, q, q_sb, q_st, q_sh, ko, vo, out, B, Lq, Hq, Hkv, kv_len, start,
-                        scale, s);
+    return dispatch_mma<bf16>(D, q, q_sb, q_st, q_sh, ko, vo, out, B, Lq, Hq, Hkv, kv_len,
+                              start, scale, s);
   }
   if (dtype == DTYPE_F32) {
     const Operand<float> ko{static_cast<const float*>(k), k_sb, k_ss, k_sh, nullptr, 0, 0};
@@ -640,9 +776,9 @@ int flash_attention_chunk_kvq(int dtype, int D, const void* q, int64_t q_sb,
   const Operand<int8_t> vo{static_cast<const int8_t*>(vq), v_sb, v_ss, v_sh, vs, vs_sb,
                            vs_sh};
   if (ks == nullptr || vs == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16, int8_t>(D, q, q_sb, q_st, q_sh, ko, vo, out, B, C,
-                                             Hq, Hkv, KW, start, scale, s);
+  if (dtype == DTYPE_BF16)  // the tensor-core body
+    return dispatch_mma<int8_t>(D, q, q_sb, q_st, q_sh, ko, vo, out, B, C, Hq, Hkv, KW,
+                                start, scale, s);
   if (dtype == DTYPE_F32)
     return dispatch_d<float, int8_t>(D, q, q_sb, q_st, q_sh, ko, vo, out, B, C, Hq, Hkv,
                                      KW, start, scale, s);

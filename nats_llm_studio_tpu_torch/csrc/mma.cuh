@@ -3,6 +3,8 @@
 //
 //  * cp_async16: one 16-byte cp.async.cg global -> shared copy (L2 only,
 //    bypassing L1), zero-filling the destination when ``valid`` is false;
+//    cp_async4 the same for 4 bytes (cp.async.ca: .cg takes 16 only), for
+//    operands that are 4-byte but not always 16-byte aligned;
 //    cp_async_commit / cp_async_wait<N> close a group of copies and wait
 //    until at most N groups are still in flight;
 //  * ldmatrix_x4 / ldmatrix_x4_trans: four 8x8 b16 matrices from shared
@@ -16,7 +18,8 @@
 //    (g+8, 2t+1)}; so a 16x16 block of two D tiles, packed to bf16 pairs,
 //    is the A operand of the next product without moving between lanes
 //    (pack_bf16 packs a pair);
-//  * fast_exp2: 2^x on the SFU, for softmax probabilities.
+//  * fast_exp2: 2^x on the SFU, for softmax probabilities;
+//  * dequant8_bf16: 8 int8 codes times an f32 scale, rounded to bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,6 +32,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const int src_bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
                "l"(gmem), "r"(src_bytes)
                : "memory");
 }
@@ -77,4 +87,27 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Byte i of ``wx`` (a word of int8 codes, each XORed with 0x80) as the
+// code's value in f32, exactly: the byte becomes the low mantissa bits of
+// 2^23 (one PRMT), and 2^23 + 128 is subtracted (one FADD); two plain ALU
+// instructions in place of an I2F conversion.
+template <int I>
+__device__ __forceinline__ float code_value(uint32_t wx) {
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7650 + I)) - 8388736.f;
+}
+
+// The 8 int8 codes of ``w`` (little-endian: code 0 in the low byte of
+// w.x) times ``scale`` in f32, each rounded to bf16 (nearest even): the
+// JAX kernels' (codes.astype(f32) * scales[:, None]).astype(bf16), bit
+// for bit. Returned as the 16 bytes of 8 consecutive bf16 values.
+__device__ __forceinline__ uint4 dequant8_bf16(uint2 w, float scale) {
+  const uint32_t a = w.x ^ 0x80808080u, b = w.y ^ 0x80808080u;
+  uint4 o;
+  o.x = pack_bf16(code_value<0>(a) * scale, code_value<1>(a) * scale);
+  o.y = pack_bf16(code_value<2>(a) * scale, code_value<3>(a) * scale);
+  o.z = pack_bf16(code_value<0>(b) * scale, code_value<1>(b) * scale);
+  o.w = pack_bf16(code_value<2>(b) * scale, code_value<3>(b) * scale);
+  return o;
 }

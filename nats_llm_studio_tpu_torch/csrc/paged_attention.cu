@@ -8,8 +8,7 @@
 // int8 codes [NB, L, Hkv, T, D] with f32 scales [NB, L, Hkv, T] (the KVQ
 // cache) and dequantizes each tile as it copies it into shared memory
 // (code x scale in f32, rounded to q's dtype, as the JAX kernel's
-// quantized branch does). One template body serves both: KV is the
-// storage type (T or int8_t), and the scale pointers are null for K1.
+// quantized branch does).
 //
 // What bounds it on the H100: bytes. Each decode step reads every live K/V
 // row of every slot once (2 x context x Hkv x D x 2 bytes per slot per
@@ -17,25 +16,57 @@
 // read, far below the ~295 flops/byte where the tensor cores would become
 // the limit. The int8 pool halves the bytes.
 //
-// What the design does about it:
+// Which body serves which (q dtype, pool storage, D), chosen by type in
+// paged_decode_plan() and paged_decode_attention(), with no fallback:
+//  * (bf16, bf16, D in {64, 128, 256}), K1: paged_decode_mma_kernel<D>;
+//  * every other pair K1 takes, by an explicit rule: (f32, f32) and bf16 at
+//    any other D <= 256 with D % 8 == 0 (K1), and (bf16 or f32, int8) with
+//    D % 16 == 0 (K1q): paged_decode_kernel<T, KV>.
+//
+// Shared by both bodies:
 //  * one CTA per (slot, kv-head, split): each K/V tile is read from device
 //    memory once and serves the whole GQA row bundle (group x W query
 //    rows), so the grouped heads cost no extra bytes;
 //  * the CTA reads its own block-table row and position and walks only its
 //    share of the live blocks 0..(pos+W-1)//T, so a slot's cost follows its
 //    context, not the table width (no scalar prefetch, no dead grid cells);
-//  * split-K (flash-decoding): a slot's live blocks are divided between
-//    ``n_splits`` CTAs, so 8 slots x 8 kv-heads still fill the 132 SMs;
-//    each split leaves its unnormalized accumulator and (max, sum), and
-//    paged_combine_kernel merges them (one split writes the output
-//    directly);
-//  * a tile is 64 keys (several 16-token blocks), loaded with 16-byte
-//    vector loads issued four per thread before their shared-memory
-//    stores, so many loads are in flight per CTA;
+//  * split-K (flash-decoding): each split leaves its unnormalized
+//    accumulator and (max, sum), and paged_combine_kernel merges them;
 //  * the layer is a runtime argument indexed inside the kernel: the pool is
 //    never sliced or copied per layer.
-// Scores and PV products are scalar f32 FMAs; cp.async/TMA double buffering
-// is the next step.
+//
+// paged_decode_mma_kernel<D> (tensor cores, cp.async ring):
+//  * 4 warps; the bundle's rows, padded to 16, are one m16 A fragment of Q
+//    (loaded once, in registers for D <= 128, reloaded per k-step at
+//    D = 256); a bundle of more than 16 rows takes one CTA per 16-row
+//    m-tile, on the same body (the siblings read the same K/V tiles, from
+//    L2 after the first);
+//  * 64-key K and V tiles are gathered through the block table, key row by
+//    key row (block tbl[key / T], row key % T: any T, and a tile may span
+//    blocks), by 16-byte cp.async into a three-stage swizzled ring: tiles
+//    t+1 and t+2 are in flight while tile t is computed, one barrier a
+//    tile. The CTA first copies its split's slice of the table row into
+//    shared memory;
+//  * each warp takes 16 keys of every tile: S = Q K^T (16 x 16, D/16
+//    k-steps of mma.sync m16n8k16 fed by ldmatrix), then scale, mask and
+//    online softmax on the fragments, P rounded to bf16 in registers (the
+//    JAX p.astype(v.dtype)) and O += P V with V by ldmatrix.trans. Each warp
+//    keeps its own (m, l, O); at the end the 4 warps merge in shared memory.
+//    The tensor cores are not the bound (128 mma.sync a 32 KB tile); they
+//    bring the operands in by ldmatrix rather than one shared load per FMA;
+//  * splits are sized by work: SPLIT_TILES (ops/paged_attention.py) tiles a
+//    split, as many splits as the table's width needs. CTAs past a slot's
+//    live tiles exit at once; a slot with one live split writes its output
+//    directly, and the combine step reads only the splits that held keys.
+//    A warp or split that saw no live key carries (m, l) = (-1e30, 0) and
+//    weighs 0. The attributes are set once a device.
+//
+// paged_decode_kernel<T, KV> (f32 FMAs): a tile is 64 keys (several
+// 16-token blocks), loaded with 16-byte vector loads issued four per thread
+// before their shared-memory stores; scores and PV products are scalar f32
+// FMAs from padded shared-memory tiles; the table's tiles are divided among
+// about two CTAs an SM. K1q (KV = int8_t) dequantizes each tile as it
+// stores it.
 //
 // Numerics follow the JAX kernel: f32 scores and online-softmax state,
 // -1e30 mask, probabilities rounded to the pool dtype before the PV product,
@@ -43,15 +74,19 @@
 // q-head r % group); its causal frontier is key_pos <= pos + r / group.
 // Tables that point at the null block 0 give finite junk.
 
+#include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int NTH = 128;        // threads per CTA
 constexpr int TILE_KEYS = 64;   // keys per iteration
 constexpr int LOAD_UNROLL = 4;  // 16-byte loads in flight per thread
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory one H100 block can use
 
 int tile_blocks_for(int Tb) { return Tb >= TILE_KEYS ? 1 : TILE_KEYS / Tb; }
 
@@ -303,6 +338,416 @@ paged_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// -- tensor-core body: (bf16 q, bf16 pool), D in {64, 128, 256} -------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int PM_STAGES = 3;  // K/V ring: tiles t + 1 and t + 2 load during tile t
+constexpr int MIN_SPLIT_TILES = 2;
+constexpr int MAX_SPLIT_TILES = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Swizzled shared rows (as csrc/flash_attention.cu): chunk c of row r at
+// chunk c ^ (r % 8), D elements a row.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// Blocks of the table one split can touch: its keys span split_tiles
+// tiles, starting anywhere inside a block.
+int split_blocks(int split_tiles, int Tb) { return split_tiles * TILE_KEYS / Tb + 2; }
+
+// Shared memory: the K and V rings, Q's 16 rows, the split's slice of the
+// block table. The warps' final (m, l, O) reuse the rings.
+size_t paged_mma_smem_bytes(int D, int split_tiles, int Tb) {
+  return (size_t)(2 * PM_STAGES * TILE_KEYS + 16) * D * sizeof(bf16) +
+         (size_t)split_blocks(split_tiles, Tb) * sizeof(int);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+paged_decode_mma_kernel(const bf16* __restrict__ q,       // [B, W, Hq, D]
+                        const bf16* __restrict__ k_pool,  // [NB, L, Hkv, Tb, D]
+                        const bf16* __restrict__ v_pool,
+                        const int* __restrict__ tbl,      // [B, nbt]
+                        const int* __restrict__ pos,      // [B]
+                        bf16* __restrict__ out,           // [B, W, Hq, D]
+                        float* __restrict__ part_acc,     // [B, Hkv, S, rows, D]
+                        float* __restrict__ part_ml,      // [B, Hkv, S, rows, 2]
+                        int W, int Hq, int Hkv, int Tb, int L, int nbt, int layer,
+                        int n_splits, int split_tiles, float scale_log2) {
+  constexpr int TILE = TILE_KEYS * D;  // elements of one K or V stage
+  constexpr int KSTEPS = D / 16;
+  constexpr int NO = D / 8;  // 8-column n-tiles of a warp's output
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  constexpr bool Q_IN_REGS = D <= 128;  // as flash_fwd_mma_kernel
+  static_assert(TILE_KEYS == 16 * (NTH / 32), "one warp per 16 keys of a tile");
+  static_assert(TILE_KEYS * CH % NTH == 0 && 16 * CH % NTH == 0, "chunks per thread");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);  // [PM_STAGES][64][D]
+  bf16* sV = sK + PM_STAGES * TILE;          // [PM_STAGES][64][D]
+  bf16* sQ = sV + PM_STAGES * TILE;          // [16][D]
+  int* sT = reinterpret_cast<int*>(sQ + 16 * D);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int group = Hq / Hkv;
+  const int rows = group * W;
+  const int m_tiles = (rows + 15) / 16;
+  const int mt = blockIdx.z % m_tiles;
+  const int split = blockIdx.z / m_tiles;
+  const int p0 = pos[b];
+  // keys past pos + W - 1 are masked for every row; the table ends at nbt * Tb
+  const int n_keys = min(max(p0 + W, 1), nbt * Tb);
+  const int live_tiles = (n_keys + TILE_KEYS - 1) / TILE_KEYS;
+  const int t_begin = split * split_tiles;
+  if (t_begin >= live_tiles) return;  // past the slot's live keys: nothing to do
+  const int n_t = min(live_tiles - t_begin, split_tiles);
+  const bool direct = live_tiles <= split_tiles;  // the slot's only live split
+  const int key0 = t_begin * TILE_KEYS;
+  const int key_end = min(n_keys, key0 + n_t * TILE_KEYS);
+  const int j0 = key0 / Tb;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int* trow = tbl + (int64_t)b * nbt;
+  for (int j = tid; j <= (key_end - 1) / Tb - j0; j += NTH) sT[j] = trow[j0 + j];
+  __syncthreads();
+
+  const int64_t blk_stride = (int64_t)L * Hkv * Tb * D;
+  const int64_t head_off = ((int64_t)layer * Hkv + h) * Tb * D;
+  // the 16-byte copies of the split's local tile t into ring stage
+  // ``stage``: key row by key row through the table (any Tb; a tile may
+  // span blocks); keys at or past key_end are zero-filled
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = key0 + t * TILE_KEYS;
+#pragma unroll
+    for (int it = 0; it < TILE_KEYS * CH / NTH; ++it) {
+      const int i = it * NTH + tid;
+      const int r = i / CH;
+      const int c = i - r * CH;
+      const int key = k0 + r;
+      const bool ok = key < key_end;
+      int64_t off = 0;
+      if (ok) {
+        const int jb = key / Tb;
+        off = sT[jb - j0] * blk_stride + head_off + (int64_t)(key - jb * Tb) * D + c * 8;
+      }
+      cp_async16(sK + stage * TILE + swz<D>(r, c), k_pool + off, ok);
+      cp_async16(sV + stage * TILE + swz<D>(r, c), v_pool + off, ok);
+    }
+  };
+
+  // Q: the m-tile's 16 bundle rows, row R reading q[b, R / group, h * group
+  // + R % group]; rows past the bundle are zero (their outputs are never
+  // written). It lands with tile 0.
+#pragma unroll
+  for (int it = 0; it < 16 * CH / NTH; ++it) {
+    const int i = it * NTH + tid;
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const int R = mt * 16 + r;
+    const bool ok = R < rows;
+    const int w = R / group;
+    const bf16* src = q + ((int64_t)(b * W + w) * Hq + h * group + (R - w * group)) * D;
+    cp_async16(sQ + swz<D>(r, c), ok ? src + c * 8 : q, ok);
+  }
+  load_kv(0, 0);
+  cp_async_commit();
+  if (n_t > 1) load_kv(1, 1);
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {NEG_INF_F, NEG_INF_F};  // running max of rows g and g + 8 (base 2)
+  float l[2] = {0.f, 0.f};              // this lane's share of their running sums
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+  // the last key rows g and g + 8 of this lane see: the causal frontier
+  // pos + R / group, inside the live keys
+  int lim[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    lim[hh] = min(p0 + (mt * 16 + (lane >> 2) + 8 * hh) / group, key_end - 1);
+  const int x_qv = (lane >> 4) ^ (lane & 7);       // Q and V: chunk 2 * step + lane / 16
+  const int x_k = ((lane >> 3) & 1) ^ (lane & 7);  // K: chunk 2 * step + (lane / 8) % 2
+  const bf16* sQw = sQ + (lane & 15) * D;
+  // this warp's 16 keys of a tile: rows warp * 16 .. + 15 of the stage
+  const int k_row = (warp * 16 + (lane >> 4) * 8 + (lane & 7)) * D;
+  const int v_row = (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * D;
+
+  int stage = 0;
+  for (int t = 0; t < n_t; ++t) {
+    cp_async_wait<1>();  // tile t has landed; tile t + 1 may still be in flight
+    __syncthreads();     // ... for every thread, and every warp is done with tile t - 1
+    if (t + 2 < n_t) load_kv(t + 2, stage == 0 ? 2 : stage - 1);  // tile t - 1's stage
+    cp_async_commit();
+    const bf16* sKs = sK + stage * TILE;
+    const bf16* sVs = sV + stage * TILE;
+    if constexpr (Q_IN_REGS) {
+      if (t == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks) ldmatrix_x4(qf[ks], sQw + (((2 * ks) ^ x_qv) << 3));
+      }
+    }
+
+    // S = Q K^T: the m-tile's 16 rows x this warp's 16 keys
+    float s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      } else {
+        ldmatrix_x4(a, sQw + (((2 * ks) ^ x_qv) << 3));
+      }
+      uint32_t kf[4];  // keys +0 .. +7 and +8 .. +15, dims ks*16 .. +15
+      ldmatrix_x4(kf, sKs + k_row + (((2 * ks) ^ x_k) << 3));
+      mma_bf16_16816(s[0], a, kf[0], kf[1]);
+      mma_bf16_16816(s[1], a, kf[2], kf[3]);
+    }
+
+    // scale (base 2) and mask: the frontier, the split's end, the table's end
+    const int kbase = key0 + t * TILE_KEYS + warp * 16 + (lane & 3) * 2;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = kbase + nt * 8 + (e & 1);
+        s[nt][e] = kp > lim[e >> 1] ? NEG_INF_F : s[nt][e] * scale_log2;
+      }
+
+    // online softmax on the fragments; a row that has seen no live key yet
+    // keeps p = 0, so (m, l, O) stay (-1e30, 0, 0) and weigh 0 below
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = fmaxf(m[hh], fmaxf(fmaxf(s[0][2 * hh], s[0][2 * hh + 1]),
+                                    fmaxf(s[1][2 * hh], s[1][2 * hh + 1])));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mref = mx == NEG_INF_F ? 0.f : mx;
+      corr[hh] = fast_exp2(m[hh] - mref);
+      m[hh] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float p0v = fast_exp2(s[nt][2 * hh] - mref);
+        const float p1v = fast_exp2(s[nt][2 * hh + 1] - mref);
+        s[nt][2 * hh] = p0v;
+        s[nt][2 * hh + 1] = p1v;
+        sum += p0v + p1v;
+      }
+      l[hh] = l[hh] * corr[hh] + sum;
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int dt = 0; dt < NO; ++dt) {
+        o[dt][0] *= corr[0];
+        o[dt][1] *= corr[0];
+        o[dt][2] *= corr[1];
+        o[dt][3] *= corr[1];
+      }
+    }
+
+    // O += P V: P rounded to bf16 in registers (the JAX p.astype(v.dtype))
+    const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                           pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t vf[4];  // keys +0 .. +15, dims dp*16 .. +7 and +8 .. +15
+      ldmatrix_x4_trans(vf, sVs + v_row + (((2 * dp) ^ x_qv) << 3));
+      mma_bf16_16816(o[2 * dp], a, vf[0], vf[1]);
+      mma_bf16_16816(o[2 * dp + 1], a, vf[2], vf[3]);
+    }
+    stage = stage == PM_STAGES - 1 ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the rings: they take (m, l, O)
+
+  // the 4 warps' states, then their merge: weights 2^(m_w - max_w m_w)
+  float* sO = reinterpret_cast<float*>(smem);  // [4][16][D]
+  float* sML = sO + 4 * 16 * D;                // [4][16][2]
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = warp * 16 + (lane >> 2) + 8 * hh;
+    if ((lane & 3) == 0) {
+      sML[r * 2] = m[hh];
+      sML[r * 2 + 1] = lt;
+    }
+#pragma unroll
+    for (int dt = 0; dt < NO; ++dt)
+      *reinterpret_cast<float2*>(sO + r * D + dt * 8 + (lane & 3) * 2) =
+          make_float2(o[dt][2 * hh], o[dt][2 * hh + 1]);
+  }
+  __syncthreads();
+  const int64_t prow = (((int64_t)b * Hkv + h) * n_splits + split) * rows;
+  for (int i = tid; i < 16 * D / 4; i += NTH) {
+    const int r = i / (D / 4);
+    const int d = (i - r * (D / 4)) * 4;
+    const int R = mt * 16 + r;
+    if (R >= rows) break;  // rows grow with i
+    float mx = NEG_INF_F;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, sML[(w * 16 + r) * 2]);
+    float lsum = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wgt = fast_exp2(sML[(w * 16 + r) * 2] - mx);
+      lsum = fmaf(sML[(w * 16 + r) * 2 + 1], wgt, lsum);
+      const float4 x = *reinterpret_cast<const float4*>(sO + (w * 16 + r) * D + d);
+      acc.x = fmaf(x.x, wgt, acc.x);
+      acc.y = fmaf(x.y, wgt, acc.y);
+      acc.z = fmaf(x.z, wgt, acc.z);
+      acc.w = fmaf(x.w, wgt, acc.w);
+    }
+    if (direct) {
+      const float den = fmaxf(lsum, 1e-30f);
+      const int w = R / group;
+      bf16* orow = out + ((int64_t)(b * W + w) * Hq + h * group + (R - w * group)) * D + d;
+      *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x / den, acc.y / den);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 2) =
+          __floats2bfloat162_rn(acc.z / den, acc.w / den);
+    } else {
+      *reinterpret_cast<float4*>(part_acc + (prow + R) * D + d) = acc;
+      if (d == 0) {  // m in natural-log units, as the combine kernel reads it
+        part_ml[(prow + R) * 2] = mx * LN2;
+        part_ml[(prow + R) * 2 + 1] = lsum;
+      }
+    }
+  }
+}
+
+// Merge the splits of one (slot, kv-head) for paged_decode_mma_kernel: split
+// s held key tiles [s * split_tiles, (s + 1) * split_tiles) of the slot's
+// live tiles, so only the first ceil(live / split_tiles) are read, and a
+// slot with one live split was written by that split directly. Every
+// (split, row) (m, l) is read at once into shared memory, each row's
+// weights exp(m_s - max m) and 1 / sum are formed once, then each thread
+// sums 4 adjacent output columns over the splits with independent loads.
+template <int D>
+__global__ void __launch_bounds__(NTH)
+paged_combine_mma_kernel(const float* __restrict__ part_acc,
+                         const float* __restrict__ part_ml, bf16* __restrict__ out,
+                         const int* __restrict__ pos, int W, int Hq, int Hkv, int Tb,
+                         int nbt, int n_splits, int split_tiles) {
+  extern __shared__ float sw[];  // [n_splits][rows] m, then weights; [n_splits][rows] l; [rows]
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int group = Hq / Hkv;
+  const int rows = group * W;
+  const int n_keys = min(max(pos[b] + W, 1), nbt * Tb);
+  const int ns = ((n_keys + TILE_KEYS - 1) / TILE_KEYS + split_tiles - 1) / split_tiles;
+  if (ns <= 1) return;
+  float* sL = sw + n_splits * rows;
+  float* sInv = sL + n_splits * rows;
+  const int64_t base = ((int64_t)b * Hkv + h) * n_splits * rows;
+  for (int i = threadIdx.x; i < ns * rows; i += NTH) {
+    const float2 ml = *reinterpret_cast<const float2*>(part_ml + (base + i) * 2);
+    sw[i] = ml.x;
+    sL[i] = ml.y;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += NTH) {
+    float mx = NEG_INF_F;
+    for (int s = 0; s < ns; ++s) mx = fmaxf(mx, sw[s * rows + r]);
+    float l = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const float wgt = expf(sw[s * rows + r] - mx);
+      sw[s * rows + r] = wgt;
+      l = fmaf(sL[s * rows + r], wgt, l);
+    }
+    sInv[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * (D / 4); i += NTH) {
+    const int r = i / (D / 4);
+    const int d = (i - r * (D / 4)) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int s = 0; s < ns; ++s) {
+      const float wgt = sw[s * rows + r];
+      const float4 x =
+          *reinterpret_cast<const float4*>(part_acc + (base + s * rows + r) * D + d);
+      acc.x = fmaf(x.x, wgt, acc.x);
+      acc.y = fmaf(x.y, wgt, acc.y);
+      acc.z = fmaf(x.z, wgt, acc.z);
+      acc.w = fmaf(x.w, wgt, acc.w);
+    }
+    const float inv = sInv[r];
+    const int w = r / group;
+    bf16* orow = out + ((int64_t)(b * W + w) * Hq + h * group + (r - w * group)) * D + d;
+    *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+    *reinterpret_cast<__nv_bfloat162*>(orow + 2) =
+        __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+  }
+}
+
+// The kernel's attributes, set once a device: room for its largest shared
+// memory (the size depends on split_tiles and Tb), all of the SM's 228 KB to
+// shared memory.
+template <int D>
+cudaError_t paged_mma_attributes() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(paged_decode_mma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(paged_decode_mma_kernel<D>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+  return e;
+}
+
+template <int D>
+int launch_paged_mma(const void* q, const void* kp, const void* vp, const int* tbl,
+                     const int* pos, void* out, float* part_acc, float* part_ml, int B,
+                     int W, int Hq, int Hkv, int Tb, int L, int nbt, int layer,
+                     int n_splits, float scale, cudaStream_t stream) {
+  const int tiles = (nbt * Tb + TILE_KEYS - 1) / TILE_KEYS;
+  const int split_tiles = (tiles + n_splits - 1) / n_splits;
+  const int rows = (Hq / Hkv) * W;
+  const size_t smem = paged_mma_smem_bytes(D, split_tiles, Tb);
+  const size_t combine_smem = (2 * (size_t)n_splits + 1) * rows * sizeof(float);
+  if (smem > SMEM_MAX || combine_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t e = paged_mma_attributes<D>();
+  if (e != cudaSuccess) return (int)e;
+  const int m_tiles = (rows + 15) / 16;
+  paged_decode_mma_kernel<D><<<dim3(Hkv, B, n_splits * m_tiles), NTH, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+      static_cast<const bf16*>(vp), tbl, pos, static_cast<bf16*>(out), part_acc, part_ml,
+      W, Hq, Hkv, Tb, L, nbt, layer, n_splits, split_tiles, scale * LOG2E);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_splits == 1) return (int)e;
+  paged_combine_mma_kernel<D><<<dim3(Hkv, B), NTH, combine_smem, stream>>>(
+      part_acc, part_ml, static_cast<bf16*>(out), pos, W, Hq, Hkv, Tb, nbt, n_splits,
+      split_tiles);
+  return (int)cudaGetLastError();
+}
+
+bool uses_mma(int dtype, int kv_dtype, int D) {
+  return dtype == DTYPE_BF16 && kv_dtype == DTYPE_BF16 && (D == 64 || D == 128 || D == 256);
+}
+
 template <typename T, typename KV>
 int launch_paged(const void* q, const void* kp, const void* vp, const float* ks,
                  const float* vs, const int* tbl, const int* pos, void* out,
@@ -325,22 +770,67 @@ int launch_paged(const void* q, const void* kp, const void* vp, const float* ks,
   return (int)cudaGetLastError();
 }
 
+int dispatch_mma(int D, const void* q, const void* kp, const void* vp, const int* tbl,
+                 const int* pos, void* out, float* part_acc, float* part_ml, int B, int W,
+                 int Hq, int Hkv, int Tb, int L, int nbt, int layer, int n_splits,
+                 float scale, cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return launch_paged_mma<64>(q, kp, vp, tbl, pos, out, part_acc, part_ml, B, W, Hq,
+                                  Hkv, Tb, L, nbt, layer, n_splits, scale, s);
+    case 128:
+      return launch_paged_mma<128>(q, kp, vp, tbl, pos, out, part_acc, part_ml, B, W, Hq,
+                                   Hkv, Tb, L, nbt, layer, n_splits, scale, s);
+    case 256:
+      return launch_paged_mma<256>(q, kp, vp, tbl, pos, out, part_acc, part_ml, B, W, Hq,
+                                   Hkv, Tb, L, nbt, layer, n_splits, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory the decode kernel needs for this shape (the wrapper
-// refuses shapes above the card's 227 KB per block).
-size_t paged_decode_smem_bytes(int rows, int D, int Tb, int itemsize) {
-  return smem_bytes(rows, D, tile_blocks_for(Tb) * Tb, itemsize);
+// How a shape is served, decided once per shape by the wrapper: returns the
+// body (1: paged_decode_mma_kernel, 0: paged_decode_kernel, -1: a type pair
+// neither takes) and sets the split count to launch with and the shared
+// memory a CTA needs (the wrapper refuses shapes above the card's 227 KB).
+// The tensor-core body splits by work: a fixed number of 64-key tiles a
+// split (2 to 8, so a full table would give about two CTAs an SM), as many
+// splits as the table's width needs, and a slot's CTAs past its live tiles
+// exit at once. The FMA body divides the table's tiles among about two CTAs
+// an SM (``sms``), at most 16 splits, whatever the slot's length.
+int paged_decode_plan(int dtype, int kv_dtype, int B, int W, int Hq, int Hkv, int D,
+                      int Tb, int nbt, int sms, int* n_splits, size_t* smem) {
+  const int tiles = (nbt * Tb + TILE_KEYS - 1) / TILE_KEYS;
+  if (uses_mma(dtype, kv_dtype, D)) {
+    // tiles a split: the full table's CTA-tiles over about two CTAs an SM,
+    // within [MIN_SPLIT_TILES, MAX_SPLIT_TILES]; short slots use fewer splits
+    const int cta_tiles = tiles * B * Hkv * (((Hq / Hkv) * W + 15) / 16);
+    const int st = std::min(MAX_SPLIT_TILES,
+                            std::max(MIN_SPLIT_TILES, (cta_tiles + 2 * sms - 1) / (2 * sms)));
+    *n_splits = (tiles + st - 1) / st;
+    *smem = paged_mma_smem_bytes(D, (tiles + *n_splits - 1) / *n_splits, Tb);
+    return 1;
+  }
+  if (!(kv_dtype == dtype || kv_dtype == DTYPE_INT8) ||
+      (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return -1;
+  const int want = (2 * sms + B * Hkv - 1) / (B * Hkv);
+  *n_splits = std::max(1, std::min(std::min(16, tiles), want));
+  *smem = smem_bytes((Hq / Hkv) * W, D, tile_blocks_for(Tb) * Tb,
+                     dtype == DTYPE_F32 ? 4 : 2);
+  return 0;
 }
 
 // q and out in ``dtype`` (DTYPE_F32 or DTYPE_BF16); the pools in
 // ``kv_dtype``: the same, or DTYPE_INT8 with their f32 scales k_scale /
-// v_scale (null otherwise; D % 16 == 0). Returns cudaGetLastError() after
-// the launches (0 = launched). With n_splits > 1, part_acc
-// [B*Hkv*n_splits*rows*D] and part_ml [B*Hkv*n_splits*rows*2] are f32
-// scratch allocated by the caller.
+// v_scale (null otherwise; D % 16 == 0). ``n_splits`` as paged_decode_plan
+// gives it. Returns cudaGetLastError() after the launches (0 = launched).
+// With n_splits > 1, part_acc [B*Hkv*n_splits*rows*D] and part_ml
+// [B*Hkv*n_splits*rows*2] are f32 scratch allocated by the caller.
 int paged_decode_attention(int dtype, int kv_dtype, const void* q, const void* k_pool,
                            const void* v_pool, const float* k_scale,
                            const float* v_scale, const int* tbl, const int* pos,
@@ -349,6 +839,9 @@ int paged_decode_attention(int dtype, int kv_dtype, const void* q, const void* k
                            int n_splits, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_splits < 1) return (int)cudaErrorInvalidValue;
+  if (uses_mma(dtype, kv_dtype, D))
+    return dispatch_mma(D, q, k_pool, v_pool, tbl, pos, out, part_acc, part_ml, B, W, Hq,
+                        Hkv, Tb, L, nbt, layer, n_splits, scale, s);
   if (kv_dtype == DTYPE_INT8) {
     if (D % 16 || k_scale == nullptr || v_scale == nullptr)
       return (int)cudaErrorInvalidValue;

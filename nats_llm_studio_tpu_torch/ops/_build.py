@@ -42,7 +42,7 @@ SIGNATURES = {
     "paged_attention": {
         "paged_decode_attention": (
             [_i, _i] + [_p] * 10 + [_i] * 10 + [_f, _p], _i),
-        "paged_decode_smem_bytes": ([_i, _i, _i, _i], ctypes.c_size_t),
+        "paged_decode_plan": ([_i] * 10 + [_p, _p], _i),
     },
     "flash_attention": {
         "flash_attention": (

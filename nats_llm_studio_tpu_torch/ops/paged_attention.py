@@ -3,20 +3,25 @@
 
 Port of ``nats_llm_studio_tpu/ops/paged_attention.py``
 ``paged_decode_attention``, both branches of its ``pallas_call``. The
-kernel (``csrc/paged_attention.cu``) runs one CTA per (slot, kv-head,
+kernels (``csrc/paged_attention.cu``) run one CTA per (slot, kv-head,
 split), each walking its share of the slot's live blocks through the block
 table and reading the pool [NB, L, Hkv, T, D] in place at the runtime
-``layer``; a second kernel merges the splits. On an int8 ``KVQ`` pool
-(codes [NB, L, Hkv, T, D], f32 scales [NB, L, Hkv, T]) the same kernel body
-dequantizes each tile as it loads it. The Mosaic tiling rule of the JAX
-path (``paged_decode_eligible``) does not apply: any T and any D <= 256
-with D % 8 == 0 (D % 16 == 0 for int8 codes) is served.
+``layer``; a second kernel merges the splits. bf16 q over a bf16 pool at
+D 64, 128 or 256 runs the tensor-core body; every other shape, and an int8
+``KVQ`` pool (codes [NB, L, Hkv, T, D], f32 scales [NB, L, Hkv, T]), whose
+tiles are dequantized as they load, runs the FMA body. The library's
+``paged_decode_plan`` picks the body and the split count once per shape.
+The Mosaic tiling rule of the JAX path (``paged_decode_eligible``) does not
+apply: any T and any D <= 256 with D % 8 == 0 (D % 16 == 0 for int8
+codes) is served.
 
 ``paged_decode_attention`` launches K1, or K1q for a KVQ pool, for CUDA
 tensors and uses ``paged_decode_attention_plain`` only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,17 +30,33 @@ from .kvcache import KVQ, dequantize, is_quantized
 from .layers import NEG_INF, softmax_pv
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
-_SM_COUNT: dict = {}
+_PLANS: dict = {}
 
 
-def _n_splits(device, b: int, hkv: int, nbt: int, t: int) -> int:
-    """CTAs per (slot, kv-head): enough for ~2 CTAs per SM, no more than
-    the table's 64-key tiles, at most 16."""
-    sms = _SM_COUNT.get(device)
-    if sms is None:
-        sms = _SM_COUNT[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-nbt * t // 64)
-    return max(1, min(16, tiles, -(-2 * sms // (b * hkv))))
+def _plan(q, kp, tbl) -> tuple[int, int]:
+    """(body, n_splits) for this shape, decided once per shape by the
+    library's ``paged_decode_plan``: body 1 is the tensor-core kernel, 0
+    the FMA kernel. Raises if the shape needs more shared memory than a
+    block can use."""
+    b, w, hq, d = q.shape
+    hkv, t = kp.shape[2], kp.shape[3]
+    key = (q.device, q.dtype, kp.dtype, b, w, hq, hkv, d, t, tbl.shape[1])
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = _build.load_library("paged_attention")
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits, smem = ctypes.c_int(0), ctypes.c_size_t(0)
+        body = lib.paged_decode_plan(
+            _build.dtype_code(q.dtype), _build.dtype_code(kp.dtype), b, w, hq, hkv, d, t,
+            tbl.shape[1], sms, ctypes.byref(splits), ctypes.byref(smem))
+        if body < 0:
+            raise TypeError(f"paged decode: no kernel takes q {q.dtype} over a {kp.dtype} pool")
+        if smem.value > SMEM_LIMIT:
+            raise ValueError(
+                f"paged decode: {smem.value} bytes of shared memory needed (rows="
+                f"{(hq // hkv) * w}, T={t}, D={d}); the card allows {SMEM_LIMIT}")
+        plan = _PLANS[key] = (body, splits.value)
+    return plan
 
 
 def _gather(pool, idx: torch.Tensor, layer: int, dtype: torch.dtype) -> torch.Tensor:
@@ -152,18 +173,12 @@ def _launch(name: str, q, kp, vp, ks, vs, tbl, pos, layer: int, scale: float, ou
             raise ValueError(f"{name}: {tn} must be 16-byte aligned")
     lib = _build.load_library("paged_attention")
     rows = (hq // hkv) * w
-    smem = lib.paged_decode_smem_bytes(rows, d, t, q.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: {smem} bytes of shared memory needed "
-            f"(rows={rows}, T={t}, D={d}); the card allows {SMEM_LIMIT}")
-    splits = _n_splits(q.device, b, hkv, tbl.shape[1], t)
+    _, splits = _plan(q, kp, tbl)
     part_acc = part_ml = None
-    if splits > 1:  # per-split accumulators and (max, sum), merged on the card
-        part_acc = torch.empty(b * hkv * splits * rows * d, dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty(b * hkv * splits * rows * 2, dtype=torch.float32,
-                              device=q.device)
+    if splits > 1:  # per-split accumulators, then (max, sum), merged on the card
+        n = b * hkv * splits * rows
+        part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+        part_acc, part_ml = part[:n * d], part[n * d:]
     rc = lib.paged_decode_attention(
         _build.dtype_code(q.dtype), _build.dtype_code(kp.dtype), q.data_ptr(),
         kp.data_ptr(), vp.data_ptr(),

@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
-"""Time one checkout's prefill attention on one GPU: K2 and K3 alone, and a
-fresh prefill through the model forward.
+"""Time one checkout's attention kernels on one GPU, alone and in the model:
+the kernels, a fresh prefill forward, and a paged decode step.
 
     python3 scripts/prefill_forward_ms.py [--root DIR]
 
-* kernels: K2 (``flash_attention``) at T=512 and T=4096, and K3
-  (``flash_attention_chunk``) at start 1024 over KW 2048 and at start 3840
-  over KW 4096, on the inputs ``chip_smoke.py``'s kernel phase draws from
-  seed 0.
+* kernels: K1 (``paged_decode_attention``, bf16 pool) at the serve shape
+  (8 slots, positions 4095 .. 5, 16-token blocks), K2
+  (``flash_attention``) at T=512 and T=4096, and K3
+  (``flash_attention_chunk``) and K4 (``flash_attention_chunk_kvq``, int8
+  cache) at start 1024 over KW 2048 and at start 3840 over KW 4096, on the
+  inputs ``chip_smoke.py``'s kernel phase draws from seed 0; each by
+  ``chip_smoke.cuda_ms`` (CUDA events around calls queued behind a
+  device-side sleep).
 * prefill: random bf16 weights at Meta-Llama-3-8B's published widths
   (``chip_smoke.LLAMA3_8B``; sigma 0.02, seeded), all 32 layers, made on
   the card; ``models.llama.forward`` runs one fresh prefill of 1024 and of
   4096 tokens (batch 1, prompt-end logits only, as the batcher's
   ``prefill_full`` does), with K2 as served (``kernels``) and with an
   attention op that returns q unchanged (``no_attention``), so the
-  difference is the attention's share of the prefill.
+  difference is the attention's share of the prefill (``cuda_ms``).
+* decode: one paged decode step (``forward_decode_paged`` and a greedy
+  pick) of 8 slots at 512 tokens over the same weights, once with a bf16
+  pool (K1) and once with an int8 one (K1q), profiled by
+  ``chip_smoke.decode_profile``: device ms a step and the paged attention
+  kernels' share (decode and split merge) from ``torch.profiler``, wall ms
+  a step on the host clock.
 
-Every time is ``chip_smoke.cuda_ms`` (CUDA events around calls queued
-behind a device-side sleep) of the ``chip_smoke.py`` beside this script.
+Every tool named here is the ``chip_smoke.py`` beside this script.
 ``--root`` imports ``nats_llm_studio_tpu_torch`` from another checkout (an
 unpacked parent commit, say), so two versions are timed by one yardstick:
 run parent, this tree, this tree, parent back to back on one card. Needs a
@@ -29,6 +38,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import sys
+import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
@@ -67,14 +77,20 @@ def random_params(torch, cfg, seed: int) -> dict:
 
 def kernel_times(torch, smoke) -> None:
     from nats_llm_studio_tpu_torch.ops import flash_attention as fa
+    from nats_llm_studio_tpu_torch.ops import paged_attention as pa
 
     c = smoke.LLAMA3_8B
-    cases = (("flash_attention T=512", smoke.k2_inputs, fa.flash_attention),
+    cases = (("paged_decode_attention serve shape", smoke.k1_inputs, pa.paged_decode_attention),
+             ("flash_attention T=512", smoke.k2_inputs, fa.flash_attention),
              ("flash_attention T=4096", smoke.k2_long_inputs, fa.flash_attention),
              ("flash_attention_chunk start=1024 KW=2048", smoke.k3_inputs,
               fa.flash_attention_chunk),
              ("flash_attention_chunk start=3840 KW=4096", smoke.k3_long_inputs,
-              fa.flash_attention_chunk))
+              fa.flash_attention_chunk),
+             ("flash_attention_chunk_kvq start=1024 KW=2048", smoke.k4_inputs,
+              fa.flash_attention_chunk_kvq),
+             ("flash_attention_chunk_kvq start=3840 KW=4096", smoke.k4_long_inputs,
+              fa.flash_attention_chunk_kvq))
     for name, make, kern in cases:
         args = make(torch, torch.Generator(device="cuda").manual_seed(SEED), c)["args"]
         print(f"kernel {name}: {smoke.cuda_ms(torch, lambda: kern(*args)):.4f} ms", flush=True)
@@ -82,16 +98,19 @@ def kernel_times(torch, smoke) -> None:
         torch.cuda.empty_cache()
 
 
-def prefill_times(torch, smoke) -> None:
+def model_config(smoke):
     from nats_llm_studio_tpu_torch.models.config import ModelConfig
-    from nats_llm_studio_tpu_torch.models.llama import KERNELS, AttentionOps, forward, make_cache
 
     w = smoke.LLAMA3_8B
-    cfg = ModelConfig(vocab_size=w["vocab"], d_model=w["d_model"], n_heads=w["n_heads"],
-                      n_kv_heads=w["n_kv_heads"], head_dim=w["head_dim"], d_ff=w["d_ff"],
-                      rope_theta=w["rope_theta"], rms_eps=w["rms_eps"], n_layers=LAYERS,
-                      max_seq_len=max(TOKENS))
-    params = random_params(torch, cfg, SEED)
+    return ModelConfig(vocab_size=w["vocab"], d_model=w["d_model"], n_heads=w["n_heads"],
+                       n_kv_heads=w["n_kv_heads"], head_dim=w["head_dim"], d_ff=w["d_ff"],
+                       rope_theta=w["rope_theta"], rms_eps=w["rms_eps"], n_layers=LAYERS,
+                       max_seq_len=max(TOKENS))
+
+
+def prefill_times(torch, smoke, cfg, params) -> None:
+    from nats_llm_studio_tpu_torch.models.llama import KERNELS, AttentionOps, forward, make_cache
+
     no_attention = AttentionOps(lambda q, k, v, scale: q, KERNELS.chunk, KERNELS.chunk_kvq,
                                 KERNELS.paged)
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
@@ -114,6 +133,19 @@ def prefill_times(torch, smoke) -> None:
         del k_cache, v_cache
 
 
+def decode_times(torch, smoke, cfg, params) -> None:
+    """``chip_smoke.decode_profile`` of one decode step, 8 slots at 512
+    tokens, with a bf16 pool and with an int8 one."""
+    for kv in ("none", "int8"):
+        eng = types.SimpleNamespace(cfg=cfg.with_(kv_quant=kv),
+                                    batcher=types.SimpleNamespace(params=params))
+        prof = smoke.decode_profile(torch, eng)
+        print(f"decode (kv {kv}) 8 slots x 512 tokens: device "
+              f"{prof['device_ms_per_step']:.3f} ms a step, of which paged attention "
+              f"{prof['attention_ms_per_step']:.3f} ms; wall {prof['wall_ms_per_step']:.2f} ms "
+              f"a step", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE,
@@ -129,7 +161,10 @@ def main() -> int:
     smoke = load_chip_smoke()
     print(f"card: {smoke.card_line()}; root {args.root}; {LAYERS} layers", flush=True)
     kernel_times(torch, smoke)
-    prefill_times(torch, smoke)
+    cfg = model_config(smoke)
+    params = random_params(torch, cfg, SEED)
+    prefill_times(torch, smoke, cfg, params)
+    decode_times(torch, smoke, cfg, params)
     return 0
 
 

@@ -7,10 +7,15 @@ of a checkout (the test conftest needs jax, which that machine may lack):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: max abs error 1e-4 in float32 (summation order only) and 2e-2
-in bf16 (the bf16 tolerance of tests/test_flash_attention.py:184). bf16 K2
-and K3 run the tensor-core body of csrc/flash_attention.cu, float32 the
+in bf16 (the bf16 tolerance of tests/test_flash_attention.py:184). bf16 K2,
+K3 and K4 run the tensor-core body of csrc/flash_attention.cu, float32 the
 FMA body; the flash cases cover both at ragged query, key and window
 edges, starts off the 64-key tile grid, groups 1 to 8 and D 64 to 256.
+bf16 K1 at D 64, 128 and 256 runs the tensor-core body of
+csrc/paged_attention.cu, every other K1 and K1q shape the FMA body; the
+paged cases cover bundles of 1 to 32 rows (one and two m-tiles), block
+sizes 8 to 128, a 4096-key slot, slots with fewer live tiles than splits
+and all-null tables.
 """
 
 import pytest
@@ -122,6 +127,54 @@ def test_flash_chunk_kernel_matches_plain(gen, dtype, b, c, hq, hkv, d, kw, s, s
            fa.flash_attention_chunk_plain(q, ks, vs, d ** -0.5, start), dtype)
 
 
+@pytest.mark.parametrize("b,w,hq,hkv,d,t,nbt,pos,null", [
+    (3, 1, 2, 2, 64, 8, 24, [5, 100, 191], False),        # 1 row, T=8: 8 blocks a tile
+    (3, 1, 8, 2, 128, 16, 20, [319, 64, 0], False),       # 4 rows (Llama-3's bundle)
+    (2, 3, 8, 2, 128, 64, 6, [200, 381], True),           # 12 rows, one block a tile
+    (2, 2, 16, 2, 256, 128, 4, [509, 130], True),         # 16 rows, T=128, D=256
+    (2, 5, 8, 2, 64, 16, 10, [77, 150], True),            # 20 rows: two m-tiles
+    (2, 4, 32, 4, 128, 32, 8, [100, 252], True),          # 32 rows, group 8
+    (1, 1, 32, 8, 128, 16, 256, [4095], False),           # one slot of 4096 keys, 16 splits
+    (8, 1, 32, 8, 128, 16, 256, [4095, 3001, 2048, 1500, 777, 300, 64, 5], True),  # serve
+    (2, 1, 32, 8, 256, 16, 128, [2047, 0], False),        # D=256, a slot of one live key
+])
+def test_paged_decode_mma_body_matches_plain(gen, b, w, hq, hkv, d, t, nbt, pos, null):
+    """The bf16 tensor-core body of K1. Slot tables run over distinct
+    blocks 1..; with ``null`` the last slot's table is all null blocks. In
+    the 4096-key tables most splits of the short slots hold no live tile."""
+    nb = 1 + b * nbt
+    kp = _rn(gen, nb, 2, hkv, t, d, dtype=torch.bfloat16)
+    vp = _rn(gen, nb, 2, hkv, t, d, dtype=torch.bfloat16)
+    tbl = torch.arange(1, nb, dtype=torch.int32, device="cuda").reshape(b, nbt)
+    if null:
+        tbl[-1] = 0
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
+    assert pa._plan(q, kp, tbl)[0] == 1
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, d ** -0.5)
+    assert pa.paged_decode_attention.launches == before + 1
+    _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, d ** -0.5),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [72, 40])
+def test_paged_decode_other_bf16_head_dims_take_the_fma_body(gen, d):
+    """bf16 head dims outside {64, 128, 256} stay on the FMA body."""
+    b, w, hq, hkv, t, nbt = 3, 2, 8, 2, 16, 12
+    nb = 1 + b * nbt
+    kp = _rn(gen, nb, 2, hkv, t, d, dtype=torch.bfloat16)
+    vp = _rn(gen, nb, 2, hkv, t, d, dtype=torch.bfloat16)
+    tbl, pos = _table(b, nbt, w, t)
+    q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
+    assert pa._plan(q, kp, tbl)[0] == 0
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, kp, vp, tbl, pos, 0, d ** -0.5)
+    assert pa.paged_decode_attention.launches == before + 1
+    _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos, 0, d ** -0.5),
+           torch.bfloat16)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _rn(gen, 1, 8, 2, 96, dtype=torch.bfloat16)  # head_dim 96: not built
     with pytest.raises(ValueError):
@@ -168,6 +221,31 @@ def test_flash_chunk_kvq_kernel_matches_plain(gen, dtype, b, c, hq, hkv, d, kw, 
     q = _rn(gen, b, c, hq, d, dtype=dtype)
     args = (q, kc.q[:, 1, :, :kw], kc.s[:, 1, :, :kw], vc.q[:, 1, :, :kw], vc.s[:, 1, :, :kw],
             d ** -0.5, start)
+    before = fa.flash_attention_chunk_kvq.launches
+    got = fa.flash_attention_chunk_kvq(*args)
+    assert fa.flash_attention_chunk_kvq.launches == before + 1
+    _check(got, fa.flash_attention_chunk_kvq_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,c,hq,hkv,d,kw,s,start,off", [
+    (2, 33, 8, 1, 128, 130, 160, 97, 0),      # start off the tile grid, ragged KW, group 8
+    (2, 7, 4, 4, 64, 45, 64, 38, 0),          # C=7, group 1, KW = start + C
+    (2, 50, 8, 8, 256, 300, 320, 250, 0),     # group 1, D=256, the diagonal straddles a tile
+    (2, 50, 16, 2, 256, 300, 320, 250, 0),    # group 8, D=256
+    (1, 256, 32, 8, 128, 4096, 4096, 3840, 0),  # the last chunk of a 4096-token prompt
+    (2, 40, 8, 2, 128, 200, 256, 150, 1),     # views from key 1: scales 4 bytes off 16
+    (1, 64, 4, 2, 64, 97, 128, 33, 3),        # scales 12 bytes off 16, ragged KW
+])
+def test_flash_chunk_kvq_edges_match_plain(gen, dtype, b, c, hq, hkv, d, kw, s, start, off):
+    """K4 at the tensor-core body's edges (bf16; f32 runs the FMA body):
+    strided views [:, 1, :, off:off + kw] of an int8 row cache."""
+    kc, vc = _kvq(gen, b, 3, hkv, s + off, d), _kvq(gen, b, 3, hkv, s + off, d)
+    q = _rn(gen, b, c, hq, d, dtype=dtype)
+    win = slice(off, off + kw)
+    args = (q, kc.q[:, 1, :, win], kc.s[:, 1, :, win], vc.q[:, 1, :, win],
+            vc.s[:, 1, :, win], d ** -0.5, start)
+    assert (args[2].data_ptr() % 16 != 0) == (off % 4 != 0)
     before = fa.flash_attention_chunk_kvq.launches
     got = fa.flash_attention_chunk_kvq(*args)
     assert fa.flash_attention_chunk_kvq.launches == before + 1
