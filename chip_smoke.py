@@ -807,7 +807,7 @@ def main() -> int:
         "paged_decode_attention": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
                                    "nats_llm_studio_tpu/ops/paged_attention.py:205", "mma"),
         "paged_decode_attention_kvq": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
-                                       "nats_llm_studio_tpu/ops/paged_attention.py:205", "fma"),
+                                       "nats_llm_studio_tpu/ops/paged_attention.py:205", "mma"),
         "flash_attention": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
                             "nats_llm_studio_tpu/ops/flash_attention.py:143", "mma"),
         "flash_attention_chunk": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",

@@ -12,16 +12,21 @@
 //
 // What bounds it on the H100: bytes. Each decode step reads every live K/V
 // row of every slot once (2 x context x Hkv x D x 2 bytes per slot per
-// layer in bf16; D + 4 bytes per row in int8) and does ~2 flops per byte
-// read, far below the ~295 flops/byte where the tensor cores would become
-// the limit. The int8 pool halves the bytes.
+// layer in bf16; D + 4 bytes per row in int8: the codes and one f32 scale,
+// 0.52x the bf16 bytes at D = 128) and does ~2 flops per byte read in bf16
+// (~4 in int8), far below the ~295 flops/byte where the tensor cores would
+// become the limit.
 //
 // Which body serves which (q dtype, pool storage, D), chosen by type in
 // paged_decode_plan() and paged_decode_attention(), with no fallback:
-//  * (bf16, bf16, D in {64, 128, 256}), K1: paged_decode_mma_kernel<D>;
-//  * every other pair K1 takes, by an explicit rule: (f32, f32) and bf16 at
-//    any other D <= 256 with D % 8 == 0 (K1), and (bf16 or f32, int8) with
-//    D % 16 == 0 (K1q): paged_decode_kernel<T, KV>.
+//  * (bf16, bf16, D in {64, 128, 256}), K1: paged_decode_mma_kernel<bf16, D>
+//    (plan body 1);
+//  * (bf16, int8, D in {64, 128, 256}), K1q: paged_decode_mma_kernel<int8_t,
+//    D> (plan body 2);
+//  * every other pair, by an explicit rule (plan body 0): (f32, f32) and
+//    bf16 at any other D <= 256 with D % 8 == 0 (K1), and (f32, int8) and
+//    bf16 at any other D with D % 16 == 0 over int8 (K1q):
+//    paged_decode_kernel<T, KV>.
 //
 // Shared by both bodies:
 //  * one CTA per (slot, kv-head, split): each K/V tile is read from device
@@ -31,22 +36,41 @@
 //    share of the live blocks 0..(pos+W-1)//T, so a slot's cost follows its
 //    context, not the table width (no scalar prefetch, no dead grid cells);
 //  * split-K (flash-decoding): each split leaves its unnormalized
-//    accumulator and (max, sum), and paged_combine_kernel merges them;
+//    accumulator and (max, sum), and a second kernel merges them
+//    (paged_combine_mma_kernel for the tensor-core body, paged_combine_kernel
+//    for the FMA body);
 //  * the layer is a runtime argument indexed inside the kernel: the pool is
 //    never sliced or copied per layer.
 //
-// paged_decode_mma_kernel<D> (tensor cores, cp.async ring):
+// paged_decode_mma_kernel<KV, D> (tensor cores, cp.async ring):
 //  * 4 warps; the bundle's rows, padded to 16, are one m16 A fragment of Q
 //    (loaded once, in registers for D <= 128, reloaded per k-step at
 //    D = 256); a bundle of more than 16 rows takes one CTA per 16-row
 //    m-tile, on the same body (the siblings read the same K/V tiles, from
-//    L2 after the first);
-//  * 64-key K and V tiles are gathered through the block table, key row by
-//    key row (block tbl[key / T], row key % T: any T, and a tile may span
-//    blocks), by 16-byte cp.async into a three-stage swizzled ring: tiles
-//    t+1 and t+2 are in flight while tile t is computed, one barrier a
-//    tile. The CTA first copies its split's slice of the table row into
-//    shared memory;
+//    L2 after the first; under int8 each sibling dequantizes them again);
+//  * 64-key tiles are gathered through the block table, key row by key row
+//    (block tbl[key / T], row key % T: any T, and a tile may span blocks),
+//    by cp.async into a three-stage ring: tiles t+1 and t+2 are in flight
+//    while tile t is computed. The CTA first copies its split's slice of
+//    the table row into shared memory. Only this load stage depends on KV:
+//      - bf16: the ring holds the swizzled bf16 K and V tiles themselves,
+//        16-byte copies by the whole CTA, one block barrier a tile;
+//      - int8: the ring holds codes (16-byte copies) and their f32 scales
+//        (4-byte copies, one a key row, through the same table slice) in one
+//        commit group a tile; keys past the split's end get codes and scale
+//        0. Since warp w reads only key rows 16w..16w+15 of K and of V, each
+//        warp copies its own 16 rows (two lanes a row: one row index a lane)
+//        and dequantizes them (code -> f32 by a byte permute and one add,
+//        times the scale in f32, rounded to nearest even: the JAX kernel's
+//        (codes.astype(f32) * scales[:, None]).astype(bf16), bit for bit)
+//        into its rows of one bf16 K and one bf16 V tile, which the
+//        ldmatrix reads below take as they are. The key loop then needs
+//        only cp.async waits and warp barriers, no block barrier. 87.5 KB
+//        a CTA at D = 128 (code ring 3 x 16.5 KB, bf16 tiles 32 KB, Q 4 KB)
+//        keeps two CTAs an SM, as the bf16 ring (101 KB) does: decode is a
+//        chain of latencies, so occupancy is worth more than overlap inside
+//        a CTA. The int8 pool halves the bytes; the conversion adds ~3.5
+//        instructions a K/V element;
 //  * each warp takes 16 keys of every tile: S = Q K^T (16 x 16, D/16
 //    k-steps of mma.sync m16n8k16 fed by ldmatrix), then scale, mask and
 //    online softmax on the fragments, P rounded to bf16 in registers (the
@@ -54,18 +78,18 @@
 //    keeps its own (m, l, O); at the end the 4 warps merge in shared memory.
 //    The tensor cores are not the bound (128 mma.sync a 32 KB tile); they
 //    bring the operands in by ldmatrix rather than one shared load per FMA;
-//  * splits are sized by work: SPLIT_TILES (ops/paged_attention.py) tiles a
-//    split, as many splits as the table's width needs. CTAs past a slot's
-//    live tiles exit at once; a slot with one live split writes its output
-//    directly, and the combine step reads only the splits that held keys.
-//    A warp or split that saw no live key carries (m, l) = (-1e30, 0) and
-//    weighs 0. The attributes are set once a device.
+//  * splits are sized by work: paged_decode_plan() gives each split a fixed
+//    number of tiles, as many splits as the table's width needs. CTAs past
+//    a slot's live tiles exit at once; a slot with one live split writes
+//    its output directly, and the combine step reads only the splits that
+//    held keys. A warp or split that saw no live key carries (m, l) =
+//    (-1e30, 0) and weighs 0. The attributes are set once a device.
 //
 // paged_decode_kernel<T, KV> (f32 FMAs): a tile is 64 keys (several
 // 16-token blocks), loaded with 16-byte vector loads issued four per thread
 // before their shared-memory stores; scores and PV products are scalar f32
 // FMAs from padded shared-memory tiles; the table's tiles are divided among
-// about two CTAs an SM. K1q (KV = int8_t) dequantizes each tile as it
+// about two CTAs an SM. Over int8 (f32 K1q) it dequantizes each tile as it
 // stores it.
 //
 // Numerics follow the JAX kernel: f32 scores and online-softmax state,
@@ -338,11 +362,12 @@ paged_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-// -- tensor-core body: (bf16 q, bf16 pool), D in {64, 128, 256} -------------
+// -- tensor-core body: bf16 q over a bf16 pool (K1) or an int8 one (K1q), ----
+// -- D in {64, 128, 256} -------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-constexpr int PM_STAGES = 3;  // K/V ring: tiles t + 1 and t + 2 load during tile t
+constexpr int PM_STAGES = 3;  // K/V (or code) ring: tiles t + 1 and t + 2 load during tile t
 constexpr int MIN_SPLIT_TILES = 2;
 constexpr int MAX_SPLIT_TILES = 8;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -355,29 +380,51 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * D + ((c ^ (r & 7)) << 3);
 }
 
+// Byte ``a`` of a stage's K or V codes (rows of D bytes) as stored: the
+// 16-byte chunk k of 128-byte line l sits at chunk k ^ (l % 8), so the
+// copies (two lanes a row, 32 bytes each, 16 rows a warp) and the
+// dequantize reads (128 contiguous bytes a half warp) spread evenly over
+// the banks at every D.
+__device__ __forceinline__ int cswz(int a) { return a ^ (((a >> 7) & 7) << 4); }
+
 // Blocks of the table one split can touch: its keys span split_tiles
 // tiles, starting anywhere inside a block.
 int split_blocks(int split_tiles, int Tb) { return split_tiles * TILE_KEYS / Tb + 2; }
 
-// Shared memory: the K and V rings, Q's 16 rows, the split's slice of the
-// block table. The warps' final (m, l, O) reuse the rings.
-size_t paged_mma_smem_bytes(int D, int split_tiles, int Tb) {
-  return (size_t)(2 * PM_STAGES * TILE_KEYS + 16) * D * sizeof(bf16) +
-         (size_t)split_blocks(split_tiles, Tb) * sizeof(int);
+// Bytes of one code-ring stage: K codes, V codes (64 x D each), K scales, V
+// scales (64 f32 each).
+__host__ __device__ constexpr int code_stage_bytes(int D) {
+  return 2 * TILE_KEYS * D + 2 * TILE_KEYS * 4;
 }
 
-template <int D>
+// Shared memory, then the split's slice of the block table. bf16 pool: the
+// K and V rings of PM_STAGES bf16 tiles, Q's 16 rows. int8 pool: one bf16 K
+// and one bf16 V tile, Q, the code ring of PM_STAGES stages. The warps'
+// final (m, l, O) reuse the first 256 x D bytes (the rings, or the bf16
+// tiles) and the 512 after them.
+size_t paged_mma_smem_bytes(bool quant, int D, int split_tiles, int Tb) {
+  const size_t tiles =
+      quant ? (size_t)(2 * TILE_KEYS + 16) * D * sizeof(bf16) +
+                  (size_t)PM_STAGES * code_stage_bytes(D)
+            : (size_t)(2 * PM_STAGES * TILE_KEYS + 16) * D * sizeof(bf16);
+  return tiles + (size_t)split_blocks(split_tiles, Tb) * sizeof(int);
+}
+
+template <typename KV, int D>
 __global__ void __launch_bounds__(NTH)
-paged_decode_mma_kernel(const bf16* __restrict__ q,       // [B, W, Hq, D]
-                        const bf16* __restrict__ k_pool,  // [NB, L, Hkv, Tb, D]
-                        const bf16* __restrict__ v_pool,
-                        const int* __restrict__ tbl,      // [B, nbt]
-                        const int* __restrict__ pos,      // [B]
-                        bf16* __restrict__ out,           // [B, W, Hq, D]
-                        float* __restrict__ part_acc,     // [B, Hkv, S, rows, D]
-                        float* __restrict__ part_ml,      // [B, Hkv, S, rows, 2]
+paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
+                        const KV* __restrict__ k_pool,  // [NB, L, Hkv, Tb, D]
+                        const KV* __restrict__ v_pool,
+                        const int* __restrict__ tbl,    // [B, nbt]
+                        const int* __restrict__ pos,    // [B]
+                        bf16* __restrict__ out,         // [B, W, Hq, D]
+                        float* __restrict__ part_acc,   // [B, Hkv, S, rows, D]
+                        float* __restrict__ part_ml,    // [B, Hkv, S, rows, 2]
                         int W, int Hq, int Hkv, int Tb, int L, int nbt, int layer,
-                        int n_splits, int split_tiles, float scale_log2) {
+                        int n_splits, int split_tiles, float scale_log2,
+                        const float* __restrict__ k_scale,  // int8: [NB, L, Hkv, Tb]
+                        const float* __restrict__ v_scale) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   constexpr int TILE = TILE_KEYS * D;  // elements of one K or V stage
   constexpr int KSTEPS = D / 16;
   constexpr int NO = D / 8;  // 8-column n-tiles of a warp's output
@@ -386,10 +433,13 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,       // [B, W, Hq, D]
   static_assert(TILE_KEYS == 16 * (NTH / 32), "one warp per 16 keys of a tile");
   static_assert(TILE_KEYS * CH % NTH == 0 && 16 * CH % NTH == 0, "chunks per thread");
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [PM_STAGES][64][D]
-  bf16* sV = sK + PM_STAGES * TILE;          // [PM_STAGES][64][D]
-  bf16* sQ = sV + PM_STAGES * TILE;          // [16][D]
-  int* sT = reinterpret_cast<int*>(sQ + 16 * D);
+  // bf16: the K and V rings [PM_STAGES][64][D]; int8: one bf16 K and one
+  // bf16 V tile [64][D], then Q, then the code ring
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + (QUANT ? 1 : PM_STAGES) * TILE;
+  bf16* sQ = sV + (QUANT ? 1 : PM_STAGES) * TILE;  // [16][D]
+  int8_t* sCodes = reinterpret_cast<int8_t*>(sQ + 16 * D);
+  int* sT = reinterpret_cast<int*>(sCodes + (QUANT ? PM_STAGES * code_stage_bytes(D) : 0));
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -414,12 +464,33 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,       // [B, W, Hq, D]
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int* trow = tbl + (int64_t)b * nbt;
+  // Q: the m-tile's 16 bundle rows, row R reading q[b, R / group, h * group
+  // + R % group]; rows past the bundle are zero (their outputs are never
+  // written). bf16: it lands with tile 0; int8: before the table's barrier
+  auto load_q = [&]() {
+#pragma unroll
+    for (int it = 0; it < 16 * CH / NTH; ++it) {
+      const int i = it * NTH + tid;
+      const int r = i / CH;
+      const int c = i - r * CH;
+      const int R = mt * 16 + r;
+      const bool ok = R < rows;
+      const int w = R / group;
+      const bf16* src = q + ((int64_t)(b * W + w) * Hq + h * group + (R - w * group)) * D;
+      cp_async16(sQ + swz<D>(r, c), ok ? src + c * 8 : q, ok);
+    }
+  };
+  if constexpr (QUANT) {
+    load_q();
+    cp_async_commit();
+  }
   for (int j = tid; j <= (key_end - 1) / Tb - j0; j += NTH) sT[j] = trow[j0 + j];
+  if constexpr (QUANT) cp_async_wait<0>();
   __syncthreads();
 
   const int64_t blk_stride = (int64_t)L * Hkv * Tb * D;
   const int64_t head_off = ((int64_t)layer * Hkv + h) * Tb * D;
-  // the 16-byte copies of the split's local tile t into ring stage
+  // bf16: the 16-byte copies of the split's local tile t into ring stage
   // ``stage``: key row by key row through the table (any Tb; a tile may
   // span blocks); keys at or past key_end are zero-filled
   auto load_kv = [&](int t, int stage) {
@@ -440,25 +511,66 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,       // [B, W, Hq, D]
       cp_async16(sV + stage * TILE + swz<D>(r, c), v_pool + off, ok);
     }
   };
-
-  // Q: the m-tile's 16 bundle rows, row R reading q[b, R / group, h * group
-  // + R % group]; rows past the bundle are zero (their outputs are never
-  // written). It lands with tile 0.
+  // int8: this warp's 16 key rows of local tile t (the only rows it reads)
+  // into code-ring stage ``stage``. Lanes 2i and 2i + 1 take row i: its D
+  // codes (32 contiguous bytes a lane pair a copy) and, lane 2i its K scale,
+  // lane 2i + 1 its V scale (4-byte copies). ``row`` indexes the scales
+  // pool [NB, L, Hkv, Tb], one f32 a key row, so a block's scales are
+  // L * Hkv * Tb apart; the row's codes start at row * D. Keys at or past
+  // key_end: codes and scales zero-filled.
+  auto load_codes = [&](int t, int stage) {
+    const int r = warp * 16 + (lane >> 1);
+    const int key = key0 + t * TILE_KEYS + r;
+    const bool ok = key < key_end;
+    int64_t row = 0;
+    if (ok) {
+      const int jb = key / Tb;
+      row = sT[jb - j0] * (int64_t)L * Hkv * Tb + ((int64_t)layer * Hkv + h) * Tb +
+            (key - jb * Tb);
+    }
+    int8_t* st = sCodes + stage * code_stage_bytes(D);
 #pragma unroll
-  for (int it = 0; it < 16 * CH / NTH; ++it) {
-    const int i = it * NTH + tid;
-    const int r = i / CH;
-    const int c = i - r * CH;
-    const int R = mt * 16 + r;
-    const bool ok = R < rows;
-    const int w = R / group;
-    const bf16* src = q + ((int64_t)(b * W + w) * Hq + h * group + (R - w * group)) * D;
-    cp_async16(sQ + swz<D>(r, c), ok ? src + c * 8 : q, ok);
+    for (int it = 0; it < D / 32; ++it) {
+      const int c = 2 * it + (lane & 1);  // 16-byte chunk of the row
+      const int a = cswz(r * D + c * 16);
+      cp_async16(st + a, k_pool + row * D + c * 16, ok);
+      cp_async16(st + TILE + a, v_pool + row * D + c * 16, ok);
+    }
+    cp_async4(st + 2 * TILE + ((lane & 1) * TILE_KEYS + r) * 4,
+              ((lane & 1) ? v_scale : k_scale) + row, ok);
+  };
+  // int8: this warp's 16 rows of code-ring stage ``stage`` -> its rows of
+  // the bf16 K and V tiles: 8 codes (one 8-byte shared read) times the row's
+  // scale, rounded to bf16, into one 16-byte chunk (a quarter warp writes 8
+  // distinct chunks of a row: no bank conflict); K and V interleaved
+  auto dequant = [&](int stage) {
+    const int8_t* st = sCodes + stage * code_stage_bytes(D);
+    const float* sc = reinterpret_cast<const float*>(st + 2 * TILE);
+#pragma unroll
+    for (int it = 0; it < 16 * CH / 32; ++it) {
+      const int i = it * 32 + lane;
+      const int r = warp * 16 + i / CH;
+      const int c = i % CH;
+      const int a = cswz(r * D + c * 8);
+      const uint2 wk = *reinterpret_cast<const uint2*>(st + a);
+      const uint2 wv = *reinterpret_cast<const uint2*>(st + TILE + a);
+      *reinterpret_cast<uint4*>(sK + swz<D>(r, c)) = dequant8_bf16(wk, sc[r]);
+      *reinterpret_cast<uint4*>(sV + swz<D>(r, c)) = dequant8_bf16(wv, sc[TILE_KEYS + r]);
+    }
+  };
+
+  if constexpr (QUANT) {
+    load_codes(0, 0);
+    cp_async_commit();
+    if (n_t > 1) load_codes(1, 1);
+    cp_async_commit();
+  } else {
+    load_q();
+    load_kv(0, 0);
+    cp_async_commit();
+    if (n_t > 1) load_kv(1, 1);
+    cp_async_commit();
   }
-  load_kv(0, 0);
-  cp_async_commit();
-  if (n_t > 1) load_kv(1, 1);
-  cp_async_commit();
 
   float o[NO][4];
 #pragma unroll
@@ -483,12 +595,24 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,       // [B, W, Hq, D]
 
   int stage = 0;
   for (int t = 0; t < n_t; ++t) {
-    cp_async_wait<1>();  // tile t has landed; tile t + 1 may still be in flight
-    __syncthreads();     // ... for every thread, and every warp is done with tile t - 1
-    if (t + 2 < n_t) load_kv(t + 2, stage == 0 ? 2 : stage - 1);  // tile t - 1's stage
-    cp_async_commit();
-    const bf16* sKs = sK + stage * TILE;
-    const bf16* sVs = sV + stage * TILE;
+    const bf16* sKs = sK;
+    const bf16* sVs = sV;
+    if constexpr (QUANT) {
+      // a warp reads only the rows it copied and writes: no block barrier
+      cp_async_wait<1>();  // this lane's copies of tile t have landed
+      __syncwarp();        // ... every lane's, and every lane is done with tile t - 1
+      if (t + 2 < n_t) load_codes(t + 2, stage == 0 ? 2 : stage - 1);  // tile t - 1's stage
+      cp_async_commit();
+      dequant(stage);
+      __syncwarp();  // the warp's bf16 rows are written
+    } else {
+      cp_async_wait<1>();  // tile t has landed; tile t + 1 may still be in flight
+      __syncthreads();     // ... for every thread, and every warp is done with tile t - 1
+      if (t + 2 < n_t) load_kv(t + 2, stage == 0 ? 2 : stage - 1);  // tile t - 1's stage
+      cp_async_commit();
+      sKs += stage * TILE;
+      sVs += stage * TILE;
+    }
     if constexpr (Q_IN_REGS) {
       if (t == 0) {
 #pragma unroll
@@ -700,7 +824,7 @@ paged_combine_mma_kernel(const float* __restrict__ part_acc,
 // The kernel's attributes, set once a device: room for its largest shared
 // memory (the size depends on split_tiles and Tb), all of the SM's 228 KB to
 // shared memory.
-template <int D>
+template <typename KV, int D>
 cudaError_t paged_mma_attributes() {
   constexpr int kMaxDevices = 64;
   static std::atomic<bool> done[kMaxDevices];
@@ -708,34 +832,36 @@ cudaError_t paged_mma_attributes() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  e = cudaFuncSetAttribute(paged_decode_mma_kernel<D>,
+  e = cudaFuncSetAttribute(paged_decode_mma_kernel<KV, D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(paged_decode_mma_kernel<D>,
+    e = cudaFuncSetAttribute(paged_decode_mma_kernel<KV, D>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
   return e;
 }
 
-template <int D>
-int launch_paged_mma(const void* q, const void* kp, const void* vp, const int* tbl,
-                     const int* pos, void* out, float* part_acc, float* part_ml, int B,
-                     int W, int Hq, int Hkv, int Tb, int L, int nbt, int layer,
-                     int n_splits, float scale, cudaStream_t stream) {
+template <typename KV, int D>
+int launch_paged_mma(const void* q, const void* kp, const void* vp, const float* ks,
+                     const float* vs, const int* tbl, const int* pos, void* out,
+                     float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv, int Tb,
+                     int L, int nbt, int layer, int n_splits, float scale,
+                     cudaStream_t stream) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   const int tiles = (nbt * Tb + TILE_KEYS - 1) / TILE_KEYS;
   const int split_tiles = (tiles + n_splits - 1) / n_splits;
   const int rows = (Hq / Hkv) * W;
-  const size_t smem = paged_mma_smem_bytes(D, split_tiles, Tb);
+  const size_t smem = paged_mma_smem_bytes(QUANT, D, split_tiles, Tb);
   const size_t combine_smem = (2 * (size_t)n_splits + 1) * rows * sizeof(float);
   if (smem > SMEM_MAX || combine_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t e = paged_mma_attributes<D>();
+  cudaError_t e = paged_mma_attributes<KV, D>();
   if (e != cudaSuccess) return (int)e;
   const int m_tiles = (rows + 15) / 16;
-  paged_decode_mma_kernel<D><<<dim3(Hkv, B, n_splits * m_tiles), NTH, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
-      static_cast<const bf16*>(vp), tbl, pos, static_cast<bf16*>(out), part_acc, part_ml,
-      W, Hq, Hkv, Tb, L, nbt, layer, n_splits, split_tiles, scale * LOG2E);
+  paged_decode_mma_kernel<KV, D><<<dim3(Hkv, B, n_splits * m_tiles), NTH, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
+      tbl, pos, static_cast<bf16*>(out), part_acc, part_ml, W, Hq, Hkv, Tb, L, nbt, layer,
+      n_splits, split_tiles, scale * LOG2E, ks, vs);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return (int)e;
   paged_combine_mma_kernel<D><<<dim3(Hkv, B), NTH, combine_smem, stream>>>(
@@ -744,8 +870,11 @@ int launch_paged_mma(const void* q, const void* kp, const void* vp, const int* t
   return (int)cudaGetLastError();
 }
 
+// The tensor-core body's rule: bf16 q over a bf16 pool (K1) or an int8 one
+// (K1q), D in {64, 128, 256}.
 bool uses_mma(int dtype, int kv_dtype, int D) {
-  return dtype == DTYPE_BF16 && kv_dtype == DTYPE_BF16 && (D == 64 || D == 128 || D == 256);
+  return dtype == DTYPE_BF16 && (kv_dtype == DTYPE_BF16 || kv_dtype == DTYPE_INT8) &&
+         (D == 64 || D == 128 || D == 256);
 }
 
 template <typename T, typename KV>
@@ -770,20 +899,21 @@ int launch_paged(const void* q, const void* kp, const void* vp, const float* ks,
   return (int)cudaGetLastError();
 }
 
-int dispatch_mma(int D, const void* q, const void* kp, const void* vp, const int* tbl,
-                 const int* pos, void* out, float* part_acc, float* part_ml, int B, int W,
-                 int Hq, int Hkv, int Tb, int L, int nbt, int layer, int n_splits,
-                 float scale, cudaStream_t s) {
+template <typename KV>
+int dispatch_mma(int D, const void* q, const void* kp, const void* vp, const float* ks,
+                 const float* vs, const int* tbl, const int* pos, void* out,
+                 float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv, int Tb,
+                 int L, int nbt, int layer, int n_splits, float scale, cudaStream_t s) {
   switch (D) {
     case 64:
-      return launch_paged_mma<64>(q, kp, vp, tbl, pos, out, part_acc, part_ml, B, W, Hq,
-                                  Hkv, Tb, L, nbt, layer, n_splits, scale, s);
+      return launch_paged_mma<KV, 64>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml,
+                                      B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits, scale, s);
     case 128:
-      return launch_paged_mma<128>(q, kp, vp, tbl, pos, out, part_acc, part_ml, B, W, Hq,
-                                   Hkv, Tb, L, nbt, layer, n_splits, scale, s);
+      return launch_paged_mma<KV, 128>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml,
+                                       B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits, scale, s);
     case 256:
-      return launch_paged_mma<256>(q, kp, vp, tbl, pos, out, part_acc, part_ml, B, W, Hq,
-                                   Hkv, Tb, L, nbt, layer, n_splits, scale, s);
+      return launch_paged_mma<KV, 256>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml,
+                                       B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -794,9 +924,10 @@ int dispatch_mma(int D, const void* q, const void* kp, const void* vp, const int
 extern "C" {
 
 // How a shape is served, decided once per shape by the wrapper: returns the
-// body (1: paged_decode_mma_kernel, 0: paged_decode_kernel, -1: a type pair
-// neither takes) and sets the split count to launch with and the shared
-// memory a CTA needs (the wrapper refuses shapes above the card's 227 KB).
+// body (1: paged_decode_mma_kernel<bf16, D>, 2: paged_decode_mma_kernel<
+// int8_t, D>, 0: paged_decode_kernel, -1: a type pair neither takes) and
+// sets the split count to launch with and the shared memory a CTA needs
+// (the wrapper refuses shapes above the card's 227 KB).
 // The tensor-core body splits by work: a fixed number of 64-key tiles a
 // split (2 to 8, so a full table would give about two CTAs an SM), as many
 // splits as the table's width needs, and a slot's CTAs past its live tiles
@@ -812,8 +943,9 @@ int paged_decode_plan(int dtype, int kv_dtype, int B, int W, int Hq, int Hkv, in
     const int st = std::min(MAX_SPLIT_TILES,
                             std::max(MIN_SPLIT_TILES, (cta_tiles + 2 * sms - 1) / (2 * sms)));
     *n_splits = (tiles + st - 1) / st;
-    *smem = paged_mma_smem_bytes(D, (tiles + *n_splits - 1) / *n_splits, Tb);
-    return 1;
+    const bool quant = kv_dtype == DTYPE_INT8;
+    *smem = paged_mma_smem_bytes(quant, D, (tiles + *n_splits - 1) / *n_splits, Tb);
+    return quant ? 2 : 1;
   }
   if (!(kv_dtype == dtype || kv_dtype == DTYPE_INT8) ||
       (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
@@ -839,12 +971,18 @@ int paged_decode_attention(int dtype, int kv_dtype, const void* q, const void* k
                            int n_splits, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_splits < 1) return (int)cudaErrorInvalidValue;
-  if (uses_mma(dtype, kv_dtype, D))
-    return dispatch_mma(D, q, k_pool, v_pool, tbl, pos, out, part_acc, part_ml, B, W, Hq,
-                        Hkv, Tb, L, nbt, layer, n_splits, scale, s);
+  if (kv_dtype == DTYPE_INT8 && (D % 16 || k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (uses_mma(dtype, kv_dtype, D)) {
+    if (kv_dtype == DTYPE_INT8)
+      return dispatch_mma<int8_t>(D, q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out,
+                                  part_acc, part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer,
+                                  n_splits, scale, s);
+    return dispatch_mma<bf16>(D, q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
+                              part_acc, part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits,
+                              scale, s);
+  }
   if (kv_dtype == DTYPE_INT8) {
-    if (D % 16 || k_scale == nullptr || v_scale == nullptr)
-      return (int)cudaErrorInvalidValue;
     if (dtype == DTYPE_BF16)
       return launch_paged<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tbl,
                                                  pos, out, part_acc, part_ml, B, W, Hq,

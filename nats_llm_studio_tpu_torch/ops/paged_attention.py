@@ -6,11 +6,13 @@ Port of ``nats_llm_studio_tpu/ops/paged_attention.py``
 kernels (``csrc/paged_attention.cu``) run one CTA per (slot, kv-head,
 split), each walking its share of the slot's live blocks through the block
 table and reading the pool [NB, L, Hkv, T, D] in place at the runtime
-``layer``; a second kernel merges the splits. bf16 q over a bf16 pool at
-D 64, 128 or 256 runs the tensor-core body; every other shape, and an int8
-``KVQ`` pool (codes [NB, L, Hkv, T, D], f32 scales [NB, L, Hkv, T]), whose
-tiles are dequantized as they load, runs the FMA body. The library's
-``paged_decode_plan`` picks the body and the split count once per shape.
+``layer``; a second kernel merges the splits. bf16 q at D 64, 128 or 256
+runs the tensor-core body, over a bf16 pool (K1) or an int8 ``KVQ`` pool
+(K1q: codes [NB, L, Hkv, T, D] and f32 scales [NB, L, Hkv, T] gathered
+into a code ring and dequantized by each warp into the bf16 tiles it
+reads); every other shape, and f32 q over either pool, runs the FMA body.
+The library's ``paged_decode_plan`` picks the body and the split count
+once per shape, by type, with no fallback between bodies.
 The Mosaic tiling rule of the JAX path (``paged_decode_eligible``) does not
 apply: any T and any D <= 256 with D % 8 == 0 (D % 16 == 0 for int8
 codes) is served.
@@ -35,9 +37,11 @@ _PLANS: dict = {}
 
 def _plan(q, kp, tbl) -> tuple[int, int]:
     """(body, n_splits) for this shape, decided once per shape by the
-    library's ``paged_decode_plan``: body 1 is the tensor-core kernel, 0
-    the FMA kernel. Raises if the shape needs more shared memory than a
-    block can use."""
+    library's ``paged_decode_plan``: body 1 is the tensor-core kernel over
+    a bf16 pool (bf16 q, D 64/128/256), body 2 the same kernel over an int8
+    pool (bf16 q, D 64/128/256), body 0 the FMA kernel (every other q dtype,
+    pool and D). Raises if the shape needs more shared memory than a block
+    can use."""
     b, w, hq, d = q.shape
     hkv, t = kp.shape[2], kp.shape[3]
     key = (q.device, q.dtype, kp.dtype, b, w, hq, hkv, d, t, tbl.shape[1])
@@ -119,7 +123,9 @@ def paged_decode_attention_kvq(q, k_pool: KVQ, v_pool: KVQ, tbl, pos, layer: int
                                scale: float) -> torch.Tensor:
     """K1q: ``paged_decode_attention`` over an int8 KVQ pool. Each tile's
     codes are taken as signed int8, multiplied by their f32 scale and
-    rounded to q's dtype before the products, as the JAX kernel does."""
+    rounded to q's dtype before the products, as the JAX kernel does.
+    bf16 q at D 64, 128 or 256 runs the tensor-core body (plan body 2),
+    f32 q and other head dims the FMA body."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tbl, pos, layer, scale)
     name = "paged_decode_attention_kvq"

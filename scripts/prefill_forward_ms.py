@@ -4,8 +4,10 @@ the kernels, a fresh prefill forward, and a paged decode step.
 
     python3 scripts/prefill_forward_ms.py [--root DIR]
 
-* kernels: K1 (``paged_decode_attention``, bf16 pool) at the serve shape
-  (8 slots, positions 4095 .. 5, 16-token blocks), K2
+* kernels: K1 (``paged_decode_attention``, bf16 pool) and K1q
+  (``paged_decode_attention_kvq``, the same draws quantized to an int8
+  pool) at the serve shape (8 slots, positions 4095 .. 5, 16-token
+  blocks), K2
   (``flash_attention``) at T=512 and T=4096, and K3
   (``flash_attention_chunk``) and K4 (``flash_attention_chunk_kvq``, int8
   cache) at start 1024 over KW 2048 and at start 3840 over KW 4096, on the
@@ -81,6 +83,8 @@ def kernel_times(torch, smoke) -> None:
 
     c = smoke.LLAMA3_8B
     cases = (("paged_decode_attention serve shape", smoke.k1_inputs, pa.paged_decode_attention),
+             ("paged_decode_attention_kvq serve shape", smoke.k1q_inputs,
+              pa.paged_decode_attention_kvq),
              ("flash_attention T=512", smoke.k2_inputs, fa.flash_attention),
              ("flash_attention T=4096", smoke.k2_long_inputs, fa.flash_attention),
              ("flash_attention_chunk start=1024 KW=2048", smoke.k3_inputs,

@@ -11,12 +11,16 @@ in bf16 (the bf16 tolerance of tests/test_flash_attention.py:184). bf16 K2,
 K3 and K4 run the tensor-core body of csrc/flash_attention.cu, float32 the
 FMA body; the flash cases cover both at ragged query, key and window
 edges, starts off the 64-key tile grid, groups 1 to 8 and D 64 to 256.
-bf16 K1 at D 64, 128 and 256 runs the tensor-core body of
-csrc/paged_attention.cu, every other K1 and K1q shape the FMA body; the
-paged cases cover bundles of 1 to 32 rows (one and two m-tiles), block
-sizes 8 to 128, a 4096-key slot, slots with fewer live tiles than splits
-and all-null tables.
+bf16 K1 and K1q at D 64, 128 and 256 run the tensor-core body of
+csrc/paged_attention.cu (over a bf16 pool, and over int8 codes
+dequantized in shared memory), every other K1 and K1q shape the FMA body;
+the paged cases cover bundles of 1 to 32 rows (one and two m-tiles),
+block sizes 8 to 128, a 4096-key slot, slots with fewer live tiles than
+splits, all-null tables and, for K1q, key rows with scales spread over
+decades.
 """
+
+import math
 
 import pytest
 import torch
@@ -206,6 +210,73 @@ def test_paged_decode_kvq_kernel_matches_plain(gen, dtype, b, w, hq, hkv, d, t, 
     assert (pa.paged_decode_attention.launches,
             pa.paged_decode_attention_kvq.launches) == (before[0], before[1] + 1)
     _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos, layer, d ** -0.5), dtype)
+
+
+# the shapes of test_paged_decode_mma_body_matches_plain, then one whose
+# rows were drawn at scales spread over decades
+KVQ_MMA_CASES = [
+    (3, 1, 2, 2, 64, 8, 24, [5, 100, 191], False, False),     # 1 row, T=8
+    (3, 1, 8, 2, 128, 16, 20, [319, 64, 0], False, False),    # 4 rows (Llama-3's bundle)
+    (2, 3, 8, 2, 128, 64, 6, [200, 381], True, False),        # 12 rows, one block a tile
+    (2, 2, 16, 2, 256, 128, 4, [509, 130], True, False),      # 16 rows, T=128, D=256
+    (2, 5, 8, 2, 64, 16, 10, [77, 150], True, False),         # 20 rows: two m-tiles
+    (2, 4, 32, 4, 128, 32, 8, [100, 252], True, False),       # 32 rows, group 8
+    (1, 1, 32, 8, 128, 16, 256, [4095], False, False),        # one slot of 4096 keys
+    (8, 1, 32, 8, 128, 16, 256, [4095, 3001, 2048, 1500, 777, 300, 64, 5], True,
+     False),                                                  # serve
+    (2, 1, 32, 8, 256, 16, 128, [2047, 0], False, False),     # D=256, one live key
+    (4, 1, 32, 8, 128, 16, 64, [1023, 700, 77, 3], True, True),  # per-row scales spread
+]
+
+
+@pytest.mark.parametrize("b,w,hq,hkv,d,t,nbt,pos,null,spread", KVQ_MMA_CASES)
+def test_paged_decode_kvq_mma_body_matches_plain(gen, b, w, hq, hkv, d, t, nbt, pos, null,
+                                                 spread):
+    """K1q's tensor-core body (bf16 q over an int8 pool whose null block
+    holds codes 0 and scales 1). With ``spread`` each K row is drawn at a
+    scale log-uniform over 1e-3..30 and each V row over 1e-3..1 before it
+    is quantized, so every key row has its own scale (a scale taken from
+    the wrong row or block moves the output); V stays below 1 so one bf16
+    ulp of the output is below the 2e-2 tolerance."""
+    nb = 1 + b * nbt
+    shape = (nb, 2, hkv, t, d)
+    if spread:
+        def draw(hi):
+            lo = torch.rand(shape[:-1] + (1,), generator=gen, device="cuda")
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * 10 ** (-3 + lo * (3 + math.log10(hi))))
+        kp, vp = kv.quantize_rows(draw(30.0)), kv.quantize_rows(draw(1.0))
+    else:
+        kp, vp = _kvq(gen, *shape), _kvq(gen, *shape)
+    for p in (kp, vp):
+        p.q[0], p.s[0] = 0, 1.0
+    tbl = torch.arange(1, nb, dtype=torch.int32, device="cuda").reshape(b, nbt)
+    if null:
+        tbl[-1] = 0
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
+    assert pa._plan(q, kp.q, tbl)[0] == 2
+    before = pa.paged_decode_attention_kvq.launches
+    got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, d ** -0.5)
+    assert pa.paged_decode_attention_kvq.launches == before + 1
+    _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, d ** -0.5),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 96)])
+def test_paged_decode_kvq_other_shapes_take_the_fma_body(gen, dtype, d):
+    """f32 q over an int8 pool, and bf16 q at a head dim outside {64, 128,
+    256}, stay on the FMA body."""
+    b, w, hq, hkv, t, nbt = 3, 2, 8, 2, 16, 12
+    nb = 1 + b * nbt
+    kp, vp = _kvq(gen, nb, 2, hkv, t, d), _kvq(gen, nb, 2, hkv, t, d)
+    tbl, pos = _table(b, nbt, w, t)
+    q = _rn(gen, b, w, hq, d, dtype=dtype)
+    assert pa._plan(q, kp.q, tbl)[0] == 0
+    before = pa.paged_decode_attention_kvq.launches
+    got = pa.paged_decode_attention(q, kp, vp, tbl, pos, 1, d ** -0.5)
+    assert pa.paged_decode_attention_kvq.launches == before + 1
+    _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos, 1, d ** -0.5), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -6,7 +6,8 @@ on the same numpy inputs, in float32.
   (``flash_attention_chunk_kvq``): the plain PyTorch versions (a wrapper
   given CPU tensors runs its plain version) against the Pallas kernels in
   interpret mode, rtol=atol=2e-5 (the f32 tolerance of
-  tests/test_flash_attention.py); the CUDA kernels are held against these
+  tests/test_flash_attention.py), and K1q once more with bf16 q, atol
+  2e-2 (its bf16 tolerance); the CUDA kernels are held against these
   plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py;
 * the KVQ branch of ``gqa_attention_hmajor``, 2e-5;
 * the paged batcher: greedy tokens identical to the JAX ContinuousBatcher
@@ -99,10 +100,17 @@ def test_kvq_pool_writes_match():
     assert tkv.kv_nbytes(tpool) == jkv.kv_nbytes(jpool)
 
 
-@pytest.mark.parametrize("w", [1, 3])
-def test_paged_decode_kvq_plain_matches_pallas(w):
+@pytest.mark.parametrize("w,dtype", [
+    pytest.param(1, "float32", id="1"),
+    pytest.param(3, "float32", id="3"),
+    pytest.param(3, "bfloat16", id="bf16-3"),
+])
+def test_paged_decode_kvq_plain_matches_pallas(w, dtype):
     """K1q: GQA group 4, T 16, ragged positions, a slot whose table is all
-    null blocks (codes 0, scales 1), layer 1."""
+    null blocks (codes 0, scales 1), layer 1. In bf16 (q, and the output)
+    both sides round code x scale to bf16 and p to bf16 before the PV
+    product, where the tensor-core body rounds: 2e-2, the bf16 tolerance
+    of tests/test_flash_attention.py:184."""
     rng = np.random.default_rng(2 + w)
     b, hq, hkv, d, T, L, nbp, nbt = 3, 8, 2, 16, 16, 2, 8, 3
     q = _rand(rng, b, w, hq, d)
@@ -116,11 +124,14 @@ def test_paged_decode_kvq_plain_matches_pallas(w):
     pos = np.array([17, 44 - w, 4], np.int32)
     scale = d ** -0.5
     want = jpaged.paged_decode_attention(
-        jnp.asarray(q), jk, jv, jnp.asarray(tbl), jnp.asarray(pos), 1, scale, interpret=True)
-    got = tpaged.paged_decode_attention(_t(q), tk, tv, _t(tbl), _t(pos), 1, scale)
-    assert got.shape == (b, w, hq, d)
+        jnp.asarray(q, dtype=dtype), jk, jv, jnp.asarray(tbl), jnp.asarray(pos), 1, scale,
+        interpret=True)
+    got = tpaged.paged_decode_attention(_t(q).to(getattr(torch, dtype)), tk, tv, _t(tbl),
+                                        _t(pos), 1, scale)
+    assert got.shape == (b, w, hq, d) and got.dtype == getattr(torch, dtype)
     assert torch.isfinite(got).all()
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tol = TOL if dtype == "float32" else dict(rtol=0, atol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, dtype=np.float32), **tol)
 
 
 @pytest.mark.parametrize("b,c,kw,start,hq,hkv,d,bq,bk", [
