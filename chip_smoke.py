@@ -20,9 +20,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
              rope_theta 500000, rms_eps 1e-5; 32 layers) with random weights
-             (sigma 0.02) from --seed and a byte-level gpt2 tokenizer.
+             (sigma 0.02) from --seed and a byte-level gpt2 tokenizer, to a
+             staging dir outside the models dir; a worker brings it into the
+             models dir by pull_model over NATS with its file:// URL
+             (URL_PULL_SCHEMES=file).
 Then, once with the bf16 KV cache and once with the int8 one
-(TPU_KV_QUANT=int8), each through TorchRegistry(device="cuda", kv_quant=):
+(TPU_KV_QUANT=int8), each through TorchRegistry(ModelStore(models dir),
+device="cuda", kv_quant=):
 4. gate    — compare logits of the kernel path with the plain path, for a
              512-token fresh prefill and for the same prompt in two chunks
              followed by one paged decode step (float32: relative L2 <= 2e-2;
@@ -35,6 +39,22 @@ Then, once with the bf16 KV cache and once with the int8 one
              streamed chat. Every envelope must be ok; bf16 KV must launch
              K1, K2 and K3 and not K1q or K4, int8 KV K1q, K2 and K4 and not
              K1 or K3.
+6. lifecycle — bf16 KV, an embedded broker with the object-store module and
+             a worker whose ModelStore reaches the bucket: (a) a 2-layer GGUF
+             at the same widths is published with ModelStore.publish_model
+             and brought in by sync_model_from_bucket (sha256 must match the
+             published digest); (b) with the budget read from the card, the
+             32-layer model loads (the rise in memory_allocated must match
+             the estimate's params + pool within 1%) and a ~4000-token chat
+             into the idle batcher must peak within the estimate
+             (parallel/memory.py estimate_load_bytes); (c) under
+             TPU_HBM_BUDGET_BYTES=22e9 a chat to the 2-layer model is
+             refused with "insufficient device memory" while a stream holds
+             the 32-layer engine (the stream finishes intact), and evicts it
+             once idle (>= 98% of its params + pool returned); (d)
+             delete_model of the loaded 2-layer model returns >= 98% of its
+             bytes, after which a chat to it is "model not found" and
+             list_models omits it; the 32-layer model leaves by delete_model.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -44,7 +64,10 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import base64
+import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -55,7 +78,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
-MID = "smoke/llama3-8b-random"
+# the staged file's name: a file:// pull files it under downloads/<stem>
+STAGED = "llama3-8b-random.gguf"
+MID = "downloads/llama3-8b-random"
+MID2 = "smoke/llama3-8b-2layer"  # the lifecycle phase's bucket model
+BUDGET_OVERRIDE = 22_000_000_000  # above the 32-layer estimate, below both models'
+FREED_SHARE = 0.98  # of an engine's params + pool, returned on evict and delete
 BF16_DRIFT = 1.25  # bf16 kernel path's distance to f32, over the plain path's
 
 # Meta-Llama-3-8B's published widths (meta-llama/Meta-Llama-3-8B config.json)
@@ -586,7 +614,24 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
             f"{out['attention_ms_per_step']:.3f} ms")
         for name, ms, cnt in out["top"]:
             log(f"profile:   {ms:8.3f} ms/step  x{cnt:<4d} {name}")
-    del kp, vp
+    # the restricted-sampling pick on this step's logits (T 0.8, top-k 40,
+    # top-p 0.95): all of _pick, and the stable full-vocab sort that takes
+    # its candidates beside torch.topk of as many (device ms each)
+    from nats_llm_studio_tpu_torch.engine import sampling
+
+    logits = forward_decode_paged(params, cfg, tok[:, None], kp, vp, tbl, pos)[0][:, -1]
+    gumbel = -torch.log(-torch.log(torch.rand(logits.shape, generator=g, device=dev)
+                                   .clamp_min(1e-30)))
+    samp = (torch.full((B,), 0.8, device=dev), torch.full((B,), 40, device=dev),
+            torch.full((B,), 0.95, device=dev))
+    c = sampling.CANDIDATES
+    out["pick_ms"] = cuda_ms(torch, lambda: sampling._pick(logits, gumbel, *samp))
+    out["pick_sort_ms"] = cuda_ms(torch, lambda: sampling._candidates(logits, c))
+    out["pick_topk_ms"] = cuda_ms(torch, lambda: torch.topk(logits, c, dim=-1))
+    log(f"profile (kv {cfg.kv_quant}): _pick at [{B}, {logits.shape[1]}] {out['pick_ms']:.4f} "
+        f"ms, of which the stable sort's {c} candidates {out['pick_sort_ms']:.4f} ms "
+        f"(torch.topk of {c}: {out['pick_topk_ms']:.4f} ms)")
+    del kp, vp, logits, gumbel
     torch.cuda.empty_cache()
     return out
 
@@ -713,9 +758,10 @@ def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters) -> d
     import gc
 
     from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+    from nats_llm_studio_tpu_torch.store import ModelStore
 
-    registry = TorchRegistry(model_root, device="cuda", max_seq_len=4096, max_batch_slots=8,
-                             kv_quant=kv_quant)
+    registry = TorchRegistry(ModelStore(model_root), device="cuda", max_seq_len=4096,
+                             max_batch_slots=8, kv_quant=kv_quant)
     t0 = time.perf_counter()
     gate = model_phase(torch, registry, seed)
     eng = gate.pop("engine")
@@ -742,6 +788,249 @@ def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters) -> d
     gc.collect()
     torch.cuda.empty_cache()
     return dict(gate=gate, pool=pool, prof=prof, served=served, launches=launches)
+
+
+# -- phases 3 and 6: the model lifecycle ---------------------------------------
+
+
+class Lifecycle:
+    """An embedded broker with the object-store module, a Worker whose
+    TorchRegistry keeps ``model_root`` through the serving ModelStore
+    (``__main__.make_store``: the bucket, URL_PULL_SCHEMES), and a client."""
+
+    def __init__(self, model_root: Path, device: str = "cuda", store_dir: Path | None = None):
+        self.model_root, self.device, self.store_dir = model_root, device, store_dir
+
+    async def __aenter__(self):
+        from nats_llm_studio_tpu_torch.__main__ import make_store
+        from nats_llm_studio_tpu_torch.config import WorkerConfig
+        from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+        from nats_llm_studio_tpu_torch.serve.worker import Worker
+        from nats_llm_studio_tpu_torch.store import JetStreamStoreModule
+        from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, connect
+
+        self.broker = await EmbeddedBroker().start()
+        JetStreamStoreModule(self.broker, store_dir=self.store_dir).install()
+        self.cfg = WorkerConfig(nats_url=self.broker.url, models_dir=self.model_root)
+        self.store_nc = await connect(self.broker.url)
+        self.registry = TorchRegistry(make_store(self.cfg, self.store_nc), device=self.device,
+                                      max_seq_len=4096, max_batch_slots=8)
+        self.worker = Worker(self.cfg, self.registry)
+        await self.worker.start()
+        self.nc = await connect(self.broker.url)
+        return self
+
+    async def __aexit__(self, *exc):
+        await self.nc.close()
+        await self.worker.drain()
+        await self.registry.close()
+        await self.store_nc.close()
+        await self.broker.stop()
+
+    async def req(self, op: str, body: dict, timeout: float = 600.0) -> dict:
+        msg = await self.nc.request(f"lmstudio.{op}", json.dumps(body).encode(),
+                                    timeout=timeout)
+        return json.loads(msg.payload)
+
+    async def chat(self, model: str, content: str, max_tokens: int) -> dict:
+        return await self.req("chat_model", {
+            "model": model, "messages": [{"role": "user", "content": content}],
+            "temperature": 0, "max_tokens": max_tokens})
+
+    async def stream(self, model: str, content: str, max_tokens: int, first: asyncio.Event):
+        """A streamed greedy chat: (ok, chunks add up to the final text,
+        tokens)."""
+        body = {"model": model, "messages": [{"role": "user", "content": content}],
+                "temperature": 0, "max_tokens": max_tokens, "stream": True}
+        parts, final = [], None
+        async for msg in self.nc.request_stream("lmstudio.chat_model",
+                                                json.dumps(body).encode(), timeout=300.0):
+            env = json.loads(msg.payload)
+            if not env.get("ok"):
+                raise AssertionError(f"stream failed: {env}")
+            if msg.headers and "Nats-Stream-Done" in msg.headers:
+                final = env["data"]["response"]
+            else:
+                first.set()
+                parts.append(env["data"]["chunk"]["choices"][0]["delta"]["content"])
+        intact = final is not None and final["choices"][0]["message"]["content"] == "".join(parts)
+        return intact, final["usage"]["completion_tokens"] if final else 0
+
+
+def ok(env: dict, what: str) -> dict:
+    if not env.get("ok"):
+        raise AssertionError(f"{what}: {env}")
+    return env["data"]
+
+
+async def pull_phase(staged: Path, model_root: Path, device: str = "cuda") -> dict:
+    """Bring the staged GGUF into the models dir the way a client would:
+    pull_model over NATS with its file:// URL."""
+    os.environ["URL_PULL_SCHEMES"] = "file"
+    size = staged.stat().st_size
+    async with Lifecycle(model_root, device) as h:
+        t0 = time.perf_counter()
+        data = ok(await h.req("pull_model", {"identifier": staged.as_uri()}), "pull_model")
+        dt = time.perf_counter() - t0
+        if [m["id"] for m in ok(await h.req("list_models", {}), "list")["models"]["data"]] \
+                != [MID]:
+            raise AssertionError(f"after the pull the cache does not list {MID} alone")
+    log(f"lifecycle: pull_model {staged.as_uri()} -> {MID}: {size} bytes in {dt:.2f} s "
+        f"({size / dt / 1e6:.1f} MB/s); {data['output'].splitlines()[-1]}")
+    return {"pull_bytes": size, "pull_s": dt, "pull_MBps": size / dt / 1e6}
+
+
+def sha256_b64(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return "SHA-256=" + base64.urlsafe_b64encode(h.digest()).decode()
+
+
+async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
+                          device: str = "cuda", widths: dict = LLAMA3_8B,
+                          budget_override: int = BUDGET_OVERRIDE) -> dict:
+    """(a) bucket publish and sync, (b) the card's budget, load and peak
+    against the estimate, (c) refusal while busy and eviction when idle
+    under a budget override, (d) delete of a loaded model; the 32-layer
+    model leaves by delete_model. The memory gates need the card: on the
+    CPU (a rehearsal at tiny widths) they are skipped."""
+    from nats_llm_studio_tpu_torch.models.config import ModelConfig
+    from nats_llm_studio_tpu_torch.parallel.memory import estimate_load_bytes
+    from nats_llm_studio_tpu_torch.store import ModelStore
+    from nats_llm_studio_tpu_torch.transport.jetstream import ObjectStore
+
+    cuda = device == "cuda"
+
+    def allocated() -> int:
+        if not cuda:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def estimate(n_layers: int) -> dict:
+        c = widths
+        cfg = ModelConfig(vocab_size=c["vocab"], d_model=c["d_model"], n_layers=n_layers,
+                          n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
+                          head_dim=c["head_dim"], d_ff=c["d_ff"], max_seq_len=c["context"],
+                          dtype="bfloat16" if cuda else "float32")
+        return estimate_load_bytes(cfg, 8, 4096)
+
+    def gate(cond: bool, msg: str) -> None:
+        if cuda and not cond:
+            raise AssertionError(msg)
+
+    out: dict = {}
+    os.environ.pop("TPU_HBM_BUDGET_BYTES", None)
+    big, small = estimate(widths["n_layers"]), estimate(2)
+    async with Lifecycle(model_root, device, store_dir=work / "store") as h:
+        # (a) publish a 2-layer model to the bucket, sync it into the cache
+        pub_dir = work / "publisher"
+        src = pub_dir / MID2 / "model.gguf"
+        src.parent.mkdir(parents=True)
+        write_gguf(torch, src, 2, seed + 1, widths=widths, device=device)
+        size = src.stat().st_size
+        publisher = ModelStore(pub_dir, objstore=ObjectStore(h.nc), bucket=h.cfg.bucket)
+        t0 = time.perf_counter()
+        obj = await publisher.publish_model(MID2)
+        out["publish_MBps"] = size / (time.perf_counter() - t0) / 1e6
+        t0 = time.perf_counter()
+        data = ok(await h.req("sync_model_from_bucket", {"object_name": obj}), "sync")
+        out["sync_MBps"] = size / (time.perf_counter() - t0) / 1e6
+        digest = (await ObjectStore(h.nc).info(h.cfg.bucket, obj)).digest
+        local = Path(data["local_path"])
+        if not sha256_b64(src) == digest == sha256_b64(local):
+            raise AssertionError(f"sync: {local} does not hold the published bytes")
+        shutil.rmtree(pub_dir)
+        log(f"lifecycle: published {obj} ({size} bytes) at {out['publish_MBps']:.1f} MB/s, "
+            f"sync_model_from_bucket -> {local} at {out['sync_MBps']:.1f} MB/s, sha256 "
+            f"matches the published digest")
+
+        # (b) the card's budget; load, then the worst prefill, against the estimate
+        out["budget_bytes"] = h.registry.budget_bytes()
+        log(f"lifecycle: admission budget read from the card: {out['budget_bytes']} bytes; "
+            f"estimate for {MID}: {big}")
+        base = allocated()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        await h.registry.get_engine(MID)
+        out["load_s"] = time.perf_counter() - t0
+        resident = allocated() - base
+        out.update(estimate=big, resident_bytes=resident)
+        gate(abs(resident - big["params"] - big["kv_pool"]) <= 0.01 * (big["params"]
+                                                                       + big["kv_pool"]),
+             f"load: memory_allocated rose {resident}, estimate's params + pool "
+             f"{big['params'] + big['kv_pool']}")
+        ok(await h.chat(MID, "hello", 4), "short chat")
+        long_text = ("The harbour town kept its records in a long ledger. " * 80)[:3980]
+        data = ok(await h.chat(MID, long_text, 4), "long chat")
+        out["long_prompt_tokens"] = data["response"]["usage"]["prompt_tokens"]
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated() - base) if cuda else 0
+        log(f"lifecycle: {MID} loaded in {out['load_s']:.2f} s; resident {resident} bytes "
+            f"(estimate params + pool {big['params'] + big['kv_pool']}); peak over the load "
+            f"and a {out['long_prompt_tokens']}-token chat {out['peak_bytes']} bytes (estimate "
+            f"total {big['total']}, workspace term {big['workspace']})")
+        gate(out["peak_bytes"] <= big["total"],
+             f"peak {out['peak_bytes']} above the estimate {big['total']}")
+
+        # (c) refused while busy, evicted when idle, under a budget override
+        os.environ["TPU_HBM_BUDGET_BYTES"] = str(budget_override)
+        first = asyncio.Event()
+        live = asyncio.ensure_future(h.stream(MID, "Count slowly from one to fifty.", 96,
+                                              first))
+        await asyncio.wait_for(first.wait(), 300)
+        env = await h.chat(MID2, "hello", 4)
+        if env.get("ok") or "insufficient device memory" not in env.get("error", ""):
+            raise AssertionError(f"a chat to {MID2} beside a live {MID} stream: {env}")
+        intact, n_live = await live
+        if not intact:
+            raise AssertionError("the live stream did not finish intact")
+        log(f"lifecycle: under TPU_HBM_BUDGET_BYTES={budget_override}, a chat to {MID2} "
+            f"beside a live stream was refused: {env['error']!r}; the stream finished "
+            f"intact ({n_live} tokens)")
+        eng = h.registry.loaded_engines()[MID]
+        unload, freed = eng.unload, {}
+
+        async def measured_unload():
+            before = allocated()
+            await unload()
+            freed["evict"] = before - allocated()
+
+        eng.unload = measured_unload
+        del eng
+        ok(await h.chat(MID2, "hello", 4), f"chat to {MID2} once {MID} idles")
+        if set(h.registry.loaded_engines()) != {MID2}:
+            raise AssertionError(f"after the eviction: {set(h.registry.loaded_engines())}")
+        out["evict_freed_bytes"] = freed.get("evict", 0)
+        log(f"lifecycle: the same chat evicted idle {MID} and was served; freed "
+            f"{out['evict_freed_bytes']} bytes of params + pool "
+            f"{big['params'] + big['kv_pool']}")
+        gate(out["evict_freed_bytes"] >= FREED_SHARE * (big["params"] + big["kv_pool"]),
+             "eviction returned too few bytes")
+
+        # (d) delete_model of the loaded model frees it; the model is gone
+        before = allocated()
+        ok(await h.req("delete_model", {"model_id": MID2}), "delete_model")
+        out["delete_freed_bytes"] = before - allocated()
+        env = await h.chat(MID2, "hello", 4)
+        if env.get("ok") or "model not found" not in env.get("error", ""):
+            raise AssertionError(f"a chat after delete_model: {env}")
+        listed = [m["id"] for m in ok(await h.req("list_models", {}), "list")["models"]["data"]]
+        if MID2 in listed:
+            raise AssertionError(f"list_models still lists {MID2}: {listed}")
+        log(f"lifecycle: delete_model {MID2} freed {out['delete_freed_bytes']} bytes of "
+            f"params + pool {small['params'] + small['kv_pool']}; a chat to it: "
+            f"{env['error']!r}; list_models: {listed}")
+        gate(out["delete_freed_bytes"] >= FREED_SHARE * (small["params"] + small["kv_pool"]),
+             "delete_model returned too few bytes")
+        data = ok(await h.req("delete_model", {"model_id": MID}), "delete_model")
+        if ok(await h.req("list_models", {}), "list")["models"]["data"]:
+            raise AssertionError("the cache is not empty after both deletes")
+        log(f"lifecycle: delete_model {MID} removed {data['deleted_dir']}")
+    os.environ.pop("TPU_HBM_BUDGET_BYTES", None)
+    return out
 
 
 def main() -> int:
@@ -777,20 +1066,35 @@ def main() -> int:
     kernels = kernel_phase(torch, args.seed)
     torch.cuda.empty_cache()
 
-    model_root = ROOT / "build" / "smoke_models"
-    shutil.rmtree(model_root, ignore_errors=True)
-    mdir = model_root / MID
-    mdir.mkdir(parents=True)
+    work = ROOT / "build" / "smoke"
+    model_root = work / "models"
+    shutil.rmtree(work, ignore_errors=True)
+    staged = work / "staging" / STAGED
+    staged.parent.mkdir(parents=True)
     t0 = time.perf_counter()
-    write_gguf(torch, mdir / "model.gguf", LLAMA3_8B["n_layers"], args.seed)
-    log(f"model: bf16 GGUF {(mdir / 'model.gguf').stat().st_size / 2**30:.2f} GiB written in "
-        f"{time.perf_counter() - t0:.1f} s")
+    write_gguf(torch, staged, LLAMA3_8B["n_layers"], args.seed)
+    log(f"model: bf16 GGUF {staged.stat().st_size / 2**30:.2f} GiB written in "
+        f"{time.perf_counter() - t0:.1f} s; disk: {shutil.disk_usage(work)}")
+    lifecycle = asyncio.run(pull_phase(staged, model_root))
+    staged.unlink()
 
     counters = (pa.paged_decode_attention, pa.paged_decode_attention_kvq, fa.flash_attention,
                 fa.flash_attention_chunk, fa.flash_attention_chunk_kvq)
     paths = {kv: serve_path(torch, model_root, kv, args.seed, counters)
              for kv in ("none", "int8")}
-    shutil.rmtree(model_root, ignore_errors=True)
+    for f in counters:
+        f.launches = 0
+    lifecycle.update(asyncio.run(lifecycle_phase(torch, model_root, work, args.seed)))
+    launches = {f.__name__: f.launches for f in counters}
+    log(f"lifecycle (kv none): kernel launches {launches}")
+    for name in ("paged_decode_attention", "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"lifecycle: {name} was not launched")
+    for name in EXPECTED["none"][1]:
+        if launches[name] != 0:
+            raise AssertionError(f"lifecycle: {name} was launched under the bf16 KV cache")
+    lifecycle["launches"] = launches
+    shutil.rmtree(work, ignore_errors=True)
     for name in ("prefill", "decode"):
         a, b = paths["int8"]["gate"][name], paths["none"]["gate"][name]
         log(f"model: {name} logits with the int8 KV cache vs the bf16 one (kernel paths, "
@@ -821,10 +1125,12 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src[wrapper][0],
             "replaces": src[wrapper][1], "design": src[wrapper][2], "shape": r["shape"],
-            # the wrapper's launches over both serve phases (K2 serves both KV
-            # modes), at whatever shapes they ran: a second row of one wrapper
-            # (@T4096, @KW4096) reports the same counter, named by launches_of
-            "launches": sum(p["launches"][wrapper] for p in paths.values()),
+            # the wrapper's launches over both serve phases and the lifecycle
+            # phase (K2 serves both KV modes), at whatever shapes they ran: a
+            # second row of one wrapper (@T4096, @KW4096) reports the same
+            # counter, named by launches_of
+            "launches": sum(p["launches"][wrapper] for p in paths.values())
+            + lifecycle["launches"][wrapper],
             "launches_of": wrapper,
             "max_abs_err": r["max_abs_err"], "max_row_rel_err": r["max_row_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -840,6 +1146,7 @@ def main() -> int:
             "pool_bytes": p["pool"]["bytes"],
             "decode_profile": {k: v for k, v in p["prof"].items() if k != "top"},
         }
+    summary["lifecycle"] = lifecycle
     log(json.dumps(summary))
     log(json.dumps({"kernels": rows}))
     log(card)

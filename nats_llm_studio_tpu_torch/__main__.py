@@ -1,10 +1,19 @@
-"""``python -m nats_llm_studio_tpu_torch serve [--embedded-broker] [--device cuda|cpu]``
+"""``python -m nats_llm_studio_tpu_torch serve|broker|publish``
 
-Mirror of ``nats_llm_studio_tpu/main.py`` ``_run_serve`` for the port: a
-``Worker`` over a ``TorchRegistry`` of ``LMSTUDIO_MODELS_DIR``, optionally
-behind an in-process broker, with the KV cache that ``TPU_KV_QUANT``
-("none" or "int8") names. The device defaults to the card; with no card
-the command fails unless ``--device cpu`` is given.
+Mirror of ``nats_llm_studio_tpu/main.py`` for the port:
+
+* ``serve [--embedded-broker] [--store-dir DIR] [--device cuda|cpu]``: a
+  ``Worker`` over a ``TorchRegistry`` whose ``ModelStore`` keeps
+  ``LMSTUDIO_MODELS_DIR`` and reaches the ``MODEL_BUCKET`` Object Store
+  bucket over NATS, optionally behind an in-process broker with the
+  object-store module, with the KV cache that ``TPU_KV_QUANT`` ("none" or
+  "int8") names. The device defaults to the card; with no card the
+  command fails unless ``--device cpu`` is given.
+* ``broker [--port N] [--store-dir DIR]``: the embedded NATS broker with
+  the object-store module alone.
+* ``publish GGUF MODEL_ID``: import a GGUF into the local cache and upload
+  it to the bucket, for workers to ``pull_model`` or
+  ``sync_model_from_bucket``.
 """
 
 from __future__ import annotations
@@ -20,36 +29,80 @@ from .config import WorkerConfig
 log = logging.getLogger("nats_llm_studio_tpu_torch")
 
 
-async def _run_serve(args: argparse.Namespace) -> None:
-    from .serve.registry import TorchRegistry
-    from .serve.worker import Worker
-    from .transport import EmbeddedBroker
+def make_store(cfg: WorkerConfig, nc):
+    """The serving ``ModelStore``: the models dir, the bucket over ``nc``,
+    and the configured URL schemes and pull ceiling."""
+    from .store import ModelStore
+    from .transport.jetstream import ObjectStore
 
-    cfg = WorkerConfig()
-    registry = TorchRegistry(
-        cfg.models_dir, device=args.device, max_seq_len=cfg.max_seq_len,
-        max_batch_slots=cfg.max_batch_slots, kv_quant=cfg.kv_quant_mode,
-    )
-    broker = None
-    if args.embedded_broker:
-        broker = await EmbeddedBroker(port=args.port).start()
-        cfg.nats_url = broker.url
-        log.info("embedded broker on %s", broker.url)
-    worker = Worker(cfg, registry)
-    await worker.start()
-    log.info("worker serving %s.* on %s (device %s, kv cache %s, models: %s)",
-             cfg.subject_prefix, cfg.nats_url, registry.device, registry.kv_quant,
-             cfg.models_dir)
+    schemes = tuple(s for s in cfg.url_pull_schemes.split(",") if s)
+    return ModelStore(cfg.models_dir, objstore=ObjectStore(nc), bucket=cfg.bucket,
+                      url_schemes=schemes, max_url_pull_bytes=cfg.max_url_pull_bytes)
+
+
+async def _wait_for_signal() -> None:
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
+
+
+async def _run_serve(args: argparse.Namespace) -> None:
+    from .serve.registry import TorchRegistry
+    from .serve.worker import Worker
+    from .store import JetStreamStoreModule
+    from .transport import EmbeddedBroker, connect
+
+    cfg = WorkerConfig()
+    broker = None
+    if args.embedded_broker:
+        broker = await EmbeddedBroker(port=args.port).start()
+        JetStreamStoreModule(broker, store_dir=args.store_dir).install()
+        cfg.nats_url = broker.url
+        log.info("embedded broker on %s (store: %s)", broker.url, args.store_dir or "memory")
+    nc = await connect(cfg.nats_url, name="store-client")
+    registry = TorchRegistry(
+        make_store(cfg, nc), device=args.device, max_seq_len=cfg.max_seq_len,
+        max_batch_slots=cfg.max_batch_slots, kv_quant=cfg.kv_quant_mode,
+    )
+    worker = Worker(cfg, registry)
+    await worker.start()
+    log.info("worker serving %s.* on %s (device %s, kv cache %s, models: %s, bucket %s)",
+             cfg.subject_prefix, cfg.nats_url, registry.device, registry.kv_quant,
+             cfg.models_dir, cfg.bucket)
+    await _wait_for_signal()
     log.info("draining...")
     await worker.drain()
     await registry.close()
+    await nc.close()
     if broker is not None:
         await broker.stop()
+
+
+async def _run_broker(args: argparse.Namespace) -> None:
+    from .store import JetStreamStoreModule
+    from .transport import EmbeddedBroker
+
+    broker = await EmbeddedBroker(port=args.port).start()
+    JetStreamStoreModule(broker, store_dir=args.store_dir).install()
+    log.info("broker on %s (store: %s)", broker.url, args.store_dir or "memory")
+    await _wait_for_signal()
+    await broker.stop()
+
+
+async def _run_publish(args: argparse.Namespace) -> None:
+    from .transport import connect
+
+    cfg = WorkerConfig()
+    nc = await connect(cfg.nats_url)
+    try:
+        store = make_store(cfg, nc)
+        store.import_file(args.gguf, args.model_id)
+        obj = await store.publish_model(args.model_id)
+        print(f"published {obj} to bucket {cfg.bucket!r}")
+    finally:
+        await nc.close()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -57,14 +110,22 @@ def main(argv: list[str] | None = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="run a worker on the card")
     s.add_argument("--embedded-broker", action="store_true",
-                   help="run an in-process NATS broker and serve on it")
+                   help="run an in-process NATS broker with the object store and serve on it")
     s.add_argument("--port", type=int, default=4222, help="embedded broker port")
+    s.add_argument("--store-dir", default=None,
+                   help="embedded broker's object-store directory (default: in memory)")
     s.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    b = sub.add_parser("broker", help="run the embedded NATS broker + object store")
+    b.add_argument("--port", type=int, default=4222)
+    b.add_argument("--store-dir", default="./nats_data")
+    p = sub.add_parser("publish", help="import a GGUF and upload it to the bucket")
+    p.add_argument("gguf")
+    p.add_argument("model_id")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    if args.cmd == "serve":
-        asyncio.run(_run_serve(args))
+    run = {"serve": _run_serve, "broker": _run_broker, "publish": _run_publish}[args.cmd]
+    asyncio.run(run(args))
     return 0
 
 

@@ -25,6 +25,16 @@ class WorkerConfig:
             _env("LMSTUDIO_MODELS_DIR", str(Path.home() / ".lmstudio" / "models"))
         ).expanduser()
     )
+    # Object Store bucket that publish / pull_model / sync_model_from_bucket use
+    bucket: str = field(default_factory=lambda: _env("MODEL_BUCKET", "llm-models"))
+    # comma-separated URL schemes pull_model may fetch directly; https-only
+    # by default (a bus client must not drive the worker to read its local
+    # files or internal endpoints)
+    url_pull_schemes: str = field(default_factory=lambda: _env("URL_PULL_SCHEMES", "https"))
+    # ceiling on one pull_model URL download (disk-fill guard), 100 GiB
+    max_url_pull_bytes: int = field(
+        default_factory=lambda: int(_env("MAX_URL_PULL_BYTES", str(100 << 30)))
+    )
     queue_group: str = field(default_factory=lambda: _env("NATS_QUEUE_GROUP", "lmstudio-workers"))
     subject_prefix: str = field(default_factory=lambda: _env("SUBJECT_PREFIX", "lmstudio"))
     max_batch_slots: int = field(default_factory=lambda: int(_env("MAX_BATCH_SLOTS", "8")))
@@ -54,6 +64,8 @@ class WorkerConfig:
 
     # timeout ladder — mirrors the reference's per-op deadlines
     list_timeout_s: float = 30.0
+    pull_timeout_s: float = 600.0
+    delete_timeout_s: float = 120.0
     chat_timeout_s: float = 120.0
 
     def subject(self, op: str) -> str:

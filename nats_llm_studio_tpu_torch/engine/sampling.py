@@ -1,10 +1,11 @@
 """Token sampling: temperature / top-k / top-p, vectorized per row.
 
 Port of ``nats_llm_studio_tpu/engine/sampling.py`` (``_pick`` and
-``sample_rows``; speculative acceptance is not ported yet). Sort-free as in
-the reference: greedy is ``argmax``, unrestricted sampling is Gumbel-max over
+``sample_rows``; speculative acceptance is not ported yet). As in the
+reference, greedy is ``argmax``, unrestricted sampling is Gumbel-max over
 the full vocab, and top-k / top-p rows draw from the top ``CANDIDATES``
-logits.
+logits, taken in ``jax.lax.top_k``'s order: value descending, the lower
+index first among equals (``_candidates``).
 
 Randomness: row i's Gumbel noise comes from a ``torch.Generator`` seeded
 from ``(seeds[i], steps[i])`` alone, so a row's draw never depends on what
@@ -19,6 +20,17 @@ import torch
 
 CANDIDATES = 64  # candidate cap for restricted (top-k/top-p) rows
 _MASK64 = (1 << 64) - 1
+
+
+def _candidates(logits, c: int):
+    """The top ``c`` logits per row and their indices, value descending
+    and the lower index first among equal values, as ``jax.lax.top_k``
+    orders them. ``torch.topk`` leaves the order of ties unspecified, and
+    which tied tokens make the cut depends on every element equal to the
+    c-th value, so the candidates come from a stable sort of the whole
+    row."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[:, :c], idx[:, :c]
 
 
 def _pick(logits, gumbel, temperature, top_k, top_p, mask=None) -> torch.Tensor:
@@ -40,7 +52,7 @@ def _pick(logits, gumbel, temperature, top_k, top_p, mask=None) -> torch.Tensor:
     full_pick = torch.argmax(logits / safe_t + gumbel, dim=-1)
 
     c = min(CANDIDATES, v)
-    cand, cand_idx = torch.topk(logits, c, dim=-1)  # sorted descending
+    cand, cand_idx = _candidates(logits, c)  # sorted descending, ties by index
     ranks = torch.arange(c, device=dev)[None, :]
     k_eff = torch.where(top_k <= 0, torch.full_like(top_k, c), torch.clamp(top_k, max=c))
     keep = ranks < k_eff[:, None]

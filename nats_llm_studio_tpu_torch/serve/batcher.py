@@ -57,6 +57,7 @@ from ..models.llama import (
     make_cache,
 )
 from ..ops.kvcache import kv_nbytes, kv_pool_write_row, kv_pool_zeros
+from ..parallel.memory import KV_BLOCK_TOKENS, PREFILL_CHUNK, serving_geometry
 from .block_pool import BlockPool
 
 log = logging.getLogger(__name__)
@@ -131,9 +132,9 @@ class ContinuousBatcher:
 
     # the reference's serving defaults: 256-token prefill chunks, decode
     # bursts of 8 steps, 16-token KV blocks
-    PREFILL_CHUNK = 256
+    PREFILL_CHUNK = PREFILL_CHUNK
     DECODE_BURST = 8
-    KV_BLOCK_TOKENS = 16
+    KV_BLOCK_TOKENS = KV_BLOCK_TOKENS
 
     def __init__(self, params, cfg: ModelConfig, max_slots: int = 8,
                  max_seq_len: int | None = None):
@@ -144,23 +145,19 @@ class ContinuousBatcher:
         self.max_seq = min(max_seq_len or cfg.max_seq_len, cfg.max_seq_len)
         self.buckets = default_buckets(self.max_seq)
         # the serving chunk divides max_seq, so the zero-padded last chunk
-        # never writes past the row cache
-        self.prefill_chunk = self.PREFILL_CHUNK
-        while self.max_seq % self.prefill_chunk and self.prefill_chunk > 8:
-            self.prefill_chunk //= 2
+        # never writes past the row cache; the block size divides the chunk
+        self.prefill_chunk, T = serving_geometry(self.max_seq, self.PREFILL_CHUNK,
+                                                 self.KV_BLOCK_TOKENS)
         if self.max_seq % self.prefill_chunk:
             raise ValueError(
                 f"max_seq_len={self.max_seq} must be divisible by a prefill "
                 f"chunk >= 8; use a power-of-two max_seq_len"
             )
         self.decode_burst = self.DECODE_BURST
-        # block size: snapped down until it divides the serving chunk
-        T = self.KV_BLOCK_TOKENS
-        while T > 1 and self.prefill_chunk % T:
-            T //= 2
         self.kv_block_tokens = T
         self.blocks_per_row = self.max_seq // T
         # every slot at max_seq, +1 for the null block 0
+        # (parallel/memory.py estimate_load_bytes prices this pool)
         self._pool = BlockPool(max_slots * self.blocks_per_row + 1, T)
         # the pool pair [NB, L, Hkv, T, D], written in place by every program
         self._kv = self._new_kv_pool()
@@ -260,7 +257,7 @@ class ContinuousBatcher:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
-        if self._started:
+        if self._started or self._stopping:
             return
         self._started = True
         self._thread = threading.Thread(target=self._run_guarded, name="batcher",
@@ -283,14 +280,24 @@ class ContinuousBatcher:
         return self.crashed is None and self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
-        if not self._started or self._stopping:
-            return
+        """End the owner thread and every request ("shutdown"), then drop
+        the device tensors (params and the K/V pool), so their memory goes
+        back to the allocator even while something still holds this
+        batcher or its engine."""
         with self._submit_lock:
+            running = self._started and not self._stopping
             self._stopping = True
-            self._inbox.put(None)
-        if self._thread is not None:
+            if running:
+                self._inbox.put(None)
+        if running:
             self._thread.join(timeout=30.0)
-        self._drain_all("shutdown")
+            self._drain_all("shutdown")
+        if self._thread is not None and self._thread.is_alive():
+            log.warning("batcher thread still running after stop; its device "
+                        "tensors stay allocated")
+            return
+        self.params = None
+        self._kv = None
 
     @property
     def idle(self) -> bool:

@@ -1,26 +1,36 @@
-"""TorchRegistry: models on disk -> loaded engines, for the port's worker.
+"""TorchRegistry: the model lifecycle -> loaded engines, for the port's
+worker.
 
-Port of the serving core of ``nats_llm_studio_tpu/serve/registry.py``:
-``TorchRegistry`` lists and loads GGUF models from a models directory laid
-out as ``<models_dir>/<publisher>/<name>/*.gguf`` (the layout
-``store/manager.py`` ``ModelStore`` keeps), and ``TorchChatEngine`` keeps
+Port of ``nats_llm_studio_tpu/serve/registry.py``: ``TorchRegistry`` keeps
+``LocalRegistry``'s lifecycle over a ``store/manager.py`` ``ModelStore``
+(the ``<models_dir>/<publisher>/<name>/*.gguf`` cache plus the Object Store
+bucket): ``list_models``, ``pull``, ``delete`` (unload first, then remove
+the directory), ``sync_from_bucket`` and ``get_engine`` behind device-memory
+admission (``_admit_hbm``): a load is priced before it touches the card
+(``parallel/memory.py estimate_load_bytes``), idle engines are evicted
+least recently used first to make room, and a load that still does not fit
+is refused with an error instead of running the card out of memory in the
+middle of serving another model. ``TorchChatEngine`` keeps
 ``JaxChatEngine``'s ``chat`` / ``chat_stream`` / ``_completion`` reply
 shapes over the port's batcher.
 
-Not ported yet: pulls from the Object Store or a URL, HBM admission and
-eviction, engine supervision and restarts, prefix cache, spec decode, KV
-tiers and QoS. A chat that asks for a feature this port does not serve
-(``response_format``, ``logprobs``, ``top_logprobs``, ``n`` > 1) gets an
-error naming the field instead of having it ignored.
+Not ported yet: the mesh gate and precompile at pull time, engine
+supervision and restarts, prefix cache (and its shrink tier under memory
+pressure), spec decode, KV tiers and QoS. A chat that asks for a feature
+this port does not serve (``response_format``, ``logprobs``,
+``top_logprobs``, ``n`` > 1) gets an error naming the field instead of
+having it ignored.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
-from pathlib import Path
 from typing import Any, AsyncIterator
+
+import torch
 
 from ..device import default_dtype, resolve_device
 from ..engine.generator import GenStats, SamplingParams
@@ -28,6 +38,8 @@ from ..gguf.reader import is_split_shard, open_gguf
 from ..gguf.tokenizer import GGUFTokenizer
 from ..models.config import ModelConfig, check_kv_quant
 from ..models.llama import ensure_lm_head, load_params_from_gguf
+from ..parallel.memory import estimate_load_bytes
+from ..store.manager import ModelStore, StoreError
 from ..utils.nuid import next_nuid
 from .api import ChatEngine, EngineError, ModelNotFound, Registry
 from .batcher import BatcherOverloaded, BatcherStopped, ContinuousBatcher
@@ -189,89 +201,215 @@ class TorchChatEngine(ChatEngine):
         await asyncio.to_thread(self.batcher.stop)
 
 
-def _cached_models(models_dir: Path) -> list[tuple[str, str, list[Path]]]:
-    """(model_id, publisher, gguf files) for every ``<publisher>/<name>``
-    directory holding GGUF files (names may nest: ``pub/a/b``)."""
-    out = []
-    if not models_dir.is_dir():
-        return out
-    for pub_dir in sorted(p for p in models_dir.iterdir() if p.is_dir()):
-        for d in sorted({f.parent for f in pub_dir.rglob("*.gguf")}):
-            files = sorted(d.glob("*.gguf"))
-            mid = d.relative_to(models_dir).as_posix()
-            out.append((mid, pub_dir.name, files))
-    return out
+def card_budget_bytes(device: torch.device) -> int | None:
+    """What the allocator can reach on ``device``: the card's free bytes
+    plus what PyTorch's caching allocator already holds (its total would
+    also count the CUDA context). None on the CPU, which has no budget."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free) + int(torch.cuda.memory_reserved(device))
 
 
 class TorchRegistry(Registry):
-    """Model lifecycle over a models directory + PyTorch engines.
+    """Model lifecycle over a ``ModelStore`` + PyTorch engines.
 
     ``device`` defaults to "cuda" and raises when no card is visible; the
     CPU is used only when the caller passes ``device="cpu"``. The compute
     dtype follows the device: bf16 on the card, f32 on the CPU.
     ``kv_quant`` ("none" or "int8", ``TPU_KV_QUANT``) picks the KV cache's
-    storage for every model loaded."""
+    storage for every model loaded.
 
-    def __init__(self, models_dir: str | Path, device: str = "cuda",
+    The admission budget is ``TPU_HBM_BUDGET_BYTES`` when that is a positive
+    integer (read at each admission, as the reference does); otherwise, on
+    the card, what the allocator could reach when the registry was built
+    (``card_budget_bytes``); on the CPU, no budget and no check."""
+
+    def __init__(self, store: ModelStore, device: str = "cuda",
                  max_seq_len: int | None = None, max_batch_slots: int = 8,
                  kv_quant: str = "none"):
         self.kv_quant = check_kv_quant(kv_quant)
         self.device = resolve_device(device)
-        self.models_dir = Path(models_dir).expanduser()
+        self.store = store
         self.dtype = default_dtype(self.device)
         self.max_seq_len = max_seq_len
         self.max_batch_slots = max_batch_slots
+        self.card_budget_bytes = card_budget_bytes(self.device)
         self._engines: dict[str, TorchChatEngine] = {}
         self._load_lock = asyncio.Lock()
         self._requests = 0
+        # admission bookkeeping: estimated device bytes committed by each
+        # loaded engine, and last-use times for the eviction order. An
+        # engine targeted within evict_grace_s is never evicted
+        # (_pick_idle_victim)
+        self._hbm_committed: dict[str, int] = {}
+        self._last_used: dict[str, float] = {}
+        self.evict_grace_s = 1.0
+
+    # -- Registry ------------------------------------------------------------
 
     async def list_models(self) -> dict:
         entries = []
-        for mid, pub, files in _cached_models(self.models_dir):
-            eng = self._engines.get(mid)
+        for cm in self.store.cached():
+            eng = self._engines.get(cm.model_id)
             if eng is not None:
                 entries.append(eng.info())
             else:
                 entries.append({
-                    "id": mid,
+                    "id": cm.model_id,
                     "object": "model",
                     "type": "llm",
-                    "publisher": pub,
+                    "publisher": cm.publisher,
                     "state": "not-loaded",
-                    "size_bytes": sum(f.stat().st_size for f in files),
+                    "size_bytes": cm.size,
                 })
         return {"object": "list", "data": entries}
 
     async def pull(self, identifier: str) -> str:
-        raise EngineError("pull_model is not served by this worker")
+        try:
+            _, transcript = await self.store.pull(identifier)
+        except StoreError as e:
+            raise EngineError(str(e)) from None
+        return transcript
 
     async def delete(self, model_id: str) -> str:
-        raise EngineError("delete_model is not served by this worker")
+        eng = self._engines.pop(model_id, None)
+        self._hbm_committed.pop(model_id, None)
+        self._last_used.pop(model_id, None)
+        if eng is not None:
+            await eng.unload()
+        try:
+            return self.store.delete_local(model_id)
+        except StoreError as e:
+            err = EngineError(str(e))
+            err.dir = e.dir  # surfaced in the error envelope
+            raise err from None
+
+    async def sync_from_bucket(self, name: str, model_id: str | None = None) -> str:
+        try:
+            path, _ = await self.store.pull(name, model_id=model_id)
+        except StoreError as e:
+            raise EngineError(str(e)) from None
+        return str(path)
 
     async def get_engine(self, model_id: str) -> ChatEngine:
         self._requests += 1
         eng = self._engines.get(model_id)
         if eng is not None:
+            self._last_used[model_id] = time.monotonic()
             return eng
         async with self._load_lock:
             eng = self._engines.get(model_id)
             if eng is not None:
+                self._last_used[model_id] = time.monotonic()
                 return eng
-            found = [m for m in _cached_models(self.models_dir) if m[0] == model_id]
-            if not found:
+            cm = self.store.lookup(model_id)
+            if cm is None:
                 raise ModelNotFound(model_id)
-            paths = [str(f) for f in found[0][2]]
-            eng = await asyncio.to_thread(self._load, model_id, paths)
-            self._engines[model_id] = eng
+            paths = [str(f) for f in cm.files]
+            await self._admit_hbm(cm.model_id, paths)
+            try:
+                eng = await asyncio.to_thread(self._load, cm.model_id, paths)
+            except BaseException:
+                # a failed load must not leave phantom committed bytes that
+                # refuse every later load
+                self._hbm_committed.pop(cm.model_id, None)
+                raise
+            self._engines[cm.model_id] = eng
+            self._last_used[cm.model_id] = time.monotonic()
             return eng
+
+    # -- device-memory admission ---------------------------------------------
+
+    def budget_bytes(self) -> int | None:
+        """The admission budget (see the class docstring)."""
+        env = os.environ.get("TPU_HBM_BUDGET_BYTES", "").strip()
+        if env and int(env) > 0:
+            return int(env)
+        return self.card_budget_bytes
+
+    async def _admit_hbm(self, model_id: str, paths: list[str]) -> None:
+        """Refuse (or free room for) a load that would exceed the budget,
+        before it touches the device. Idle engines are evicted least
+        recently used first; an engine serving a request is never
+        evicted."""
+        budget = self.budget_bytes()
+        if budget is None:
+            return
+        need = await asyncio.to_thread(self._estimate_load_bytes, paths)
+        self._hbm_committed.pop(model_id, None)  # reloading: don't double count
+        while sum(self._hbm_committed.values()) + need > budget:
+            victim = self._pick_idle_victim()
+            if victim is None:
+                # an idle engine inside the eviction grace may become
+                # evictable within a second: wait the remainder out rather
+                # than bounce the load
+                wait = self._grace_remaining_s()
+                if wait is not None and wait <= 1.5:
+                    await asyncio.sleep(wait + 0.05)
+                    victim = self._pick_idle_victim()
+            if victim is None:
+                committed = sum(self._hbm_committed.values())
+                raise EngineError(
+                    f"insufficient device memory to load {model_id}: needs "
+                    f"~{need >> 20} MiB, {committed >> 20} MiB committed to "
+                    f"{sorted(self._hbm_committed)} of {budget >> 20} MiB "
+                    f"budget, and no loaded engine is idle to evict"
+                )
+            log.info("evicting idle engine %s to fit %s", victim, model_id)
+            self._hbm_committed.pop(victim, None)
+            eng = self._engines.pop(victim)
+            self._last_used.pop(victim, None)
+            await eng.unload()
+        self._hbm_committed[model_id] = need
+
+    @staticmethod
+    def _open(paths: list[str]):
+        """A reader over a model's GGUF file, or its split set."""
+        split = sorted(p for p in paths if is_split_shard(p))
+        return open_gguf(split[0] if split else paths[0])
+
+    def _serving_config(self, reader) -> ModelConfig:
+        return ModelConfig.from_gguf_metadata(reader.metadata).with_(
+            dtype=self.dtype, kv_quant=self.kv_quant)
+
+    def _estimate_load_bytes(self, paths: list[str]) -> int:
+        """Device bytes of serving this GGUF with this registry's settings."""
+        with self._open(paths) as reader:
+            cfg = self._serving_config(reader)
+        return estimate_load_bytes(cfg, self.max_batch_slots, self.max_seq_len)["total"]
+
+    def _pick_idle_victim(self) -> str | None:
+        # grace window: an engine targeted within the last evict_grace_s is
+        # never evicted even if its batcher looks idle. get_engine bumps
+        # _last_used before the caller submits, so this closes the gap
+        # where a request is on its way to a momentarily idle batcher
+        now = time.monotonic()
+        idle = [
+            mid for mid, eng in self._engines.items()
+            if eng.batcher.idle and now - self._last_used.get(mid, 0.0) > self.evict_grace_s
+        ]
+        if not idle:
+            return None
+        return min(idle, key=lambda mid: self._last_used.get(mid, 0.0))
+
+    def _grace_remaining_s(self) -> float | None:
+        """Shortest time until some idle engine leaves the eviction grace
+        (None when no idle engine is inside it)."""
+        now = time.monotonic()
+        waits = [
+            self.evict_grace_s - (now - self._last_used.get(mid, 0.0))
+            for mid, eng in self._engines.items()
+            if eng.batcher.idle
+        ]
+        waits = [w for w in waits if w > 0]
+        return min(waits) if waits else None
 
     def _load(self, model_id: str, paths: list[str]) -> TorchChatEngine:
         t0 = time.perf_counter()
-        split = sorted(p for p in paths if is_split_shard(p))
-        reader = open_gguf(split[0] if split else paths[0])
+        reader = self._open(paths)
         try:
-            cfg = ModelConfig.from_gguf_metadata(reader.metadata).with_(
-                dtype=self.dtype, kv_quant=self.kv_quant)
+            cfg = self._serving_config(reader)
             if cfg.is_moe:
                 raise EngineError(f"{model_id}: MoE models are not served by this worker")
             tokenizer = GGUFTokenizer.from_metadata(reader.metadata)
@@ -300,10 +438,11 @@ class TorchRegistry(Registry):
 
     def stats(self) -> dict[str, Any]:
         out: dict[str, Any] = {
-            "models_cached": len(_cached_models(self.models_dir)),
+            "models_cached": len(self.store.cached()),
             "models_loaded": len(self._engines),
             "engine_requests": self._requests,
             "backend": self.device.type,
+            "hbm_committed_bytes": sum(self._hbm_committed.values()),
         }
         if self._engines:
             out["batcher"] = {m: e.batcher.stats.snapshot() for m, e in self._engines.items()}
@@ -313,3 +452,5 @@ class TorchRegistry(Registry):
         for eng in list(self._engines.values()):
             await eng.unload()
         self._engines.clear()
+        self._hbm_committed.clear()
+        self._last_used.clear()

@@ -1,16 +1,16 @@
-"""NATS worker for the port: list_models, chat_model (unary and streamed)
-and health.
+"""NATS worker for the port: list_models, pull_model, delete_model,
+sync_model_from_bucket, chat_model (unary and streamed) and health.
 
 Slim port of ``nats_llm_studio_tpu/serve/worker.py``: the same subjects,
-queue group, ``{ok, error?, data?}`` envelopes and streaming contract
+queue group, ``{ok, error?, data?}`` envelopes, validation strings and
+``data`` fields, and streaming contract
 (OpenAI-style chunks on the reply inbox, then the aggregate completion with
 a ``Nats-Stream-Done`` header), so the JAX worker's clients talk to this one
 unchanged. A chat carrying a header for a feature this worker does not
 serve (QoS priority, disaggregated prefill) gets an error envelope naming
 the header.
 
-Not ported yet: pull/delete/sync, metrics and Prometheus, traces and
-spans, events, profiling, debug subjects, cluster adverts and drain,
+Not ported yet: metrics and Prometheus, traces and spans, events, profiling, debug subjects, cluster adverts and drain,
 supervision, KV export/import, deadline propagation.
 """
 
@@ -65,6 +65,9 @@ class Worker:
         )
         subs = {
             cfg.subject("list_models"): self.on_list_models,
+            cfg.subject("pull_model"): self.on_pull_model,
+            cfg.subject("delete_model"): self.on_delete_model,
+            cfg.subject("sync_model_from_bucket"): self.on_sync_model_from_bucket,
             cfg.subject("chat_model"): self.on_chat_model,
             cfg.subject("health"): self.on_health,
         }
@@ -120,6 +123,93 @@ class Worker:
             await self._respond_error(msg, f"error listing models: {e}")
             return
         await self._respond_ok(msg, {"models": models, "http_status": 200})
+
+    @staticmethod
+    def _request_object(payload: bytes) -> dict:
+        req = json.loads(payload or b"{}")
+        if not isinstance(req, dict):
+            raise ValueError("payload must be a JSON object")
+        return req
+
+    async def on_pull_model(self, msg: Msg) -> None:
+        """pull_model {identifier}; on failure ``data`` still carries
+        {model, output}."""
+        self._requests_total += 1
+        try:
+            req = self._request_object(msg.payload)
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in PullModel: {e}")
+            return
+        identifier = (req.get("identifier") or "").strip()
+        if not identifier:
+            await self._respond_error(msg, "'identifier' is required")
+            return
+        try:
+            async with asyncio.timeout(self.config.pull_timeout_s):
+                output = await self.registry.pull(identifier)
+        except asyncio.TimeoutError:
+            await self._respond_error(
+                msg, "error pulling model: deadline exceeded", {"model": identifier})
+            return
+        except EngineError as e:
+            await self._respond_error(
+                msg, f"error pulling model: {e}", {"model": identifier, "output": str(e)})
+            return
+        await self._respond_ok(msg, {"model": identifier, "output": output})
+
+    async def on_delete_model(self, msg: Msg) -> None:
+        """delete_model {model_id}: unloads, then removes the cache dir;
+        success returns ``deleted_dir``, an error the attempted ``dir``."""
+        self._requests_total += 1
+        try:
+            req = self._request_object(msg.payload)
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in DeleteModel: {e}")
+            return
+        model_id = (req.get("model_id") or "").strip()
+        if not model_id:
+            await self._respond_error(msg, "'model_id' is required")
+            return
+        try:
+            async with asyncio.timeout(self.config.delete_timeout_s):
+                deleted_dir = await self.registry.delete(model_id)
+        except asyncio.TimeoutError:
+            await self._respond_error(
+                msg, "error deleting model: deadline exceeded", {"model": model_id})
+            return
+        except EngineError as e:
+            data = {"model": model_id}
+            attempted = getattr(e, "dir", None)
+            if attempted:
+                data["dir"] = str(attempted)
+            await self._respond_error(msg, f"error deleting model: {e}", data)
+            return
+        await self._respond_ok(msg, {"model": model_id, "deleted_dir": deleted_dir})
+
+    async def on_sync_model_from_bucket(self, msg: Msg) -> None:
+        """sync_model_from_bucket {object_name, model_id?}: object store ->
+        local model cache, responds {object, local_path}."""
+        self._requests_total += 1
+        try:
+            req = self._request_object(msg.payload)
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in SyncModelFromBucket: {e}")
+            return
+        name = (req.get("object_name") or req.get("name") or "").strip()
+        if not name:
+            await self._respond_error(msg, "'object_name' is required")
+            return
+        try:
+            async with asyncio.timeout(self.config.pull_timeout_s):
+                local_path = await self.registry.sync_from_bucket(name, req.get("model_id"))
+        except asyncio.TimeoutError:
+            await self._respond_error(
+                msg, "error syncing model: deadline exceeded", {"object": name})
+            return
+        except EngineError as e:
+            await self._respond_error(msg, f"error syncing model: {e}", {"object": name})
+            return
+        await self._respond_ok(msg, {"object": name, "local_path": str(local_path)})
 
     async def on_chat_model(self, msg: Msg) -> None:
         """chat_model: the OpenAI-style body goes to the engine verbatim;

@@ -341,3 +341,33 @@ def test_kvq_wrappers_refuse_what_the_kernels_do_not_take(gen):
     qc40, slab40 = _rn(gen, 1, 8, 4, 40, dtype=torch.bfloat16), _kvq(gen, 1, 2, 32, 40)
     with pytest.raises(ValueError):
         fa.flash_attention_chunk_kvq(qc40, slab40.q, slab40.s, slab40.q, slab40.s, 0.1, 8)
+
+
+@pytest.mark.parametrize("b,v", [(16, 300), (8, 128256)])
+def test_pick_orders_tied_candidates_on_the_card(gen, b, v):
+    """_pick on the card keeps jax.lax.top_k's tie order (lower index first
+    among equals): on bf16-valued logits with ties at the top-k cut and at
+    the top-p crossing it draws what the CPU _pick draws on the same noise
+    (tests/test_torch_ops.py holds the CPU _pick to the JAX one). CUDA's
+    topk orders ties its own way, so this is the card's own check."""
+    from nats_llm_studio_tpu_torch.engine import sampling
+
+    temp = 0.8
+    logits = (torch.randn((b, v), generator=gen, device="cuda") * 8).round() / 4
+    order = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    rows = torch.arange(b, device="cuda")[:, None]
+    half = b // 2
+    logits[rows[:half], order[:half, 3:8]] = logits[rows[:half, 0], order[:half, 3]][:, None]
+    logits[rows[half:], order[half:, 1:7]] = logits[rows[half:, 0], order[half:, 1]][:, None]
+    top_k = torch.tensor([5] * half + [0] * (b - half), device="cuda")
+    z = torch.sort(logits, dim=-1, descending=True).values.double() / temp
+    cum = torch.softmax(z, dim=-1).cumsum(dim=-1)
+    top_p = torch.where(top_k > 0, 1.0, ((cum[:, 2] + cum[:, 3]) / 2).float())
+    temps = torch.full((b,), temp, device="cuda")
+    for _ in range(4):
+        gumbel = -torch.log(-torch.log(
+            torch.rand((b, v), generator=gen, device="cuda").clamp_min(1e-30)))
+        got = sampling._pick(logits, gumbel, temps, top_k, top_p)
+        want = sampling._pick(logits.cpu(), gumbel.cpu(), temps.cpu(), top_k.cpu(),
+                              top_p.cpu())
+        assert torch.equal(got.cpu(), want)

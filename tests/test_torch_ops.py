@@ -156,6 +156,43 @@ def test_pick_matches_with_injected_noise():
         gumbel = rng.gumbel(size=(b, v)).astype(np.float32)
 
 
+def _tied_logits(rng, b: int, v: int, temp: float):
+    """bf16-valued logits (a 0.25 grid, so equal values are common) with
+    forced ties: rows 0..b/2 tie ranks 3..7 (a top-k of 5 cuts inside the
+    tie), rows b/2.. tie ranks 1..6 and get the top_p that puts the
+    crossing inside the tie. Returns (logits, top_k, top_p)."""
+    logits = (np.round(rng.standard_normal((b, v)) * 8) / 4).astype(np.float32)
+    top_k = np.zeros(b, np.int32)
+    top_p = np.ones(b, np.float32)
+    for i in range(b):
+        order = np.argsort(-logits[i], kind="stable")
+        if i < b // 2:
+            logits[i, order[3:8]] = logits[i, order[3]]
+            top_k[i] = 5
+        else:
+            logits[i, order[1:7]] = logits[i, order[1]]
+            z = np.sort(logits[i])[::-1].astype(np.float64) / temp
+            cum = np.cumsum(np.exp(z - z.max())) / np.exp(z - z.max()).sum()
+            top_p[i] = (cum[2] + cum[3]) / 2
+    return logits, top_k, top_p
+
+
+def test_pick_orders_tied_candidates_as_jax_top_k():
+    """Ties at the top-k cut and at the top-p crossing: the candidates
+    come in jax.lax.top_k's order (lower index first among equals), so the
+    kept set and the drawn token equal the JAX _pick's on shared noise."""
+    rng = np.random.default_rng(12)
+    b, v, temp = 6, 100, 0.8  # the shapes of the test above: no new JAX compiles
+    logits, topk, topp = _tied_logits(rng, b, v, temp)
+    temps = np.full(b, temp, np.float32)
+    for _ in range(4):
+        gumbel = rng.gumbel(size=(b, v)).astype(np.float32)
+        want = jsampling._pick(jnp.asarray(logits), jnp.asarray(gumbel),
+                               jnp.asarray(temps), jnp.asarray(topk), jnp.asarray(topp))
+        got = tsampling._pick(_t(logits), _t(gumbel), _t(temps), _t(topk), _t(topp))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_sample_rows_is_per_row_deterministic():
     """A row's draw depends on its (seed, step) only, not on its batch."""
     rng = np.random.default_rng(7)

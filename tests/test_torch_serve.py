@@ -34,6 +34,7 @@ from nats_llm_studio_tpu_torch.models import llama as tllama
 from nats_llm_studio_tpu_torch.models.config import ModelConfig as TConfig
 from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
 from nats_llm_studio_tpu_torch.serve.worker import Worker
+from nats_llm_studio_tpu_torch.store import ModelStore
 from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, connect
 
 torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
@@ -102,7 +103,7 @@ async def test_chat_model_over_nats_matches_jax_greedy(tmp_path):
     models_dir = tmp_path / "models"
     path = _export(models_dir)
     broker = await EmbeddedBroker().start()
-    registry = TorchRegistry(models_dir, device="cpu")
+    registry = TorchRegistry(ModelStore(models_dir), device="cpu")
     worker = Worker(WorkerConfig(nats_url=broker.url), registry)
     await worker.start()
     nc = await connect(broker.url)
@@ -193,7 +194,7 @@ def test_registry_without_device_raises_when_no_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TorchRegistry(tmp_path)
+        TorchRegistry(ModelStore(tmp_path))
 
 
 @pytest.mark.parametrize("entry", ["make_cache", "load_params_from_gguf"])
