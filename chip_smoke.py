@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              norm), and time each beside its bound and a
              scaled_dot_product_attention yardstick; K2, K3 and K4 also at
              the main path's longest calls (a 4096-token fresh prefill, and
-             the last 256-token chunk of a 4096-token prompt).
+             the last 256-token chunk of a 4096-token prompt), at the
+             batched admits' shapes (@B4: four rows of 256 tokens, K3/K4 at
+             start 256) and, K3/K4, on a partial prefix hit (@fill: start 512
+             right after two cached chunks were copied in, exactly).
 3. model   — write a bf16 GGUF at Meta-Llama-3-8B's published widths (the
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
@@ -31,27 +34,42 @@ device="cuda", kv_quant=):
              512-token fresh prefill and for the same prompt in two chunks
              followed by one paged decode step (float32: relative L2 <= 2e-2;
              bf16: no more than 1.25 x the plain path's distance to float32).
+   Also the group gate: the prompt-end logits of each row of a 4-row
+             chunked group prefill against the same prompt prefilled
+             alone, by the same two limits.
 5. serve   — an embedded broker and the port's Worker answer list_models, a
              short greedy chat twice (identical text), a seeded sampled
              chat twice (identical text), a ~700-token chat into
              the idle batcher (prefill_full), a long chat beside a live stream
              (prefill1, so K3 or K4 runs between decode bursts) and a
-             streamed chat. Every envelope must be ok; bf16 KV must launch
-             K1, K2 and K3 and not K1q or K4, int8 KV K1q, K2 and K4 and not
-             K1 or K3.
+             streamed chat. Then the prefix cache (64 blocks, the registry's
+             default) and group admits (prefix_phase): a ~700-token chat
+             twice beside a live stream (the second a partial hit with the
+             miss's text), a 512-token id prompt twice (the second a full hit
+             with the same ids and no prefill program), a wave of four
+             ~700-token chats twice (one chunked group admit each, the same
+             texts, every pool block free after drop_prefix_cache between
+             them), eight short chats (batched short admits) and the
+             copy-on-write count. Every envelope must be ok; bf16 KV must
+             launch K1, K2 and K3 and not K1q or K4, int8 KV K1q, K2 and K4
+             and not K1 or K3.
 6. lifecycle — bf16 KV, an embedded broker with the object-store module and
              a worker whose ModelStore reaches the bucket: (a) a 2-layer GGUF
              at the same widths is published with ModelStore.publish_model
              and brought in by sync_model_from_bucket (sha256 must match the
              published digest); (b) with the budget read from the card, the
              32-layer model loads (the rise in memory_allocated must match
-             the estimate's params + pool within 1%) and a ~4000-token chat
-             into the idle batcher must peak within the estimate
-             (parallel/memory.py estimate_load_bytes); (c) under
-             TPU_HBM_BUDGET_BYTES=22e9 a chat to the 2-layer model is
-             refused with "insufficient device memory" while a stream holds
-             the 32-layer engine (the stream finishes intact), and evicts it
-             once idle (>= 98% of its params + pool returned); (d)
+             the estimate's params + pool, the prefix blocks included,
+             within 1%), and a ~4000-token chat into the idle batcher, then
+             four concurrent ~4000-token chats (one chunked group admit),
+             must peak within the estimate (parallel/memory.py
+             estimate_load_bytes); (c) under a budget of the 32-layer
+             estimate plus half the 2-layer one a chat to the 2-layer model
+             is refused with "insufficient device memory" while a stream
+             holds the 32-layer engine (the stream finishes intact; the
+             shrink tier drops the 32-layer engine's prefix cache first),
+             and evicts it once idle (its pool all free at the eviction,
+             >= 98% of its params + pool returned); (d)
              delete_model of the loaded 2-layer model returns >= 98% of its
              bytes, after which a chat to it is "model not found" and
              list_models omits it; the 32-layer model leaves by delete_model.
@@ -82,7 +100,6 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 STAGED = "llama3-8b-random.gguf"
 MID = "downloads/llama3-8b-random"
 MID2 = "smoke/llama3-8b-2layer"  # the lifecycle phase's bucket model
-BUDGET_OVERRIDE = 22_000_000_000  # above the 32-layer estimate, below both models'
 FREED_SHARE = 0.98  # of an engine's params + pool, returned on evict and delete
 BF16_DRIFT = 1.25  # bf16 kernel path's distance to f32, over the plain path's
 
@@ -238,6 +255,90 @@ def k4_long_inputs(torch, g, c: dict) -> dict:
     return k4_inputs(torch, g, c, start=3840, kw=4096)
 
 
+def k2_group_inputs(torch, g, c: dict) -> dict:
+    """K2 at a batched short admit's shape: four fresh 256-token prompts."""
+    hq, hkv, d = c["n_heads"], c["n_kv_heads"], c["head_dim"]
+    q = torch.randn((4, 256, hq, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((4, 256, hkv, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((4, 256, hkv, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    return dict(args=(q, k, v, d ** -0.5), shape=f"q[4,256,{hq},{d}] k/v[4,256,{hkv},{d}] bf16")
+
+
+def k3_group_inputs(torch, g, c: dict, quant: bool = False) -> dict:
+    """K3 (K4 with ``quant``) at a batched chunked admit's second chunk:
+    q[4, 256] at start 256 over the window [:512] of a 4-row, 4096-token
+    row cache (the group's [mpad, L, Hkv, max_seq, D] transient)."""
+    from nats_llm_studio_tpu_torch.ops.kvcache import quantize_rows
+
+    hq, hkv, d, L = c["n_heads"], c["n_kv_heads"], c["head_dim"], c["n_layers"]
+    B, C, S, kw, start, layer = 4, 256, 4096, 512, 256, 7
+    q = torch.randn((B, C, hq, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    kc, vc = (torch.randn((B, L, hkv, S, d), generator=g, device="cuda", dtype=torch.bfloat16)
+              for _ in range(2))
+    shape = f"q[{B},{C},{hq},{d}] slab[{B},{hkv},{kw},{d}] of cache[{B},{L},{hkv},{S},{d}]"
+    if not quant:
+        return dict(args=(q, kc[:, layer, :, :kw], vc[:, layer, :, :kw], d ** -0.5, start),
+                    shape=f"{shape} start={start}")
+    kc, vc = quantize_rows(kc), quantize_rows(vc)
+    return dict(args=(q, kc.q[:, layer, :, :kw], kc.s[:, layer, :, :kw], vc.q[:, layer, :, :kw],
+                      vc.s[:, layer, :, :kw], d ** -0.5, start),
+                shape=f"{shape} int8 + f32 scales start={start}")
+
+
+def k4_group_inputs(torch, g, c: dict) -> dict:
+    return k3_group_inputs(torch, g, c, quant=True)
+
+
+def k3_fill_inputs(torch, g, c: dict, quant: bool = False) -> dict:
+    """K3 (K4 with ``quant``) on a partial prefix hit: two cached 256-token
+    chunks (16-token pool blocks in a shuffled pool) copied into a fresh
+    4096-token row cache by the batcher's ``fill_row_chunk`` ops
+    (``kv_pool_read_blocks`` + ``kv_copy_slice``), then the suffix chunk
+    at start 512 over the window [:1024]. The fill must be exact."""
+    from nats_llm_studio_tpu_torch.ops.kvcache import (
+        is_quantized,
+        kv_copy_slice,
+        kv_pool_read_blocks,
+        kv_pool_zeros,
+        quantize_rows,
+    )
+
+    hq, hkv, d, L = c["n_heads"], c["n_kv_heads"], c["head_dim"], c["n_layers"]
+    C, S, T, kw, start, layer = 256, 4096, 16, 1024, 512, 7
+    nb = 1 + 2 * C // T
+    pools = [torch.randn((nb, L, hkv, T, d), generator=g, device="cuda", dtype=torch.bfloat16)
+             for _ in range(2)]
+    if quant:
+        pools = [quantize_rows(p) for p in pools]
+    perm = (torch.randperm(nb - 1, generator=g, device="cuda") + 1).int().cpu()
+    rows = [kv_pool_zeros((1, L, hkv, S, d), torch.bfloat16, "cuda", quant=quant)
+            for _ in range(2)]
+    for j in range(2):
+        bids = perm[j * C // T:(j + 1) * C // T]
+        for row, pool in zip(rows, pools):
+            kv_copy_slice(row, kv_pool_read_blocks(pool, bids), (0, 0, 0, j * C, 0))
+    # exact: the row's [0, 512) is the gathered blocks, bit for bit
+    for row, pool in zip(rows, pools):
+        for r, p in ((row.q, pool.q), (row.s, pool.s)) if is_quantized(row) else ((row, pool),):
+            want = p[perm.long()].movedim(0, 2).flatten(2, 3)[None]
+            if not torch.equal(r[:, :, :, :2 * C], want):
+                raise AssertionError("fill_row_chunk: the row does not hold the cached blocks")
+    q = torch.randn((1, C, hq, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    shape = (f"q[1,{C},{hq},{d}] slab[1,{hkv},{kw},{d}] of cache[1,{L},{hkv},{S},{d}] "
+             f"start={start} after two cached chunks")
+    kr, vr = rows
+    if not quant:
+        return dict(args=(q, kr[:, layer, :, :kw], vr[:, layer, :, :kw], d ** -0.5, start),
+                    shape=shape)
+    return dict(args=(q, kr.q[:, layer, :, :kw], kr.s[:, layer, :, :kw], vr.q[:, layer, :, :kw],
+                      vr.s[:, layer, :, :kw], d ** -0.5, start),
+                shape=shape.replace("] start", "] int8 + f32 scales start"))
+
+
+def k4_fill_inputs(torch, g, c: dict) -> dict:
+    return k3_fill_inputs(torch, g, c, quant=True)
+
+
 def dense_pool_kv(torch, pool, tbl, layer: int, dtype):
     """The [B, Hkv, NB*T, D] K or V of each slot gathered through its
     table, dequantized to ``dtype`` from a KVQ pool (not timed)."""
@@ -284,6 +385,16 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
                                       fa.flash_attention_chunk_kvq_plain),
         "flash_attention_chunk_kvq@KW4096": (k4_long_inputs, fa.flash_attention_chunk_kvq,
                                              fa.flash_attention_chunk_kvq_plain),
+        # the prefix cache's and the group admits' shapes
+        "flash_attention@B4": (k2_group_inputs, fa.flash_attention, fa.flash_attention_plain),
+        "flash_attention_chunk@B4": (k3_group_inputs, fa.flash_attention_chunk,
+                                     fa.flash_attention_chunk_plain),
+        "flash_attention_chunk_kvq@B4": (k4_group_inputs, fa.flash_attention_chunk_kvq,
+                                         fa.flash_attention_chunk_kvq_plain),
+        "flash_attention_chunk@fill": (k3_fill_inputs, fa.flash_attention_chunk,
+                                       fa.flash_attention_chunk_plain),
+        "flash_attention_chunk_kvq@fill": (k4_fill_inputs, fa.flash_attention_chunk_kvq,
+                                           fa.flash_attention_chunk_kvq_plain),
     }
     results: dict[str, dict] = {}
     for name, (make, kern, plain) in cases.items():
@@ -322,25 +433,27 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
                                                        scale=scale))
 
     # K2: q, k, v read once, out written once; the causal pairs' flops
-    for name in ("flash_attention", "flash_attention@T4096"):
+    for name in ("flash_attention", "flash_attention@T4096", "flash_attention@B4"):
         r = results[name]
         q, k, v, scale = r["args"]
-        t = q.shape[1]
+        B, t = q.shape[:2]
         r["bound"] = bound((2 * q.numel() + 2 * k.numel()) * 2,
-                           4 * (t * (t + 1) // 2) * hq * d)
+                           4 * B * (t * (t + 1) // 2) * hq * d)
         qs2, ks2, vs2 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         ks2, vs2 = ks2.repeat_interleave(group, dim=1), vs2.repeat_interleave(group, dim=1)
         r["library"] = (lambda qs2=qs2, ks2=ks2, vs2=vs2, scale=scale:
                         F.scaled_dot_product_attention(qs2, ks2, vs2, is_causal=True,
                                                        scale=scale))
 
-    # K3: the live keys [0, start + C) of the slab, read once
-    for name in ("flash_attention_chunk", "flash_attention_chunk@KW4096"):
+    # K3: the live keys [0, start + C) of each row's slab, read once
+    for name in ("flash_attention_chunk", "flash_attention_chunk@KW4096",
+                 "flash_attention_chunk@B4", "flash_attention_chunk@fill"):
         r = results[name]
         q, ksl, vsl, scale, start = r["args"]
-        C, kw = q.shape[1], ksl.shape[2]
-        pairs = sum(start + i + 1 for i in range(C))
-        r["bound"] = bound((2 * q.numel() + 2 * (start + C) * hkv * d) * 2, 4 * pairs * hq * d)
+        B, C, kw = q.shape[0], q.shape[1], ksl.shape[2]
+        pairs = B * sum(start + i + 1 for i in range(C))
+        r["bound"] = bound((2 * q.numel() + 2 * B * (start + C) * hkv * d) * 2,
+                           4 * pairs * hq * d)
         qs3 = q.transpose(1, 2)
         kd3, vd3 = ksl.repeat_interleave(group, dim=1), vsl.repeat_interleave(group, dim=1)
         cmask = (torch.arange(kw, device=dev)[None, :]
@@ -351,12 +464,13 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
 
     # K4: K3's operations; its bytes are D int8 codes and a f32 scale per
     # key row. SDPA over the slabs already dequantized to bf16 (not timed)
-    for name in ("flash_attention_chunk_kvq", "flash_attention_chunk_kvq@KW4096"):
+    for name in ("flash_attention_chunk_kvq", "flash_attention_chunk_kvq@KW4096",
+                 "flash_attention_chunk_kvq@B4", "flash_attention_chunk_kvq@fill"):
         r = results[name]
         q, kq, ks, vq, vs, scale, start = r["args"]
-        C, kw = q.shape[1], kq.shape[2]
-        pairs = sum(start + i + 1 for i in range(C))
-        r["bound"] = bound(2 * q.numel() * 2 + 2 * (start + C) * hkv * (d + 4),
+        B, C, kw = q.shape[0], q.shape[1], kq.shape[2]
+        pairs = B * sum(start + i + 1 for i in range(C))
+        r["bound"] = bound(2 * q.numel() * 2 + 2 * B * (start + C) * hkv * (d + 4),
                            4 * pairs * hq * d)
         kd4 = dequantize(KVQ(kq, ks), q.dtype).repeat_interleave(group, dim=1)
         vd4 = dequantize(KVQ(vq, vs), q.dtype).repeat_interleave(group, dim=1)
@@ -541,11 +655,73 @@ def model_phase(torch, registry, seed: int) -> dict:
             raise AssertionError(f"{name}: bf16 kernel path {dk} from f32, > {BF16_DRIFT} x "
                                  f"the plain path's {dp}")
         out[name] = bf_k.cpu()
+    out["group"] = group_gate(torch, p32, c32, params, cfg, g)
     del p32
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return out
+
+
+def group_gate(torch, p32, c32, params, cfg, g, ns=(700, 513, 650, 300), C: int = 256) -> dict:
+    """The prompt-end logits of each row of a 4-row chunked group admit
+    (``prefill_chunk_group``'s forward: [4, C] chunks at one start, K2 then
+    K3, or K4 over the int8 cache) against the same prompt admitted alone
+    in [1, C] chunks (``prefill1``'s), by the model gate: in float32 on the
+    plain path relative L2 <= 2e-2; in bf16 the kernel path's group no
+    further from the float32 plain path's single admit than BF16_DRIFT x
+    the bf16 plain path's single admit is. The GEMMs of B=4 and B=1 may
+    round differently, so tokens are not compared."""
+    from nats_llm_studio_tpu_torch.models.llama import KERNELS, PLAIN, forward, make_cache
+
+    dev = params["embed"].device
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g, dtype=torch.int32).to(dev)
+               for n in ns]
+    S = 1 << (max(ns) - 1).bit_length()  # the row caches' length: the last window
+
+    def run(p, c, attn, rows):
+        km, vm = make_cache(c, len(rows), S, device=dev)
+        out = [None] * len(rows)
+        for start in range(0, max(ns[i] for i in rows), C):
+            toks = torch.zeros((len(rows), C), dtype=torch.int32, device=dev)
+            for r, i in enumerate(rows):
+                seg = prompts[i][start:start + C]
+                toks[r, :len(seg)] = seg
+            last = torch.tensor([min(max(ns[i] - 1 - start, 0), C - 1) for i in rows])
+            logits, km, vm = forward(p, c, toks, km, vm,
+                                     torch.full((len(rows),), start, dtype=torch.int32),
+                                     attn_window=min(1 << (start + C - 1).bit_length(), S),
+                                     logit_positions=last, uniform_start=True, attn=attn)
+            for r, i in enumerate(rows):
+                if (ns[i] - 1) // C == start // C:
+                    out[r] = logits[r, 0].float()
+        return out
+
+    def rel(a, b) -> float:
+        return float((a - b).norm() / b.norm())
+
+    alone32 = [run(p32, c32, PLAIN, [i])[0] for i in range(len(ns))]
+    group32 = run(p32, c32, PLAIN, list(range(len(ns))))
+    alone_bf = [run(params, cfg, PLAIN, [i])[0] for i in range(len(ns))]
+    group_bf = run(params, cfg, KERNELS, list(range(len(ns))))
+    rows = []
+    for i in range(len(ns)):
+        if not torch.isfinite(group_bf[i]).all():
+            raise AssertionError(f"group row {i}: kernel-path logits are not finite")
+        r32, dk, dp = (rel(group32[i], alone32[i]), rel(group_bf[i], alone32[i]),
+                       rel(alone_bf[i], alone32[i]))
+        rows.append(dict(prompt=ns[i], f32=r32, bf16_group_kernels=dk, bf16_alone_plain=dp))
+        log(f"group (kv {cfg.kv_quant}): row {i} of a 4-row chunked group ({ns[i]} tokens) vs "
+            f"the prompt alone: float32 relative L2 {r32:.3e} (limit 2e-2); distance to the "
+            f"f32 alone: bf16 group kernel path {dk:.3e}, bf16 alone plain path {dp:.3e} "
+            f"(limit {BF16_DRIFT} x, ratio {dk / dp if dp else float('nan'):.4f})")
+        if not r32 <= 2e-2:
+            raise AssertionError(f"group row {i}: relative L2 {r32} > 2e-2")
+        # (a float32 rehearsal on the CPU has no bf16 path to hold)
+        if cfg.dtype != "float32" and not dk <= BF16_DRIFT * dp:
+            raise AssertionError(f"group row {i}: bf16 group {dk} from f32, > {BF16_DRIFT} x "
+                                 f"the plain path's {dp}")
+    return {"rows": rows}
 
 
 def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
@@ -639,7 +815,7 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
 # -- phase 4: serve ----------------------------------------------------------
 
 
-async def serve_phase(registry) -> dict:
+async def serve_phase(registry, seed: int) -> dict:
     from nats_llm_studio_tpu_torch.config import WorkerConfig
     from nats_llm_studio_tpu_torch.serve.worker import Worker
     from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, connect
@@ -650,8 +826,12 @@ async def serve_phase(registry) -> dict:
     nc = await connect(broker.url)
     out: dict = {}
 
-    async def chat(content: str, max_tokens: int, timeout: float = 300.0, **sampling) -> dict:
-        body = {"model": MID, "messages": [{"role": "user", "content": content}],
+    async def chat(content: str, max_tokens: int, timeout: float = 300.0,
+                   system: str | None = None, **sampling) -> dict:
+        messages = [{"role": "user", "content": content}]
+        if system is not None:
+            messages.insert(0, {"role": "system", "content": system})
+        body = {"model": MID, "messages": messages,
                 "temperature": 0, "max_tokens": max_tokens, **sampling}
         t0 = time.perf_counter()
         msg = await nc.request("lmstudio.chat_model", json.dumps(body).encode(), timeout=timeout)
@@ -732,12 +912,135 @@ async def serve_phase(registry) -> dict:
                              decode_tok_s=(n_out - 1) / (wall - ttft) if n_out > 1 else 0.0)
         log(f"serve: streamed chat: {n_out} tokens, client TTFT {ttft * 1e3:.1f} ms, "
             f"decode {out['stream']['decode_tok_s']:.2f} tok/s")
+        out["prefix"] = await prefix_phase(registry, chat, stream, seed)
         eng = registry.loaded_engines()[MID]
         log(f"serve: batcher {json.dumps(eng.batcher.stats.snapshot())}")
     finally:
         await nc.close()
         await worker.drain()
         await broker.stop()
+    return out
+
+
+async def prefix_phase(registry, chat, stream, seed: int) -> dict:
+    """The prefix cache and the group admits through the engine already
+    loaded (the registry's default 64-block cache):
+
+    1. a ~700-token chat (a system prompt longer than two serving chunks)
+       sent twice, each beside a live stream: the first misses and is
+       prefilled in chunks, the second takes a partial hit (two cached
+       chunks copied into its row by fill_row_chunk, then K3 or K4 over the
+       suffix chunk at start 512). Both run the suffix chunk on the same
+       inputs, so their greedy texts must be equal; TTFTs are printed;
+    2. a chunk-aligned 512-token id prompt submitted twice to the batcher:
+       the second is a full hit (token 0 from the stored chunk-end logits),
+       with identical greedy ids and no prefill program;
+    3. a wave of four ~700-token chats into the idle batcher, none sharing a
+       chunk with a cached prompt: one batched chunked admit. Then
+       drop_prefix_cache must leave every pool block free, and the same
+       wave again must give the same texts;
+    4. eight concurrent short chats of one bucket: batched short admits;
+    5. copy-on-write copies (0 expected: sharing is chunk-aligned)."""
+    import torch
+
+    from nats_llm_studio_tpu_torch.engine.generator import SamplingParams
+
+    b = registry.loaded_engines()[MID].batcher
+    pc = b.prefix_cache
+    if pc is None:
+        raise AssertionError("the serving registry built no prefix cache")
+    C, kv = b.prefill_chunk, b.cfg.kv_quant
+    out: dict = {}
+
+    # 1. partial hit, miss and hit each beside a live stream
+    system = ("You keep the harbour master's log: arrivals, departures, cargo and the "
+              "state of the tide. " * 8)[:620]
+    texts, ttfts, prompt_tokens = [], [], 0
+    for i in range(2):
+        first = asyncio.Event()
+        live = asyncio.ensure_future(stream(f"Count slowly from one to {40 + i}.", 96, first))
+        await asyncio.wait_for(first.wait(), 300)
+        before = pc.counters()
+        r = await chat("Which ships are due in on the morning tide?", 24, system=system)
+        await live
+        texts.append(r["choices"][0]["message"]["content"])
+        ttfts.append(r["stats"]["time_to_first_token"])
+        prompt_tokens = r["usage"]["prompt_tokens"]
+    after = pc.counters()
+    hits, hit_tokens = after["hits"] - before["hits"], after["hit_tokens"] - before["hit_tokens"]
+    out["partial"] = dict(prompt_tokens=prompt_tokens, hits=hits, hit_tokens=hit_tokens,
+                          ttft_miss_s=ttfts[0], ttft_hit_s=ttfts[1], same_text=texts[0] == texts[1])
+    log(f"prefix (kv {kv}): a {prompt_tokens}-token chat twice beside a live stream: the "
+        f"second hit {hits} time(s) for {hit_tokens} tokens; TTFT miss {ttfts[0] * 1e3:.1f} ms, "
+        f"hit {ttfts[1] * 1e3:.1f} ms; greedy texts equal: {texts[0] == texts[1]}")
+    if prompt_tokens <= 2 * C or hits < 1 or hit_tokens < 2 * C:
+        raise AssertionError(f"partial hit: {out['partial']}")
+    if texts[0] != texts[1]:
+        raise AssertionError(f"the hit's text differs from the miss's: {texts}")
+
+    # 2. full hit of a chunk-aligned id prompt
+    g = torch.Generator().manual_seed(seed + 3)
+    ids = torch.randint(0, b.cfg.vocab_size - 1, (2 * C,), generator=g).tolist()
+    sp = SamplingParams(temperature=0.0, max_tokens=16)
+    runs = []
+    for _ in range(2):
+        calls0, full0 = dict(b.stats.program_calls), pc.counters()["full_hits"]
+        toks = [t async for t in b.submit(ids, sp)]
+        calls = {k: v - calls0.get(k, 0) for k, v in b.stats.program_calls.items()
+                 if v != calls0.get(k, 0)}
+        runs.append((toks, calls, pc.counters()["full_hits"] - full0))
+    prefill = {"admit_fused_paged", "admit_many_fused_paged", "prefill_full", "prefill1",
+               "prefill_chunk_group", "fill_row_chunk"}
+    out["full"] = dict(full_hits=runs[1][2], same_ids=runs[0][0] == runs[1][0],
+                       programs_of_the_hit=runs[1][1])
+    log(f"prefix (kv {kv}): a {2 * C}-token id prompt twice: full hits {runs[1][2]}, ids equal "
+        f"{runs[0][0] == runs[1][0]}; programs of the miss {runs[0][1]}, of the hit "
+        f"{runs[1][1]}")
+    if runs[1][2] < 1 or runs[0][0] != runs[1][0] or prefill & set(runs[1][1]) \
+            or "sample_first" not in runs[1][1]:
+        raise AssertionError(f"full hit: {out['full']}")
+
+    # 3. a wave of four long chats, twice, the cache dropped between
+    body = ("The tide tables for the northern pier list every berth, its depth at low "
+            "water and the ships that may use it. " * 8)[:690]
+    wave = [f"Chat {i}: {body}" for i in range(4)]
+    waves = []
+    for w in range(2):
+        g0 = b.stats.chunked_group_admits
+        rs = await asyncio.gather(*[chat(t, 16) for t in wave])
+        waves.append(([r["choices"][0]["message"]["content"] for r in rs],
+                      b.stats.chunked_group_admits - g0))
+        if w == 0:
+            dropped = b.drop_prefix_cache()
+            st = b.pool_stats()
+            log(f"prefix (kv {kv}): drop_prefix_cache evicted {dropped} blocks; pool "
+                f"{st['blocks_free']} of {st['blocks_total']} blocks free")
+            if st["blocks_free"] != st["blocks_total"]:
+                raise AssertionError(f"blocks still held after drop_prefix_cache: {st}")
+    out["group"] = dict(prompt_tokens=rs[0]["usage"]["prompt_tokens"],
+                        chunked_group_admits=[n for _, n in waves],
+                        same_texts=waves[0][0] == waves[1][0])
+    log(f"prefix (kv {kv}): two waves of four {out['group']['prompt_tokens']}-token chats: "
+        f"chunked group admits {out['group']['chunked_group_admits']}, texts equal "
+        f"{out['group']['same_texts']}")
+    if sum(n for _, n in waves) < 4 or waves[0][0] != waves[1][0]:
+        raise AssertionError(f"group admit: {out['group']}")
+
+    # 4. eight short chats of one bucket
+    g0 = b.stats.grouped_admits
+    rs = await asyncio.gather(*[chat(f"Short question {i}: how deep is the harbour?", 8)
+                                for i in range(8)])
+    out["short_group"] = dict(grouped_admits=b.stats.grouped_admits - g0,
+                              prompt_tokens=sorted({r["usage"]["prompt_tokens"] for r in rs}))
+    log(f"prefix (kv {kv}): eight short chats: grouped admits {out['short_group']}")
+    if out["short_group"]["grouped_admits"] < 2:
+        raise AssertionError(f"short group admit: {out['short_group']}")
+
+    # 5. copy-on-write
+    out["cow_copies"] = b.pool_stats()["cow_copies"]
+    out["prefix_cache"] = pc.stats()
+    log(f"prefix (kv {kv}): cow_copies {out['cow_copies']} (0 expected); prefix cache "
+        f"{json.dumps(out['prefix_cache'])}")
     return out
 
 
@@ -773,7 +1076,7 @@ def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters) -> d
     del eng
     for f in counters:
         f.launches = 0
-    served = asyncio.run(serve_phase(registry))
+    served = asyncio.run(serve_phase(registry, seed))
     launches = {f.__name__: f.launches for f in counters}
     log(f"serve (kv {kv_quant}): kernel launches {launches}")
     must, must_not = EXPECTED[kv_quant]
@@ -889,15 +1192,18 @@ def sha256_b64(path: Path) -> str:
 
 
 async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
-                          device: str = "cuda", widths: dict = LLAMA3_8B,
-                          budget_override: int = BUDGET_OVERRIDE) -> dict:
+                          device: str = "cuda", widths: dict = LLAMA3_8B) -> dict:
     """(a) bucket publish and sync, (b) the card's budget, load and peak
-    against the estimate, (c) refusal while busy and eviction when idle
-    under a budget override, (d) delete of a loaded model; the 32-layer
-    model leaves by delete_model. The memory gates need the card: on the
-    CPU (a rehearsal at tiny widths) they are skipped."""
+    against the estimate over a long prefill and a 4-wide group-chunked
+    admit, (c) refusal while busy (after the shrink tier dropped the busy
+    engine's prefix cache) and eviction when idle under a budget override
+    derived from the two models' estimates (the larger one and half the
+    smaller), (d) delete of a loaded model; the 32-layer model leaves by
+    delete_model. The memory gates need the card: on the CPU (a rehearsal
+    at tiny widths) they are skipped."""
     from nats_llm_studio_tpu_torch.models.config import ModelConfig
     from nats_llm_studio_tpu_torch.parallel.memory import estimate_load_bytes
+    from nats_llm_studio_tpu_torch.serve.registry import _prefix_cache_blocks_env
     from nats_llm_studio_tpu_torch.store import ModelStore
     from nats_llm_studio_tpu_torch.transport.jetstream import ObjectStore
 
@@ -915,7 +1221,7 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
                           n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
                           head_dim=c["head_dim"], d_ff=c["d_ff"], max_seq_len=c["context"],
                           dtype="bfloat16" if cuda else "float32")
-        return estimate_load_bytes(cfg, 8, 4096)
+        return estimate_load_bytes(cfg, 8, 4096, prefix_cache_blocks=_prefix_cache_blocks_env())
 
     def gate(cond: bool, msg: str) -> None:
         if cuda and not cond:
@@ -924,6 +1230,7 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
     out: dict = {}
     os.environ.pop("TPU_HBM_BUDGET_BYTES", None)
     big, small = estimate(widths["n_layers"]), estimate(2)
+    budget_override = big["total"] + small["total"] // 2  # fits either model, not both
     async with Lifecycle(model_root, device, store_dir=work / "store") as h:
         # (a) publish a 2-layer model to the bucket, sync it into the cache
         pub_dir = work / "publisher"
@@ -974,6 +1281,25 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
             f"total {big['total']}, workspace term {big['workspace']})")
         gate(out["peak_bytes"] <= big["total"],
              f"peak {out['peak_bytes']} above the estimate {big['total']}")
+        # a 4-wide group-chunked admit of ~4000-token prompts: the [4, L,
+        # Hkv, max_seq, D] transient pair, [4, C] chunks, the kept logits
+        batcher = h.registry.loaded_engines()[MID].batcher
+        g0 = batcher.stats.chunked_group_admits
+        wave = [f"Ledger {i}: " + long_text[:3960] for i in range(4)]
+        rs = await asyncio.gather(*[h.chat(MID, t, 4) for t in wave])
+        for r in rs:
+            ok(r, "group chat")
+        out["group_admits"] = batcher.stats.chunked_group_admits - g0
+        out["group_prompt_tokens"] = [r["data"]["response"]["usage"]["prompt_tokens"] for r in rs]
+        out["group_peak_bytes"] = (torch.cuda.max_memory_allocated() - base) if cuda else 0
+        log(f"lifecycle: four concurrent chats of {out['group_prompt_tokens']} tokens, "
+            f"{out['group_admits']} admitted by one chunked group; peak over the load and "
+            f"every chat {out['group_peak_bytes']} bytes (estimate total {big['total']})")
+        if out["group_admits"] < 4:
+            raise AssertionError(f"the four long chats were not admitted as one group: "
+                                 f"{out['group_admits']}")
+        gate(out["group_peak_bytes"] <= big["total"],
+             f"group peak {out['group_peak_bytes']} above the estimate {big['total']}")
 
         # (c) refused while busy, evicted when idle, under a budget override
         os.environ["TPU_HBM_BUDGET_BYTES"] = str(budget_override)
@@ -994,15 +1320,26 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
         unload, freed = eng.unload, {}
 
         async def measured_unload():
+            # the refused load's shrink tier dropped this engine's prefix
+            # cache before any eviction: its blocks are back in the pool
+            freed["pool"] = eng.batcher.pool_stats()
+            freed["prefix_blocks"] = eng.batcher.prefix_cache.blocks
             before = allocated()
             await unload()
             freed["evict"] = before - allocated()
 
         eng.unload = measured_unload
-        del eng
         ok(await h.chat(MID2, "hello", 4), f"chat to {MID2} once {MID} idles")
+        del eng
         if set(h.registry.loaded_engines()) != {MID2}:
             raise AssertionError(f"after the eviction: {set(h.registry.loaded_engines())}")
+        pool = freed["pool"]
+        out["evicted_pool"] = pool
+        log(f"lifecycle: at its eviction {MID}'s prefix cache held {freed['prefix_blocks']} "
+            f"blocks and its pool {pool['blocks_free']} of {pool['blocks_total']} free")
+        if freed["prefix_blocks"] or pool["blocks_free"] != pool["blocks_total"]:
+            raise AssertionError("the shrink tier did not return the prefix blocks before "
+                                 "the eviction")
         out["evict_freed_bytes"] = freed.get("evict", 0)
         log(f"lifecycle: the same chat evicted idle {MID} and was served; freed "
             f"{out['evict_freed_bytes']} bytes of params + pool "
@@ -1145,6 +1482,8 @@ def main() -> int:
                       "stream": p["served"]["stream"]},
             "pool_bytes": p["pool"]["bytes"],
             "decode_profile": {k: v for k, v in p["prof"].items() if k != "top"},
+            "prefix": p["served"]["prefix"],
+            "group_gate": p["gate"]["group"],
         }
     summary["lifecycle"] = lifecycle
     log(json.dumps(summary))

@@ -1,0 +1,124 @@
+"""Bounded log-bucket histograms: O(1) record, O(buckets) snapshot.
+
+Copy of ``nats_llm_studio_tpu/obs/histogram.py`` trimmed to what
+``serve/prefix_cache.py`` uses: ``LogHistogram.record`` / ``snapshot`` and
+``HistSnapshot.percentile`` (no snapshot deltas, ``to_dict`` or
+cross-worker merge helpers).
+
+A fixed geometric bucket ladder covers [lo, hi] with a bounded relative
+error per bucket (``growth`` - 1 worst case), so a long-lived worker's
+percentiles cost a fixed few hundred ints of memory no matter how many
+values it has recorded.
+
+Recording happens on the batcher owner thread while health/metrics
+handlers snapshot from the asyncio thread, so both paths take the
+histogram's lock (a handful of ns against a ~ms device dispatch).
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+from dataclasses import dataclass
+
+
+def _bounds(lo: float, hi: float, growth: float) -> tuple[float, ...]:
+    if not (lo > 0 and hi > lo and growth > 1.0):
+        raise ValueError(f"need 0 < lo < hi and growth > 1, got {lo}, {hi}, {growth}")
+    out = [lo]
+    b = lo
+    while b < hi:
+        b *= growth
+        out.append(min(b, hi))
+    return tuple(out)
+
+
+# bucket ladders are shared across histogram instances (every batcher
+# stat block holds five of these)
+_BOUNDS_CACHE: dict[tuple[float, float, float], tuple[float, ...]] = {}
+
+
+@dataclass(frozen=True)
+class HistSnapshot:
+    """Immutable point-in-time view; subtractable for phase deltas."""
+
+    bounds: tuple[float, ...]  # upper edges; counts[i] holds v <= bounds[i]
+    counts: tuple[int, ...]  # len(bounds) + 1: the last bucket is > bounds[-1]
+    count: int
+    total: float
+    vmin: float | None  # None on empty snapshots and on deltas
+    vmax: float | None
+
+    def percentile(self, q: float) -> float:
+        """Estimate the q-quantile (0 <= q <= 1) by linear interpolation
+        inside the containing bucket — same rank rule as sorting all
+        recorded values ascending and indexing ``int(count * q)``."""
+        if self.count <= 0:
+            return 0.0
+        rank = min(self.count - 1, int(self.count * q))
+        cum = 0
+        for i, c in enumerate(self.counts):
+            if c == 0:
+                continue
+            if cum + c > rank:
+                lo_edge = 0.0 if i == 0 else self.bounds[i - 1]
+                hi_edge = self.bounds[i] if i < len(self.bounds) else (
+                    self.vmax if self.vmax is not None else self.bounds[-1]
+                )
+                frac = (rank - cum + 1) / c
+                est = lo_edge + (hi_edge - lo_edge) * frac
+                # recorded extrema (when known) tighten the bucket edges
+                if self.vmax is not None:
+                    est = min(est, self.vmax)
+                if self.vmin is not None:
+                    est = max(est, self.vmin)
+                return est
+            cum += c
+        return self.vmax if self.vmax is not None else self.bounds[-1]
+
+
+class LogHistogram:
+    """Fixed-size thread-safe histogram over geometric bucket boundaries.
+
+    ``record`` is O(log buckets) (one bisect + one increment under the
+    lock); ``snapshot`` is O(buckets). Values below ``lo`` land in the
+    first bucket, values above ``hi`` in the overflow bucket (percentile
+    estimates there fall back to the recorded max).
+    """
+
+    __slots__ = ("bounds", "_counts", "_count", "_total", "_vmin", "_vmax", "_lock")
+
+    def __init__(self, lo: float = 0.01, hi: float = 1e7, growth: float = 1.25):
+        key = (lo, hi, growth)
+        bounds = _BOUNDS_CACHE.get(key)
+        if bounds is None:
+            bounds = _BOUNDS_CACHE.setdefault(key, _bounds(lo, hi, growth))
+        self.bounds = bounds
+        self._counts = [0] * (len(bounds) + 1)
+        self._count = 0
+        self._total = 0.0
+        self._vmin: float | None = None
+        self._vmax: float | None = None
+        self._lock = threading.Lock()
+
+    def record(self, value: float) -> None:
+        idx = bisect_left(self.bounds, value)
+        with self._lock:
+            self._counts[idx] += 1
+            self._count += 1
+            self._total += value
+            if self._vmin is None or value < self._vmin:
+                self._vmin = value
+            if self._vmax is None or value > self._vmax:
+                self._vmax = value
+
+    def snapshot(self) -> HistSnapshot:
+        with self._lock:
+            return HistSnapshot(
+                bounds=self.bounds,
+                counts=tuple(self._counts),
+                count=self._count,
+                total=self._total,
+                vmin=self._vmin,
+                vmax=self._vmax,
+            )

@@ -106,8 +106,10 @@ def kv_pool_write_row(pool, row, bids: torch.Tensor):
     place). row: [1, L, H, S', D] (already quantized under KVQ); bids:
     [nblk] int. S' <= T writes a partial leading block; otherwise S' must be
     a multiple of T and block i of the row goes to ``bids[i]``. Entries
-    equal to 0 (the null block) are skipped: they stand for blocks that
-    must not be written."""
+    equal to 0 (the null block) stand for blocks that must not be written
+    (a slot's shared prefix blocks, a group's pad rows, the junk tail past
+    the prompt): no real block is written for them (leading and trailing
+    ones are skipped, and block 0 is junk by the pool's contract)."""
     if is_quantized(pool):
         kv_pool_write_row(pool.q, row.q, bids)
         kv_pool_write_row(pool.s, row.s, bids)
@@ -115,16 +117,59 @@ def kv_pool_write_row(pool, row, bids: torch.Tensor):
     t = pool.shape[3]
     s = row.shape[3]
     if s <= t:
-        pool[int(bids[0]), :, :, :s] = row[0].to(pool.dtype)
+        if int(bids[0]) != 0:
+            pool[int(bids[0]), :, :, :s] = row[0].to(pool.dtype)
         return pool
     if s % t:
         raise ValueError(f"row length {s} not a multiple of block size {t}")
     blk = row[0].reshape(row.shape[1:3] + (s // t, t) + row.shape[4:])
-    blk = blk.movedim(2, 0)  # [nblk, L, H, T, ...]
-    bids = bids.to(device=pool.device, dtype=torch.long)
-    keep = bids != 0
-    pool[bids[keep]] = blk[keep].to(pool.dtype)
+    blk = blk.movedim(2, 0)  # [nblk, L, H, T, ...], a view of the row
+    bids = bids.to(dtype=torch.long)
+    live = (bids != 0).nonzero().flatten()  # host bids: no device sync
+    if live.numel():
+        # the blocks from the first to the last live entry, written from a
+        # view of the row: a gathered copy would be one leaf of a whole row
+        # at max_seq (~270 MB at Llama-3-8B widths) on top of the admit's
+        # row caches. A null entry inside the run writes block 0.
+        k0, k1 = int(live[0]), int(live[-1]) + 1
+        pool[bids[k0:k1].to(pool.device)] = blk[k0:k1].to(pool.dtype)
     return pool
+
+
+def kv_copy_slice(dst, src, idx):
+    """Write an already-quantized block (a row-cache slice, or blocks read
+    from the pool) into a larger cache at ``idx`` (codes-layout start
+    indices, one per axis; the scales drop the trailing D index), in
+    place."""
+    if is_quantized(dst):
+        kv_copy_slice(dst.q, src.q, idx)
+        kv_copy_slice(dst.s, src.s, idx[:-1])
+        return dst
+    window = tuple(slice(i, i + n) for i, n in zip(idx, src.shape))
+    dst[window] = src.to(dst.dtype)
+    return dst
+
+
+def kv_pool_copy_block(pool, dst: int, src: int):
+    """Copy-on-write: duplicate block ``src`` into block ``dst`` (in
+    place)."""
+    if is_quantized(pool):
+        kv_pool_copy_block(pool.q, dst, src)
+        kv_pool_copy_block(pool.s, dst, src)
+        return pool
+    pool[dst] = pool[src]
+    return pool
+
+
+def kv_pool_read_blocks(pool, bids: torch.Tensor):
+    """Gather blocks ``bids`` [nblk] into a [1, L, H, nblk*T, D]
+    row-cache-shaped chunk (per leaf on a KVQ; a copy, the pool is only
+    read): a partial prefix hit seeds its transient row cache from it."""
+    if is_quantized(pool):
+        return KVQ(q=kv_pool_read_blocks(pool.q, bids), s=kv_pool_read_blocks(pool.s, bids))
+    v = pool[bids.to(device=pool.device, dtype=torch.long)]  # [nblk, L, H, T, ...]
+    v = v.movedim(0, 2)  # [L, H, nblk, T, ...]
+    return v.reshape(v.shape[:2] + (v.shape[2] * v.shape[3],) + v.shape[4:])[None]
 
 
 def kv_pool_row_index(tbl: torch.Tensor, pos: torch.Tensor, w: int,

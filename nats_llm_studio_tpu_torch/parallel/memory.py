@@ -192,28 +192,51 @@ def prefill_activation_bytes(cfg: ModelConfig, tokens: int) -> int:
 
 
 def estimate_load_bytes(cfg: ModelConfig, max_slots: int = 8,
-                        max_seq_len: int | None = None) -> dict[str, int]:
+                        max_seq_len: int | None = None, prefix_cache_blocks: int = 0,
+                        max_group_long: int = 4) -> dict[str, int]:
     """Device bytes of one model served by the port's batcher, priced as it
     allocates them (``cfg.dtype`` and ``cfg.kv_quant`` are the serving
     ones):
 
     * ``params``: the reference's count (lm_head included: the batcher
       materializes it for tied embeddings);
-    * ``kv_pool``: ``max_slots * blocks_per_row + 1`` pool blocks (every
-      slot at max_seq, plus the null block), as ``serve/batcher.py``
-      allocates them; there is no prefix-cache term;
+    * ``kv_pool``: ``max_slots * blocks_per_row + prefix_cache_blocks + 1``
+      pool blocks (every slot at max_seq, the prefix cache's budget and the
+      null block), as ``serve/batcher.py`` allocates them;
+    * ``prefix``: the chunk-end logits rows the prefix cache keeps beside
+      its blocks, one [1, 1, V] f32 row a node of C/T blocks; with the
+      pool's prefix blocks this is the reference's ``prefix_block_bytes``
+      a node;
     * ``workspace``: the reference's ``B * V * 4 + 64 MiB`` (decode logits
-      and sampling) plus what the batcher holds at its largest call, a
-      fresh prefill of the max_seq bucket into an idle batcher
+      and sampling) plus the larger of the batcher's two largest admits
+      (C is the serving chunk).
+      One is a fresh prefill of the max_seq bucket into an idle batcher
       (``prefill_full``): its transient [1, L, Hkv, max_seq, D] row cache
       pair and that forward's activations (``prefill_activation_bytes``).
+      The other is a batched chunked admit of ``max_group_long`` long
+      prompts (``prefill_chunk_group``), padded to ``mpad`` rows (a power
+      of two): ``mpad`` row cache pairs at max_seq, the activations of an
+      [mpad, C] chunk, the per-chunk logits kept for the prefix cache
+      (``ceil(max_seq / C) * mpad * V * 4``), the selected prompt-end rows
+      and one row's copies of its chunk-end rows.
     """
     seq = min(max_seq_len or cfg.max_seq_len, cfg.max_seq_len)
-    _, t = serving_geometry(seq)
-    blocks = max_slots * (seq // t) + 1
+    chunk, t = serving_geometry(seq)
+    prefix_blocks = max(0, prefix_cache_blocks)
+    blocks = max_slots * (seq // t) + prefix_blocks + 1
     est = estimate_device_bytes(cfg, {}, batch=max_slots, seq_len=seq)
     pool = blocks * kv_pool_block_bytes(cfg, t)
-    row_cache = kv_pool_block_bytes(cfg, seq)
-    work = est["workspace"] + row_cache + prefill_activation_bytes(cfg, seq)
-    return {"params": est["params"], "kv_pool": pool, "workspace": work,
-            "total": est["params"] + pool + work}
+    row = 4 * cfg.vocab_size  # one [1, 1, V] f32 logits row
+    prefix = prefix_blocks // (chunk // t) * row
+    row_cache = kv_pool_block_bytes(cfg, seq)  # one [1, L, Hkv, max_seq, D] pair
+    single = row_cache + prefill_activation_bytes(cfg, seq)
+    group = 0
+    m = min(max_slots, max(1, max_group_long))
+    if m > 1:
+        mpad = 1 << (m - 1).bit_length()
+        n_chunks = -(-seq // chunk)
+        group = (mpad * row_cache + prefill_activation_bytes(cfg, mpad * chunk)
+                 + (n_chunks * mpad + mpad + n_chunks) * row)
+    work = est["workspace"] + max(single, group)
+    return {"params": est["params"], "kv_pool": pool, "prefix": prefix,
+            "workspace": work, "total": est["params"] + pool + prefix + work}

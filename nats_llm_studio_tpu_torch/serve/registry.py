@@ -7,17 +7,18 @@ Port of ``nats_llm_studio_tpu/serve/registry.py``: ``TorchRegistry`` keeps
 bucket): ``list_models``, ``pull``, ``delete`` (unload first, then remove
 the directory), ``sync_from_bucket`` and ``get_engine`` behind device-memory
 admission (``_admit_hbm``): a load is priced before it touches the card
-(``parallel/memory.py estimate_load_bytes``), idle engines are evicted
+(``parallel/memory.py estimate_load_bytes``), another engine's prefix cache
+is dropped first (``_shrink_prefix_caches``), then idle engines are evicted
 least recently used first to make room, and a load that still does not fit
 is refused with an error instead of running the card out of memory in the
-middle of serving another model. ``TorchChatEngine`` keeps
-``JaxChatEngine``'s ``chat`` / ``chat_stream`` / ``_completion`` reply
-shapes over the port's batcher.
+middle of serving another model. Every batcher gets the prefix cache
+(``PREFIX_CACHE_BLOCKS``, 64 blocks by default; ``PREFIX_CACHE=0`` turns
+it off). ``TorchChatEngine`` keeps ``JaxChatEngine``'s ``chat`` /
+``chat_stream`` / ``_completion`` reply shapes over the port's batcher.
 
 Not ported yet: the mesh gate and precompile at pull time, engine
-supervision and restarts, prefix cache (and its shrink tier under memory
-pressure), spec decode, KV tiers and QoS. A chat that asks for a feature
-this port does not serve (``response_format``, ``logprobs``,
+supervision and restarts, spec decode, KV tiers and QoS. A chat that asks
+for a feature this port does not serve (``response_format``, ``logprobs``,
 ``top_logprobs``, ``n`` > 1) gets an error naming the field instead of
 having it ignored.
 """
@@ -49,6 +50,21 @@ log = logging.getLogger(__name__)
 
 # request fields of features this port does not serve yet
 UNSUPPORTED_FIELDS = ("response_format", "logprobs", "top_logprobs")
+
+
+def _prefix_cache_blocks_env(default: int = 64) -> int:
+    """Per-engine prefix-cache budget in pool blocks (serve/prefix_cache.py).
+    ``PREFIX_CACHE=0`` (or false/off) is the hard off-switch; otherwise
+    ``PREFIX_CACHE_BLOCKS`` sizes the radix cache (0 also disables)."""
+    if os.environ.get("PREFIX_CACHE", "").strip().lower() in ("0", "false", "off"):
+        return 0
+    env = os.environ.get("PREFIX_CACHE_BLOCKS", "").strip()
+    if env:
+        try:
+            return max(0, int(env))
+        except ValueError:
+            log.warning("ignoring non-integer PREFIX_CACHE_BLOCKS=%r", env)
+    return default
 
 
 class TorchChatEngine(ChatEngine):
@@ -223,12 +239,18 @@ class TorchRegistry(Registry):
     The admission budget is ``TPU_HBM_BUDGET_BYTES`` when that is a positive
     integer (read at each admission, as the reference does); otherwise, on
     the card, what the allocator could reach when the registry was built
-    (``card_budget_bytes``); on the CPU, no budget and no check."""
+    (``card_budget_bytes``); on the CPU, no budget and no check.
+
+    ``prefix_cache_blocks`` is each batcher's prefix-cache budget in pool
+    blocks; None reads ``PREFIX_CACHE`` / ``PREFIX_CACHE_BLOCKS``
+    (``_prefix_cache_blocks_env``)."""
 
     def __init__(self, store: ModelStore, device: str = "cuda",
                  max_seq_len: int | None = None, max_batch_slots: int = 8,
-                 kv_quant: str = "none"):
+                 kv_quant: str = "none", prefix_cache_blocks: int | None = None):
         self.kv_quant = check_kv_quant(kv_quant)
+        self.prefix_cache_blocks = (prefix_cache_blocks if prefix_cache_blocks is not None
+                                    else _prefix_cache_blocks_env())
         self.device = resolve_device(device)
         self.store = store
         self.dtype = default_dtype(self.device)
@@ -243,6 +265,11 @@ class TorchRegistry(Registry):
         # engine targeted within evict_grace_s is never evicted
         # (_pick_idle_victim)
         self._hbm_committed: dict[str, int] = {}
+        # the part of an engine's committed bytes its prefix cache holds
+        # outside the pool (its chunk-end logits rows): what dropping that
+        # cache gives back (_shrink_prefix_caches). Its blocks live in the
+        # pool, which stays allocated, so they are not credited
+        self._prefix_bytes: dict[str, int] = {}
         self._last_used: dict[str, float] = {}
         self.evict_grace_s = 1.0
 
@@ -275,6 +302,7 @@ class TorchRegistry(Registry):
     async def delete(self, model_id: str) -> str:
         eng = self._engines.pop(model_id, None)
         self._hbm_committed.pop(model_id, None)
+        self._prefix_bytes.pop(model_id, None)
         self._last_used.pop(model_id, None)
         if eng is not None:
             await eng.unload()
@@ -314,6 +342,7 @@ class TorchRegistry(Registry):
                 # a failed load must not leave phantom committed bytes that
                 # refuse every later load
                 self._hbm_committed.pop(cm.model_id, None)
+                self._prefix_bytes.pop(cm.model_id, None)
                 raise
             self._engines[cm.model_id] = eng
             self._last_used[cm.model_id] = time.monotonic()
@@ -330,15 +359,20 @@ class TorchRegistry(Registry):
 
     async def _admit_hbm(self, model_id: str, paths: list[str]) -> None:
         """Refuse (or free room for) a load that would exceed the budget,
-        before it touches the device. Idle engines are evicted least
-        recently used first; an engine serving a request is never
-        evicted."""
+        before it touches the device. The cheapest tier goes first: another
+        engine's prefix cache is dropped (no unload); then idle engines are
+        evicted least recently used first; an engine serving a request is
+        never evicted."""
         budget = self.budget_bytes()
         if budget is None:
             return
         need = await asyncio.to_thread(self._estimate_load_bytes, paths)
+        pbytes = await asyncio.to_thread(self._estimate_prefix_bytes, paths)
         self._hbm_committed.pop(model_id, None)  # reloading: don't double count
+        self._prefix_bytes.pop(model_id, None)
         while sum(self._hbm_committed.values()) + need > budget:
+            if self._shrink_prefix_caches(exclude=model_id):
+                continue
             victim = self._pick_idle_victim()
             if victim is None:
                 # an idle engine inside the eviction grace may become
@@ -358,10 +392,32 @@ class TorchRegistry(Registry):
                 )
             log.info("evicting idle engine %s to fit %s", victim, model_id)
             self._hbm_committed.pop(victim, None)
+            self._prefix_bytes.pop(victim, None)
             eng = self._engines.pop(victim)
             self._last_used.pop(victim, None)
             await eng.unload()
         self._hbm_committed[model_id] = need
+        if pbytes:
+            self._prefix_bytes[model_id] = pbytes
+
+    def _shrink_prefix_caches(self, exclude: str | None = None) -> bool:
+        """Reclaim device memory by dropping the least recently used
+        engine's prefix cache: no unload, serving state untouched; its
+        blocks go back to that engine's pool, and blocks pinned by an admit
+        in flight are freed when that admit releases them. Returns True
+        when committed bytes decreased, so the admit loop checks the budget
+        again before it evicts a whole engine."""
+        cands = [mid for mid in self._engines
+                 if mid != exclude and self._prefix_bytes.get(mid, 0) > 0]
+        if not cands:
+            return False
+        mid = min(cands, key=lambda m: self._last_used.get(m, 0.0))
+        freed = self._prefix_bytes.pop(mid, 0)
+        self._hbm_committed[mid] = max(0, self._hbm_committed.get(mid, 0) - freed)
+        dropped = self._engines[mid].batcher.drop_prefix_cache()
+        log.info("dropped %s prefix cache under memory pressure (%d blocks, ~%d KiB)",
+                 mid, dropped, freed >> 10)
+        return True
 
     @staticmethod
     def _open(paths: list[str]):
@@ -373,11 +429,23 @@ class TorchRegistry(Registry):
         return ModelConfig.from_gguf_metadata(reader.metadata).with_(
             dtype=self.dtype, kv_quant=self.kv_quant)
 
-    def _estimate_load_bytes(self, paths: list[str]) -> int:
-        """Device bytes of serving this GGUF with this registry's settings."""
+    def _estimate(self, paths: list[str]) -> dict[str, int]:
+        """``estimate_load_bytes`` of serving this GGUF with this registry's
+        settings."""
         with self._open(paths) as reader:
             cfg = self._serving_config(reader)
-        return estimate_load_bytes(cfg, self.max_batch_slots, self.max_seq_len)["total"]
+        return estimate_load_bytes(cfg, self.max_batch_slots, self.max_seq_len,
+                                   prefix_cache_blocks=self.prefix_cache_blocks)
+
+    def _estimate_load_bytes(self, paths: list[str]) -> int:
+        """Device bytes of serving this GGUF with this registry's settings."""
+        return self._estimate(paths)["total"]
+
+    def _estimate_prefix_bytes(self, paths: list[str]) -> int:
+        """The part of that which the prefix cache holds outside the pool
+        (the estimate's ``prefix`` term: its chunk-end logits rows), which
+        dropping the cache gives back."""
+        return self._estimate(paths)["prefix"]
 
     def _pick_idle_victim(self) -> str | None:
         # grace window: an engine targeted within the last evict_grace_s is
@@ -420,7 +488,8 @@ class TorchRegistry(Registry):
         finally:
             reader.close()
         batcher = ContinuousBatcher(params, cfg, max_slots=self.max_batch_slots,
-                                    max_seq_len=self.max_seq_len)
+                                    max_seq_len=self.max_seq_len,
+                                    prefix_cache_blocks=self.prefix_cache_blocks)
         batcher.start()
         log.info("loaded %s in %.1fs (%s, %s, kv %s, %s)", model_id,
                  time.perf_counter() - t0, cfg.arch, self.dtype, cfg.kv_quant, self.device)
@@ -446,6 +515,10 @@ class TorchRegistry(Registry):
         }
         if self._engines:
             out["batcher"] = {m: e.batcher.stats.snapshot() for m, e in self._engines.items()}
+            prefix = {m: e.batcher.prefix_cache.stats() for m, e in self._engines.items()
+                      if e.batcher.prefix_cache is not None}
+            if prefix:
+                out["prefix_cache"] = prefix
         return out
 
     async def close(self) -> None:
@@ -453,4 +526,5 @@ class TorchRegistry(Registry):
             await eng.unload()
         self._engines.clear()
         self._hbm_committed.clear()
+        self._prefix_bytes.clear()
         self._last_used.clear()

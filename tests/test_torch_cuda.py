@@ -371,3 +371,119 @@ def test_pick_orders_tied_candidates_on_the_card(gen, b, v):
         want = sampling._pick(logits.cpu(), gumbel.cpu(), temps.cpu(), top_k.cpu(),
                               top_p.cpu())
         assert torch.equal(got.cpu(), want)
+
+
+# -- the prefix cache's pool copies and the batched admits' shapes ------------------
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_pool_copy_and_read_blocks_exact_on_the_card(gen, quant):
+    """kv_pool_copy_block (copy-on-write) and kv_pool_read_blocks (a partial
+    hit's fill) move bytes: on the card they equal the CPU's bit for bit,
+    for a bf16 pool and a KVQ pair."""
+    shape = (9, 2, 8, 16, 128)
+    pool = _kvq(gen, *shape) if quant else _rn(gen, *shape, dtype=torch.bfloat16)
+    leaves = (lambda p: [p.q, p.s]) if quant else (lambda p: [p])
+    host = (kv.KVQ(pool.q.cpu(), pool.s.cpu()) if quant else pool.cpu())
+    bids = torch.tensor([7, 2, 5, 1], dtype=torch.int32)
+    for g, w in zip(leaves(kv.kv_pool_read_blocks(pool, bids)),
+                    leaves(kv.kv_pool_read_blocks(host, bids))):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    kv.kv_pool_copy_block(pool, 3, 6)
+    kv.kv_pool_copy_block(host, 3, 6)
+    for g, w in zip(leaves(pool), leaves(host)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_flash_kernel_batch4_chunk256(gen):
+    """K2 at a batched short admit's shape: q[4, 256, 32, 128]."""
+    q = _rn(gen, 4, 256, 32, 128, dtype=torch.bfloat16)
+    k, v = (_rn(gen, 4, 256, 8, 128, dtype=torch.bfloat16) for _ in range(2))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, 128 ** -0.5)
+    assert fa.flash_attention.launches == before + 1
+    _check(got, fa.flash_attention_plain(q, k, v, 128 ** -0.5), torch.bfloat16)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_chunk_kernels_batch4_chunk256(gen, quant):
+    """K3 (bf16) and K4 (int8) at a batched chunked admit's shape: q[4, 256,
+    32, 128] at start 256 over the slab [4, 8, 512, 128] of a row cache."""
+    q = _rn(gen, 4, 256, 32, 128, dtype=torch.bfloat16)
+    if quant:
+        kc, vc = _kvq(gen, 4, 2, 8, 1024, 128), _kvq(gen, 4, 2, 8, 1024, 128)
+        args = (q, kc.q[:, 1, :, :512], kc.s[:, 1, :, :512], vc.q[:, 1, :, :512],
+                vc.s[:, 1, :, :512], 128 ** -0.5, 256)
+        kern, plain = fa.flash_attention_chunk_kvq, fa.flash_attention_chunk_kvq_plain
+    else:
+        kc, vc = (_rn(gen, 4, 2, 8, 1024, 128, dtype=torch.bfloat16) for _ in range(2))
+        args = (q, kc[:, 1, :, :512], vc[:, 1, :, :512], 128 ** -0.5, 256)
+        kern, plain = fa.flash_attention_chunk, fa.flash_attention_chunk_plain
+    before = kern.launches
+    got = kern(*args)
+    assert kern.launches == before + 1
+    _check(got, plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_prefill_chunk_group_matches_single_admits(gen, kv_quant):
+    """The prompt-end logits of each row of a 4-row chunked group prefill
+    (K2, then K3 or K4 over [4, C] chunks) against the same prompts
+    prefilled alone in [1, C] chunks, on a 2-layer model with Llama-3-8B's
+    head shape, by the model gate of chip_smoke.py: relative L2 <= 2e-2 in
+    float32 on the plain path, and in bf16 the kernel path's group no
+    further from the float32 plain path's single admits than 1.25 x the
+    bf16 plain path's single admits are."""
+    from nats_llm_studio_tpu_torch.models import llama
+    from nats_llm_studio_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=1024, d_model=512, n_layers=2, n_heads=32, n_kv_heads=8,
+                      head_dim=128, d_ff=1024, max_seq_len=1024, dtype="bfloat16",
+                      kv_quant=kv_quant)
+    params = {"embed": _rn(gen, 1024, 512, dtype=torch.float32) * 0.02,
+              "out_norm": torch.ones(512, device="cuda"),
+              "blocks": {"attn_norm": torch.ones(2, 512, device="cuda"),
+                         "ffn_norm": torch.ones(2, 512, device="cuda"),
+                         **{k: _rn(gen, 2, *s, dtype=torch.float32) * 0.02 for k, s in (
+                             ("wq", (512, 4096)), ("wk", (512, 1024)), ("wv", (512, 1024)),
+                             ("wo", (4096, 512)), ("w_gate", (512, 1024)),
+                             ("w_up", (512, 1024)), ("w_down", (1024, 512)))}}}
+    C, ns = 256, [700, 513, 650, 300]
+    prompts = [torch.randint(0, 1024, (n,), generator=gen, device="cuda", dtype=torch.int32)
+               for n in ns]
+
+    def run(dtype, attn, rows):
+        p = {k: ({kk: vv.to(dtype) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(dtype)) for k, v in params.items()}
+        c = cfg.with_(dtype="float32" if dtype == torch.float32 else "bfloat16")
+        km, vm = llama.make_cache(c, len(rows), 1024, device="cuda")
+        out = [None] * len(rows)
+        for start in range(0, max(ns[i] for i in rows), C):
+            toks = torch.zeros((len(rows), C), dtype=torch.int32, device="cuda")
+            for r, i in enumerate(rows):
+                seg = prompts[i][start:start + C]
+                toks[r, :len(seg)] = seg
+            last = [min(max(ns[i] - 1 - start, 0), C - 1) for i in rows]
+            lg, km, vm = llama.forward(p, c, toks, km, vm,
+                                       torch.full((len(rows),), start, dtype=torch.int32),
+                                       attn_window=min(1 << (start + C - 1).bit_length(), 1024),
+                                       logit_positions=torch.tensor(last), uniform_start=True,
+                                       attn=attn)
+            for r, i in enumerate(rows):
+                if (ns[i] - 1) // C == start // C:
+                    out[r] = lg[r, 0].float()
+        return out
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    alone32 = [run(torch.float32, llama.PLAIN, [i])[0] for i in range(4)]
+    group32 = run(torch.float32, llama.PLAIN, [0, 1, 2, 3])
+    alone_bf = [run(torch.bfloat16, llama.PLAIN, [i])[0] for i in range(4)]
+    before = fa.flash_attention_chunk_kvq.launches + fa.flash_attention_chunk.launches
+    group_bf = run(torch.bfloat16, llama.KERNELS, [0, 1, 2, 3])
+    assert fa.flash_attention_chunk_kvq.launches + fa.flash_attention_chunk.launches > before
+    for i in range(4):
+        assert torch.isfinite(group_bf[i]).all()
+        assert rel(group32[i], alone32[i]) <= 2e-2
+        assert rel(group_bf[i], alone32[i]) <= 1.25 * rel(alone_bf[i], alone32[i])

@@ -32,7 +32,7 @@ from nats_llm_studio_tpu_torch.config import WorkerConfig
 from nats_llm_studio_tpu_torch.models.config import ModelConfig as TConfig
 from nats_llm_studio_tpu_torch.parallel import memory as tmemory
 from nats_llm_studio_tpu_torch.serve.api import EngineError
-from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry, _prefix_cache_blocks_env
 from nats_llm_studio_tpu_torch.serve.worker import Worker
 from nats_llm_studio_tpu_torch.store import JetStreamStoreModule, ModelStore
 from nats_llm_studio_tpu_torch.store.manager import StoreError, split_model_id
@@ -356,8 +356,11 @@ def _publish_tiny(models_dir, model_id: str, seed: int):
 
 
 def _one_engine_bytes() -> int:
+    """What the registry commits for one engine: the estimate at its
+    settings, the prefix-cache budget included."""
     cfg = TConfig.tiny(n_layers=2, max_seq_len=ADMIT_SEQ)
-    return tmemory.estimate_load_bytes(cfg, 2, ADMIT_SEQ)["total"]
+    return tmemory.estimate_load_bytes(
+        cfg, 2, ADMIT_SEQ, prefix_cache_blocks=_prefix_cache_blocks_env())["total"]
 
 
 def _admit_registry(tmp_path, monkeypatch, budget_engines: float | None):
@@ -401,7 +404,13 @@ async def test_over_budget_load_refused_while_busy_first_engine_serves(tmp_path,
         out = await eng_a.chat(_chat("again", 3))
         assert out["usage"]["completion_tokens"] == 3
         assert reg.stats()["models_loaded"] == 1
-        assert reg.stats()["hbm_committed_bytes"] == _one_engine_bytes()
+        # before refusing, the load dropped A's prefix cache: A's commitment
+        # lost that cache's bytes outside the pool
+        assert eng_a.batcher.prefix_cache.blocks == 0
+        cfg = TConfig.tiny(n_layers=2, max_seq_len=ADMIT_SEQ)
+        prefix = tmemory.estimate_load_bytes(
+            cfg, 2, ADMIT_SEQ, prefix_cache_blocks=_prefix_cache_blocks_env())["prefix"]
+        assert reg.stats()["hbm_committed_bytes"] == _one_engine_bytes() - prefix
     finally:
         await reg.close()
 
@@ -507,7 +516,9 @@ async def test_pool_term_is_the_batchers_pool_and_stop_releases_it(tmp_path, kv_
     try:
         eng = await reg.get_engine("acme/a")
         cfg = TConfig.tiny(n_layers=2, max_seq_len=ADMIT_SEQ, kv_quant=kv_quant)
-        est = tmemory.estimate_load_bytes(cfg, 2, ADMIT_SEQ)
+        est = tmemory.estimate_load_bytes(cfg, 2, ADMIT_SEQ,
+                                          prefix_cache_blocks=reg.prefix_cache_blocks)
+        assert reg.prefix_cache_blocks > 0  # the pool holds the prefix budget too
         assert est["kv_pool"] == eng.batcher.pool_stats()["bytes"]
         kp = eng.batcher._kv[0]
         ref = weakref.ref(kp.q if kv_quant == "int8" else kp)
