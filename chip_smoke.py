@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              the last 256-token chunk of a 4096-token prompt), at the
              batched admits' shapes (@B4: four rows of 256 tokens, K3/K4 at
              start 256) and, K3/K4, on a partial prefix hit (@fill: start 512
-             right after two cached chunks were copied in, exactly).
+             right after two cached chunks were copied in, exactly); K1 and
+             K1q also at a speculative verify's width (@W7: 7 query rows a
+             slot, two m16 tiles of 28 rows a kv head).
 3. model   — write a bf16 GGUF at Meta-Llama-3-8B's published widths (the
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
@@ -29,30 +31,48 @@ Phases, in order; any failure exits non-zero and prints no result line:
              (URL_PULL_SCHEMES=file).
 Then, once with the bf16 KV cache and once with the int8 one
 (TPU_KV_QUANT=int8), each through TorchRegistry(ModelStore(models dir),
-device="cuda", kv_quant=):
+device="cuda", kv_quant=), whose default decodes through speculative
+verifies (k = 6 prompt-lookup drafts at 1-4 live slots):
 4. gate    — compare logits of the kernel path with the plain path, for a
              512-token fresh prefill and for the same prompt in two chunks
              followed by one paged decode step (float32: relative L2 <= 2e-2;
              bf16: no more than 1.25 x the plain path's distance to float32).
    Also the group gate: the prompt-end logits of each row of a 4-row
              chunked group prefill against the same prompt prefilled
-             alone, by the same two limits.
-5. serve   — an embedded broker and the port's Worker answer list_models, a
-             short greedy chat twice (identical text), a seeded sampled
-             chat twice (identical text), a ~700-token chat into
-             the idle batcher (prefill_full), a long chat beside a live stream
-             (prefill1, so K3 or K4 runs between decode bursts) and a
-             streamed chat. Then the prefix cache (64 blocks, the registry's
-             default) and group admits (prefix_phase): a ~700-token chat
+             alone, and the verify gate: on that pool, one W = 7 forward
+             (K1 or K1q at W = 7) against seven W = 1 plain steps over the
+             same tokens, by the same two limits. A profile of a decode
+             step, of a verify against its seven steps (4 slots x 512
+             tokens) and of spec_accept_rows at [8, 7, 128256].
+5. serve   — spec on: an embedded broker and the port's Worker answer
+             list_models, a short greedy chat twice (identical text), a
+             seeded sampled chat twice (identical text), a ~700-token chat
+             into the idle batcher (prefill_full), a long chat beside a live
+             stream (prefill1, so K3 or K4 runs between decode bursts) and a
+             streamed chat; then the spec phase: two greedy chats, one that
+             asks for a ~300-token passage back and one a run of 1500 equal
+             characters (on which the random model repeats its own tokens),
+             twice each (identical texts; verifies ran and accepted drafts;
+             the peak device memory over the phase within the load
+             estimate). Then, in a registry built
+             under SPEC_DECODE=0: the same two chats once (no verify; tok/s
+             and text equality against spec on recorded), the prefix cache
+             (64 blocks, the registry's default) and group admits
+             (prefix_phase): a ~700-token chat
              twice beside a live stream (the second a partial hit with the
              miss's text), a 512-token id prompt twice (the second a full hit
              with the same ids and no prefill program), a wave of four
              ~700-token chats twice (one chunked group admit each, the same
              texts, every pool block free after drop_prefix_cache between
              them), eight short chats (batched short admits) and the
-             copy-on-write count. Every envelope must be ok; bf16 KV must
-             launch K1, K2 and K3 and not K1q or K4, int8 KV K1q, K2 and K4
-             and not K1 or K3.
+             copy-on-write count; under the bf16 KV cache the ext phase: a
+             json_schema chat at temperature 0.9 (JSON that meets the
+             schema), a logprobs chat (one entry a token, the top entry the
+             chosen token), an n=2 chat over a >256-token prompt (two
+             choices, a prefix hit) and a greedy stream beside a
+             constrained chat (its text alone). Every envelope must be ok;
+             bf16 KV must launch K1, K2 and K3 and not K1q or K4, int8 KV
+             K1q, K2 and K4 and not K1 or K3.
 6. lifecycle — bf16 KV, an embedded broker with the object-store module and
              a worker whose ModelStore reaches the bucket: (a) a 2-layer GGUF
              at the same widths is published with ModelStore.publish_model
@@ -165,18 +185,20 @@ def row_rel_err(got, want) -> float:
     return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def k1_inputs(torch, g, c: dict, quant: bool = False) -> dict:
+def k1_inputs(torch, g, c: dict, quant: bool = False, w: int = 1) -> dict:
     """K1 at the serving shape: B=8 slots, mixed contexts up to 4096,
-    16-token blocks in a shuffled pool, layer 7. With ``quant`` (K1q) the
-    pool is ``quantize_rows`` of the same draws: int8 codes, f32 scales."""
+    16-token blocks in a shuffled pool, layer 7, ``w`` query rows a slot
+    (a verify's k + 1), each slot's positions leaving room for its w fresh
+    rows. With ``quant`` (K1q) the pool is ``quantize_rows`` of the same
+    draws: int8 codes, f32 scales."""
     from nats_llm_studio_tpu_torch.ops.kvcache import quantize_rows
 
     hq, hkv, d, L = c["n_heads"], c["n_kv_heads"], c["head_dim"], c["n_layers"]
     dev, bf = "cuda", torch.bfloat16
     T, nbt, layer = 16, 4096 // 16, 7
-    pos_l = [4095, 3001, 2048, 1500, 777, 300, 64, 5]
+    pos_l = [min(p, 4096 - w) for p in (4095, 3001, 2048, 1500, 777, 300, 64, 5)]
     B = len(pos_l)
-    need = [p // T + 1 for p in pos_l]
+    need = [(p + w - 1) // T + 1 for p in pos_l]
     nb = 1 + sum(need)
     kp = torch.randn((nb, L, hkv, T, d), generator=g, device=dev, dtype=bf)
     vp = torch.randn((nb, L, hkv, T, d), generator=g, device=dev, dtype=bf)
@@ -186,17 +208,30 @@ def k1_inputs(torch, g, c: dict, quant: bool = False) -> dict:
     for i, n in enumerate(need):
         tbl[i, :n] = torch.tensor(perm[o:o + n], dtype=torch.int32)
         o += n
-    q = torch.randn((B, 1, hq, d), generator=g, device=dev, dtype=bf)
+    q = torch.randn((B, w, hq, d), generator=g, device=dev, dtype=bf)
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
     if quant:
         kp, vp = quantize_rows(kp), quantize_rows(vp)
     return dict(args=(q, kp, vp, tbl.to(dev), pos, layer, d ** -0.5),
-                shape=f"q[{B},1,{hq},{d}] bf16 pool[{nb},{L},{hkv},{T},{d}] "
+                shape=f"q[{B},{w},{hq},{d}] bf16 pool[{nb},{L},{hkv},{T},{d}] "
                       f"{'int8 + f32 scales' if quant else 'bf16'} pos={pos_l} layer={layer}")
 
 
 def k1q_inputs(torch, g, c: dict) -> dict:
     return k1_inputs(torch, g, c, quant=True)
+
+
+SPEC_K = 6  # the registry's default draft length: a verify is W = k + 1 rows a slot
+
+
+def k1_verify_inputs(torch, g, c: dict) -> dict:
+    """K1 at a speculative verify's width: W = 7 rows a slot, 28 rows a kv
+    head with Llama-3's group of 4 (two m16 tiles)."""
+    return k1_inputs(torch, g, c, w=SPEC_K + 1)
+
+
+def k1q_verify_inputs(torch, g, c: dict) -> dict:
+    return k1_inputs(torch, g, c, quant=True, w=SPEC_K + 1)
 
 
 def k2_inputs(torch, g, c: dict, t: int = 512) -> dict:
@@ -374,6 +409,11 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
                                    pa.paged_decode_attention_plain),
         "paged_decode_attention_kvq": (k1q_inputs, pa.paged_decode_attention_kvq,
                                        pa.paged_decode_attention_plain),
+        # the speculative verify's width
+        "paged_decode_attention@W7": (k1_verify_inputs, pa.paged_decode_attention,
+                                      pa.paged_decode_attention_plain),
+        "paged_decode_attention_kvq@W7": (k1q_verify_inputs, pa.paged_decode_attention_kvq,
+                                          pa.paged_decode_attention_plain),
         "flash_attention": (k2_inputs, fa.flash_attention, fa.flash_attention_plain),
         "flash_attention@T4096": (k2_long_inputs, fa.flash_attention,
                                   fa.flash_attention_plain),
@@ -412,22 +452,27 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
                              plain=plain)
         torch.cuda.empty_cache()
 
-    # K1, K1q: bytes of the live K/V rows (bf16 rows of D elements, or D
-    # int8 codes and one f32 scale); SDPA over the same K/V already gathered
-    # dense (and dequantized to bf16 for K1q; neither is timed), ragged
-    # lengths as a boolean mask
+    # K1, K1q: bytes of each slot's live K/V rows, read once (bf16 rows of D
+    # elements, or D int8 codes and one f32 scale); operations of every
+    # query row over the keys up to its position. SDPA over the same K/V
+    # already gathered dense (and dequantized to bf16 for K1q; neither is
+    # timed), ragged lengths and the rows' causal fronts as a boolean mask
     for name, row_bytes in (("paged_decode_attention", d * 2),
-                            ("paged_decode_attention_kvq", d + 4)):
+                            ("paged_decode_attention_kvq", d + 4),
+                            ("paged_decode_attention@W7", d * 2),
+                            ("paged_decode_attention_kvq@W7", d + 4)):
         r = results[name]
         q, kp, vp, tbl, pos, layer, scale = r["args"]
-        B = q.shape[0]
-        keys = int((pos.long() + 1).sum())
+        B, w = q.shape[:2]
+        keys = int((pos.long() + w).sum())
+        pairs = int((w * pos.long() + w * (w + 1) // 2).sum())
         r["bound"] = bound(2 * keys * hkv * row_bytes + 2 * q.numel() * 2 + tbl.numel() * 4
-                           + B * 4, 4 * keys * hq * d)
+                           + B * 4, 4 * pairs * hq * d)
         kd = dense_pool_kv(torch, kp, tbl, layer, q.dtype).repeat_interleave(group, dim=1)
         vd = dense_pool_kv(torch, vp, tbl, layer, q.dtype).repeat_interleave(group, dim=1)
-        mask = (torch.arange(kd.shape[2], device=dev)[None, :]
-                <= pos[:, None])[:, None, None, :]
+        front = pos[:, None] + torch.arange(w, device=dev)[None, :]  # [B, W]
+        mask = (torch.arange(kd.shape[2], device=dev)[None, None, :]
+                <= front[:, :, None])[:, None]  # [B, 1, W, S]
         r["library"] = (lambda qs=q.transpose(1, 2), kd=kd, vd=vd, mask=mask, scale=scale:
                         F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask,
                                                        scale=scale))
@@ -576,7 +621,11 @@ def model_phase(torch, registry, seed: int) -> dict:
     * ``prefill``: prompt-end logits of a 512-token fresh prefill (K2);
     * ``decode``: the same prompt prefilled in two 256-token chunks (K2,
       then K3, or K4 over the int8 cache), its rows written into a paged
-      pool, then one decode step over the pool (K1, or K1q).
+      pool, then one decode step over the pool (K1, or K1q);
+    * ``verify``: on that pool, a speculative verify's forward (one
+      ``forward_decode_paged`` of W = 7 tokens, K1 or K1q at W = 7, the
+      kernel path) against seven W = 1 steps over the same tokens (the plain
+      path), all seven positions' logits.
 
     Two gates each. In float32 (the bf16 weights upcast exactly) the paths
     differ only in the attention arithmetic: relative L2 <= 2e-2. In bf16,
@@ -602,6 +651,7 @@ def model_phase(torch, registry, seed: int) -> dict:
     n, T = 512, 16
     toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g, dtype=torch.int32).to(dev)
     nxt = torch.randint(0, cfg.vocab_size, (1, 1), generator=g, dtype=torch.int32).to(dev)
+    bundle = torch.randint(0, cfg.vocab_size, (1, 7), generator=g, dtype=torch.int32).to(dev)
 
     def prefill(p, c, attn):
         k1, v1 = make_cache(c, 1, n, device=dev)
@@ -610,26 +660,43 @@ def model_phase(torch, registry, seed: int) -> dict:
                                attn=attn)
         return logits[0, 0].float()
 
-    def decode(p, c, attn):
+    def prompt_pool(p, c, attn):
+        """The prompt in two chunks, its rows in a paged pool of blocks
+        1..n/T; blocks n/T + 1 and + 2 take the rows after it."""
         k1, v1 = make_cache(c, 1, n, device=dev)
         C = n // 2
         for start in (0, C):
             forward(p, c, toks[:, start:start + C], k1, v1,
                     torch.full((1,), start, dtype=torch.int32), attn_window=n,
                     logit_positions=torch.tensor([C - 1]), uniform_start=True, attn=attn)
-        nb = n // T  # the prompt's blocks are 1..nb; block nb + 1 takes the new row
-        shape = (nb + 2, c.n_layers, c.n_kv_heads, T, c.head_dim)
+        nb = n // T
+        shape = (nb + 3, c.n_layers, c.n_kv_heads, T, c.head_dim)
         quant = c.kv_quant == "int8"
         kp = kv_pool_zeros(shape, torch_dtype(c.dtype), dev, quant=quant)
         vp = kv_pool_zeros(shape, torch_dtype(c.dtype), dev, quant=quant)
         bids = torch.arange(1, nb + 1, dtype=torch.int32)
         kv_pool_write_row(kp, k1, bids)
         kv_pool_write_row(vp, v1, bids)
-        tbl = torch.arange(1, nb + 2, dtype=torch.int32, device=dev)[None]
-        logits, _, _ = forward_decode_paged(p, c, nxt, kp, vp, tbl,
-                                            torch.tensor([n], dtype=torch.int32, device=dev),
-                                            attn=attn)
+        return kp, vp, torch.arange(1, nb + 3, dtype=torch.int32, device=dev)[None]
+
+    def at(i: int):
+        return torch.tensor([n + i], dtype=torch.int32, device=dev)
+
+    def decode(p, c, attn):
+        kp, vp, tbl = prompt_pool(p, c, attn)
+        logits, _, _ = forward_decode_paged(p, c, nxt, kp, vp, tbl, at(0), attn=attn)
         return logits[0, 0].float()
+
+    def verify(p, c, width: int):
+        """Logits [7, V] of the 7 draft-bundle tokens after the prompt: one
+        W = 7 forward on the kernel path (width 7), or seven W = 1 steps on
+        the plain path (width 1), over the same prompt pool."""
+        kp, vp, tbl = prompt_pool(p, c, PLAIN)
+        if width > 1:
+            logits, _, _ = forward_decode_paged(p, c, bundle, kp, vp, tbl, at(0), attn=KERNELS)
+            return logits[0].float()
+        return torch.cat([forward_decode_paged(p, c, bundle[:, i:i + 1], kp, vp, tbl, at(i),
+                                               attn=PLAIN)[0][0] for i in range(7)]).float()
 
     def rel(a, b) -> float:
         return float((a - b).norm() / b.norm())
@@ -655,6 +722,25 @@ def model_phase(torch, registry, seed: int) -> dict:
             raise AssertionError(f"{name}: bf16 kernel path {dk} from f32, > {BF16_DRIFT} x "
                                  f"the plain path's {dp}")
         out[name] = bf_k.cpu()
+    # the verify: W = 7 on the kernel path against seven W = 1 plain steps
+    bf_k, bf_p = verify(params, cfg, 7), verify(params, cfg, 1)
+    f_k, f_p = verify(p32, c32, 7), verify(p32, c32, 1)
+    if not (torch.isfinite(bf_k).all() and torch.isfinite(f_k).all()):
+        raise AssertionError("verify: kernel-path logits are not finite")
+    r32, dk, dp = rel(f_k, f_p), rel(bf_k, f_p), rel(bf_p, f_p)
+    out["verify"] = dict(f32=r32, bf16_kernels=dk, bf16_plain=dp,
+                         same_argmax_bf16=int((bf_k.argmax(-1) == bf_p.argmax(-1)).sum()))
+    log(f"model (kv {cfg.kv_quant}) verify: logits of 7 tokens after a {n}-token prompt, one "
+        f"W=7 forward (kernel path) vs seven W=1 steps (plain path): float32 relative L2 "
+        f"{r32:.3e} (limit 2e-2); distance to the f32 W=1 path: bf16 W=7 kernel path "
+        f"{dk:.3e}, bf16 W=1 plain path {dp:.3e} (limit {BF16_DRIFT} x, ratio "
+        f"{dk / dp if dp else float('nan'):.4f}); bf16 argmax equal at "
+        f"{out['verify']['same_argmax_bf16']} of 7 positions")
+    if not r32 <= 2e-2:
+        raise AssertionError(f"verify: relative L2 {r32} > 2e-2")
+    if cfg.dtype != "float32" and not dk <= BF16_DRIFT * dp:
+        raise AssertionError(f"verify: bf16 W=7 kernel path {dk} from f32, > {BF16_DRIFT} x "
+                             f"the W=1 plain path's {dp}")
     out["group"] = group_gate(torch, p32, c32, params, cfg, g)
     del p32
     if dev.type == "cuda":
@@ -807,34 +893,122 @@ def decode_profile(torch, eng, ctx: int = 512, steps: int = 4) -> dict:
     log(f"profile (kv {cfg.kv_quant}): _pick at [{B}, {logits.shape[1]}] {out['pick_ms']:.4f} "
         f"ms, of which the stable sort's {c} candidates {out['pick_sort_ms']:.4f} ms "
         f"(torch.topk of {c}: {out['pick_topk_ms']:.4f} ms)")
+    out.update(verify_profile(torch, eng, kp, vp, tbl, pos, prof_steps=steps))
     del kp, vp, logits, gumbel
     torch.cuda.empty_cache()
+    return out
+
+
+def device_ms(torch, fn, reps: int) -> tuple[float, float]:
+    """(device ms, kernels) per call of ``fn`` as the profiler sees them
+    over ``reps`` synchronized calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and getattr(e, "self_device_time_total", 0) > 0]
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / reps,
+            sum(e.count for e in ev) / reps)
+
+
+def verify_profile(torch, eng, kp, vp, tbl, pos, prof_steps: int, slots: int = 4) -> dict:
+    """A speculative verify against the steps it stands for, on the
+    profile's pool: ``slots`` slots at its context, one W = k + 1 forward
+    (device ms, kernels) against k + 1 W = 1 forwards; and
+    ``spec_accept_rows`` at [8, k + 1, V] on that verify's logits tiled to 8
+    rows, greedy (no noise drawn) and sampled (T 0.8, top-p 0.95: a
+    generator and a [V] draw per row and position), in device ms (the
+    profiler's kernel time) and in wall ms of a synchronized call (with the
+    host's noise loop)."""
+    from nats_llm_studio_tpu_torch.engine import sampling
+    from nats_llm_studio_tpu_torch.models.llama import forward_decode_paged
+
+    cfg, params = eng.cfg, eng.batcher.params
+    dev = params["embed"].device
+    w = SPEC_K + 1
+    tb, pb = tbl[:slots], pos[:slots]
+    toks = torch.randint(0, cfg.vocab_size, (slots, w), device=dev, dtype=torch.int32)
+
+    def verify():
+        return forward_decode_paged(params, cfg, toks, kp, vp, tb, pb)[0]
+
+    def steps():
+        for i in range(w):
+            forward_decode_paged(params, cfg, toks[:, i:i + 1], kp, vp, tb, pb + i)
+
+    for _ in range(2):
+        verify()
+        steps()
+    v_ms, v_k = device_ms(torch, verify, prof_steps)
+    s_ms, s_k = device_ms(torch, steps, prof_steps)
+    logits = verify().repeat(8 // slots, 1, 1)  # [8, k + 1, V]
+    drafts = logits[:, :SPEC_K].argmax(-1).int()
+    dlen = [SPEC_K] * 8
+    seeds, stp = list(range(8)), [0] * 8
+    acc = {}
+    for name, temp in (("greedy", 0.0), ("sampled", 0.8)):
+        def accept(temp=temp):
+            return sampling.spec_accept_rows(logits, drafts, dlen, seeds, stp, [temp] * 8, 0,
+                                             0.95 if temp else 1.0)
+        acc[f"accept_{name}_ms"] = device_ms(torch, accept, 5)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            accept()
+        torch.cuda.synchronize()
+        acc[f"accept_{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    out = {"verify_slots": slots, "verify_device_ms": v_ms, "verify_kernels": v_k,
+           "steps_device_ms": s_ms, "steps_kernels": s_k, **acc}
+    log(f"profile (kv {cfg.kv_quant}): verify of {slots} slots at {int(pos[0])} tokens: one W={w} "
+        f"forward {v_ms:.3f} ms device ({v_k:.0f} kernels) against {w} W=1 forwards {s_ms:.3f} "
+        f"ms ({s_k:.0f} kernels); spec_accept_rows at [8, {w}, {logits.shape[-1]}]: greedy "
+        f"{acc['accept_greedy_ms']:.4f} ms device, {acc['accept_greedy_wall_ms']:.3f} ms wall; "
+        f"sampled {acc['accept_sampled_ms']:.4f} ms device, {acc['accept_sampled_wall_ms']:.3f} "
+        f"ms wall")
     return out
 
 
 # -- phase 4: serve ----------------------------------------------------------
 
 
-async def serve_phase(registry, seed: int) -> dict:
-    from nats_llm_studio_tpu_torch.config import WorkerConfig
-    from nats_llm_studio_tpu_torch.serve.worker import Worker
-    from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, connect
+class Served:
+    """An embedded broker, the port's Worker over ``registry`` and a client:
+    ``chat`` (unary, any extra body fields) and ``stream`` (greedy,
+    streamed) over ``lmstudio.chat_model``."""
 
-    broker = await EmbeddedBroker().start()
-    worker = Worker(WorkerConfig(nats_url=broker.url), registry)
-    await worker.start()
-    nc = await connect(broker.url)
-    out: dict = {}
+    def __init__(self, registry):
+        self.registry = registry
 
-    async def chat(content: str, max_tokens: int, timeout: float = 300.0,
-                   system: str | None = None, **sampling) -> dict:
+    async def __aenter__(self):
+        from nats_llm_studio_tpu_torch.config import WorkerConfig
+        from nats_llm_studio_tpu_torch.serve.worker import Worker
+        from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, connect
+
+        self.broker = await EmbeddedBroker().start()
+        self.worker = Worker(WorkerConfig(nats_url=self.broker.url), self.registry)
+        await self.worker.start()
+        self.nc = await connect(self.broker.url)
+        return self
+
+    async def __aexit__(self, *exc):
+        await self.nc.close()
+        await self.worker.drain()
+        await self.broker.stop()
+
+    async def chat(self, content: str, max_tokens: int, timeout: float = 300.0,
+                   system: str | None = None, **fields) -> dict:
         messages = [{"role": "user", "content": content}]
         if system is not None:
             messages.insert(0, {"role": "system", "content": system})
         body = {"model": MID, "messages": messages,
-                "temperature": 0, "max_tokens": max_tokens, **sampling}
+                "temperature": 0, "max_tokens": max_tokens, **fields}
         t0 = time.perf_counter()
-        msg = await nc.request("lmstudio.chat_model", json.dumps(body).encode(), timeout=timeout)
+        msg = await self.nc.request("lmstudio.chat_model", json.dumps(body).encode(),
+                                    timeout=timeout)
         env = json.loads(msg.payload)
         if not env.get("ok"):
             raise AssertionError(f"chat failed: {env}")
@@ -842,13 +1016,13 @@ async def serve_phase(registry, seed: int) -> dict:
         resp["_wall_s"] = time.perf_counter() - t0
         return resp
 
-    async def stream(content: str, max_tokens: int, first: asyncio.Event | None = None):
+    async def stream(self, content: str, max_tokens: int, first: asyncio.Event | None = None):
         body = {"model": MID, "messages": [{"role": "user", "content": content}],
                 "temperature": 0, "max_tokens": max_tokens, "stream": True}
         t0 = time.perf_counter()
         ttft, parts, final = None, [], None
-        async for msg in nc.request_stream("lmstudio.chat_model", json.dumps(body).encode(),
-                                           timeout=300.0):
+        async for msg in self.nc.request_stream("lmstudio.chat_model",
+                                                json.dumps(body).encode(), timeout=300.0):
             env = json.loads(msg.payload)
             if not env.get("ok"):
                 raise AssertionError(f"stream failed: {env}")
@@ -864,61 +1038,59 @@ async def serve_phase(registry, seed: int) -> dict:
             raise AssertionError("stream chunks do not add up to the final completion")
         return final, ttft, time.perf_counter() - t0
 
-    try:
-        env = json.loads((await nc.request("lmstudio.list_models", b"{}", timeout=30)).payload)
-        if not env.get("ok") or MID not in [m["id"] for m in env["data"]["models"]["data"]]:
-            raise AssertionError(f"list_models: {env}")
-        log("serve: list_models ok")
 
-        a = await chat("Say something about the sea.", 32)
-        b = await chat("Say something about the sea.", 32)
-        ta = a["choices"][0]["message"]["content"]
-        if ta != b["choices"][0]["message"]["content"]:
-            raise AssertionError("two greedy runs of one short chat differ")
-        out["short"] = a
-        log(f"serve: short greedy chat x2 identical: prompt {a['usage']['prompt_tokens']} "
-            f"tokens, {a['usage']['completion_tokens']} out, stats {a['stats']}, "
-            f"wall {a['_wall_s']:.3f} s")
+async def serve_chats(h: Served, registry, seed: int) -> dict:
+    nc, chat, stream = h.nc, h.chat, h.stream
+    out: dict = {}
+    env = json.loads((await nc.request("lmstudio.list_models", b"{}", timeout=30)).payload)
+    if not env.get("ok") or MID not in [m["id"] for m in env["data"]["models"]["data"]]:
+        raise AssertionError(f"list_models: {env}")
+    log("serve: list_models ok")
 
-        # the default sampling path (temperature > 0, top-p), seeded: the
-        # same seed must give the same text
-        sa = await chat("Name three colours.", 16, temperature=0.8, top_p=0.95, seed=1234)
-        sb = await chat("Name three colours.", 16, temperature=0.8, top_p=0.95, seed=1234)
-        if sa["choices"][0]["message"]["content"] != sb["choices"][0]["message"]["content"]:
-            raise AssertionError("two seeded sampled runs of one chat differ")
-        log(f"serve: seeded sampled chat x2 identical: {sa['usage']['completion_tokens']} "
-            f"tokens, stats {sa['stats']}")
+    a = await chat("Say something about the sea.", 32)
+    b = await chat("Say something about the sea.", 32)
+    ta = a["choices"][0]["message"]["content"]
+    if ta != b["choices"][0]["message"]["content"]:
+        raise AssertionError("two greedy runs of one short chat differ")
+    out["short"] = a
+    log(f"serve: short greedy chat x2 identical: prompt {a['usage']['prompt_tokens']} "
+        f"tokens, {a['usage']['completion_tokens']} out, stats {a['stats']}, "
+        f"wall {a['_wall_s']:.3f} s")
 
-        long_text = ("The history of the harbour town begins with fishermen. " * 13)[:700]
-        c = await chat(long_text, 16)
-        if c["usage"]["prompt_tokens"] <= 256:
-            raise AssertionError("the long prompt fits one serving chunk")
-        out["long_idle"] = c
-        log(f"serve: long chat into the idle batcher: prompt {c['usage']['prompt_tokens']} "
-            f"tokens, stats {c['stats']}, wall {c['_wall_s']:.3f} s")
+    # the default sampling path (temperature > 0, top-p), seeded: the
+    # same seed must give the same text
+    sa = await chat("Name three colours.", 16, temperature=0.8, top_p=0.95, seed=1234)
+    sb = await chat("Name three colours.", 16, temperature=0.8, top_p=0.95, seed=1234)
+    if sa["choices"][0]["message"]["content"] != sb["choices"][0]["message"]["content"]:
+        raise AssertionError("two seeded sampled runs of one chat differ")
+    log(f"serve: seeded sampled chat x2 identical: {sa['usage']['completion_tokens']} "
+        f"tokens, stats {sa['stats']}")
 
-        first = asyncio.Event()
-        live = asyncio.ensure_future(stream("Count slowly from one to fifty.", 128, first))
-        await asyncio.wait_for(first.wait(), 300)
-        d = await chat("Beside a live stream: " + long_text, 8)
-        fin, _, _ = await live
-        out["beside"] = d
-        log(f"serve: long chat beside a live stream: prompt {d['usage']['prompt_tokens']} "
-            f"tokens, stats {d['stats']}; live stream {fin['usage']['completion_tokens']} tokens")
+    long_text = ("The history of the harbour town begins with fishermen. " * 13)[:700]
+    c = await chat(long_text, 16)
+    if c["usage"]["prompt_tokens"] <= 256:
+        raise AssertionError("the long prompt fits one serving chunk")
+    out["long_idle"] = c
+    log(f"serve: long chat into the idle batcher: prompt {c['usage']['prompt_tokens']} "
+        f"tokens, stats {c['stats']}, wall {c['_wall_s']:.3f} s")
 
-        fin, ttft, wall = await stream("Tell me a short story.", 32)
-        n_out = fin["usage"]["completion_tokens"]
-        out["stream"] = dict(ttft_s=ttft, wall_s=wall, tokens=n_out,
-                             decode_tok_s=(n_out - 1) / (wall - ttft) if n_out > 1 else 0.0)
-        log(f"serve: streamed chat: {n_out} tokens, client TTFT {ttft * 1e3:.1f} ms, "
-            f"decode {out['stream']['decode_tok_s']:.2f} tok/s")
-        out["prefix"] = await prefix_phase(registry, chat, stream, seed)
-        eng = registry.loaded_engines()[MID]
-        log(f"serve: batcher {json.dumps(eng.batcher.stats.snapshot())}")
-    finally:
-        await nc.close()
-        await worker.drain()
-        await broker.stop()
+    first = asyncio.Event()
+    live = asyncio.ensure_future(stream("Count slowly from one to fifty.", 128, first))
+    await asyncio.wait_for(first.wait(), 300)
+    d = await chat("Beside a live stream: " + long_text, 8)
+    fin, _, _ = await live
+    out["beside"] = d
+    log(f"serve: long chat beside a live stream: prompt {d['usage']['prompt_tokens']} "
+        f"tokens, stats {d['stats']}; live stream {fin['usage']['completion_tokens']} tokens")
+
+    fin, ttft, wall = await stream("Tell me a short story.", 32)
+    n_out = fin["usage"]["completion_tokens"]
+    out["stream"] = dict(ttft_s=ttft, wall_s=wall, tokens=n_out,
+                         decode_tok_s=(n_out - 1) / (wall - ttft) if n_out > 1 else 0.0)
+    log(f"serve: streamed chat: {n_out} tokens, client TTFT {ttft * 1e3:.1f} ms, "
+        f"decode {out['stream']['decode_tok_s']:.2f} tok/s")
+    eng = registry.loaded_engines()[MID]
+    log(f"serve: batcher {json.dumps(eng.batcher.stats.snapshot())}")
     return out
 
 
@@ -1044,6 +1216,233 @@ async def prefix_phase(registry, chat, stream, seed: int) -> dict:
     return out
 
 
+# -- phase 5, continued: speculative decoding and the ext path ----------------
+
+# the spec phase's traffic, two greedy chats (a byte-level vocab: one token
+# a byte). The first asks for a ~300-token passage back, what prompt lookup
+# serves in real chat traffic; random weights do not copy, so it drafts
+# (almost) nothing and decodes as plain bursts. The second is a long run of
+# one character: under so uniform a context this model's greedy output
+# settles on a few tokens of its own, which prompt lookup can draft
+# (scripts/spec_traffic_probe.py compares such prompts).
+SPEC_CHATS = [
+    "Repeat this passage word for word:\n\n"
+    "The harbour master keeps a ledger of every ship that enters the port: its name, its "
+    "flag, its cargo, the berth it takes and the hour of the tide when it arrives. Each "
+    "evening the clerk copies the day's entries into the great book, and each spring the "
+    "book is bound and carried to the archive above the customs house on the hill.",
+    "a" * 1500,
+]
+SPEC_MAX_TOKENS = 128
+# integer/enum-only properties (tests/test_gateway_e2e.py): a length-bounded
+# language, so max_tokens cannot truncate the document
+EXT_SCHEMA = {"type": "object",
+              "properties": {"age": {"type": "integer"}, "tag": {"enum": ["alpha", "beta"]}}}
+
+
+def record_ids(batcher, sink: list) -> None:
+    """Tee every request's prompt and generated ids into ``sink`` as
+    (prompt ids, ids): the worker replies with text, and a byte-level
+    vocab's filler tokens do not encode back to their ids."""
+    orig = batcher.submit_batched
+
+    async def tee(prompt_ids, sp, **kw):
+        got: list = []
+        sink.append((list(prompt_ids), got))
+        async for batch in orig(prompt_ids, sp, **kw):
+            got.extend(t[0] if isinstance(t, tuple) else t for t in batch)
+            yield batch
+
+    batcher.submit_batched = tee
+
+
+async def spec_chats(h: Served, registry, runs: int, sink: list) -> dict:
+    """Each SPEC_CHATS chat ``runs`` times, one at a time, greedy: texts,
+    ids, decode tok/s, and the batcher's spec counters over them."""
+    b = registry.loaded_engines()[MID].batcher
+    c0 = b.stats.spec_counters()
+    chats = []
+    for content in SPEC_CHATS:
+        rs, ids = [], []
+        for _ in range(runs):
+            rs.append(await h.chat(content, SPEC_MAX_TOKENS))
+            ids.append(sink[-1])
+        chats.append(dict(prompt_tokens=rs[0]["usage"]["prompt_tokens"],
+                          completion_tokens=[r["usage"]["completion_tokens"] for r in rs],
+                          texts=[r["choices"][0]["message"]["content"] for r in rs],
+                          ids=ids, tok_s=[r["stats"]["tokens_per_second"] for r in rs]))
+    c1 = b.stats.spec_counters()
+    spec = {k: c1[k] - c0[k] for k in c1}
+    spec["accept_rate"] = spec["accepted"] / spec["drafted"] if spec["drafted"] else 0.0
+    return {"chats": chats, "spec": spec, "spec_accept_ewma": b.stats.spec_accept_ewma}
+
+
+async def spec_phase(torch, h: Served, registry, base: int, sink: list) -> dict:
+    """Speculative decoding on (the registry's default): the SPEC_CHATS
+    twice each, alone. The prefix cache is dropped first, so both runs of a
+    chat admit alike (a cached prompt would take a partial hit the second
+    time: a different prefill). Gates: verifies ran and accepted drafts,
+    each chat's two texts equal, and the peak device memory over the phase
+    within the load estimate."""
+    cuda = torch.cuda.is_available() and registry.device.type == "cuda"
+    b = registry.loaded_engines()[MID].batcher
+    if b.spec_cfg is None or b.spec_cfg.k != SPEC_K:
+        raise AssertionError(f"the registry's default is not k={SPEC_K}: {b.spec_cfg}")
+    b.drop_prefix_cache()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = await spec_chats(h, registry, 2, sink)
+    cm = registry.store.lookup(MID)
+    out["estimate_total"] = registry._estimate([str(f) for f in cm.files])["total"]
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(torch) - base) if cuda else 0
+    kv = b.cfg.kv_quant
+    for i, c in enumerate(out["chats"]):
+        log(f"spec (kv {kv}): chat {i} ({c['prompt_tokens']}-token prompt) x2, spec on: "
+            f"{c['completion_tokens']} tokens, decode {c['tok_s']} tok/s, texts equal "
+            f"{c['texts'][0] == c['texts'][1]}; text {c['texts'][0][:80]!r}")
+    log(f"spec (kv {kv}): {json.dumps(out['spec'])}, accept ewma "
+        f"{out['spec_accept_ewma']:.3f}; peak over the phase {out['peak_bytes']} bytes "
+        f"(estimate {out['estimate_total']})")
+    if out["spec"]["verifies"] <= 0 or out["spec"]["accepted"] <= 0:
+        raise AssertionError(f"spec on: no verify or no accepted draft: {out['spec']}")
+    for c in out["chats"]:
+        if c["texts"][0] != c["texts"][1]:
+            raise AssertionError(f"spec on: two greedy runs of one chat differ: {c['texts']}")
+    if cuda and not out["peak_bytes"] <= out["estimate_total"]:
+        raise AssertionError(f"spec phase peak {out['peak_bytes']} above the estimate "
+                             f"{out['estimate_total']}")
+    return out
+
+
+def divergence(torch, eng, prompt_ids, ids_a, ids_b) -> dict | None:
+    """Where two greedy id streams of one prompt first differ, and the
+    logit margin there (the two tokens' logits, and the top two) of a fresh
+    prefill of the prompt and the common ids through ``eng``'s model."""
+    from nats_llm_studio_tpu_torch.models.llama import forward, make_cache
+
+    j = next((i for i, (x, y) in enumerate(zip(ids_a, ids_b)) if x != y), None)
+    if j is None:
+        return None if len(ids_a) == len(ids_b) else {"position": min(len(ids_a), len(ids_b)),
+                                                      "lengths": [len(ids_a), len(ids_b)]}
+    seq = list(prompt_ids) + list(ids_a[:j])
+    n = len(seq)
+    width = 1 << (n - 1).bit_length()
+    cfg, params = eng.cfg, eng.batcher.params
+    dev = params["embed"].device
+    k1, v1 = make_cache(cfg, 1, width, device=dev)
+    toks = torch.tensor([seq + [0] * (width - n)], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, _, _ = forward(params, cfg, toks, k1, v1, torch.zeros((1,), dtype=torch.int32),
+                               logit_positions=torch.tensor([n - 1]), fresh_prefill=True)
+    row = logits[0, 0].float()
+    top = torch.topk(row, 2).values.tolist()
+    return {"position": j, "tokens": [int(ids_a[j]), int(ids_b[j])],
+            "logits": [float(row[ids_a[j]]), float(row[ids_b[j]])], "top2": top,
+            "top2_margin": top[0] - top[1]}
+
+
+async def spec_off_phase(torch, h: Served, registry, on: dict, sink: list) -> dict:
+    """The SPEC_CHATS once each with SPEC_DECODE=0 (information: decode tok/s
+    against spec on, and whether the texts equal spec on's; where they
+    differ, the first divergent position and its logit margin). Gate: no
+    verify ran."""
+    b = registry.loaded_engines()[MID].batcher
+    if b.spec_cfg is not None:
+        raise AssertionError("SPEC_DECODE=0 left speculative decoding on")
+    out = await spec_chats(h, registry, 1, sink)
+    eng = registry.loaded_engines()[MID]
+    kv = b.cfg.kv_quant
+    for i, (c, con) in enumerate(zip(out["chats"], on["chats"])):
+        (prompt, ids_off), (_, ids_on) = c["ids"][0], con["ids"][0]
+        c["same_text_as_spec_on"] = c["texts"][0] == con["texts"][0]
+        c["divergence"] = divergence(torch, eng, prompt, ids_on, ids_off)
+        log(f"spec (kv {kv}): chat {i} spec off: {c['completion_tokens']} tokens, decode "
+            f"{c['tok_s']} tok/s (spec on {con['tok_s']}); text equal to spec on's: "
+            f"{c['same_text_as_spec_on']}; divergence {c['divergence']}")
+    if any(out["spec"][k] for k in ("verifies", "drafted", "accepted")):
+        raise AssertionError(f"SPEC_DECODE=0 still verified: {out['spec']}")
+    for c in out["chats"] + on["chats"]:
+        c.pop("ids")
+    return out
+
+
+async def ext_phase(h: Served, registry) -> dict:
+    """Schema constraints, logprobs and n choices through the worker (the
+    SPEC_DECODE=0 registry: the ride-along gate compares a stream beside
+    the ext regime's single steps with the same stream alone, and both
+    must run the same single-token forward). Gates: a json_schema chat at
+    temperature 0.9 returns JSON that meets EXT_SCHEMA; a logprobs chat
+    with top_logprobs=3 at temperature 0 has one entry a token, its top
+    entry the chosen token; an n=2 chat over a >256-token prompt returns two
+    choices and the prefix cache's hits grew; a greedy stream beside a
+    constrained chat gives its text alone."""
+    b = registry.loaded_engines()[MID].batcher
+    out: dict = {}
+    rf = {"type": "json_schema", "json_schema": {"name": "person", "schema": EXT_SCHEMA}}
+
+    def meets_schema(text: str) -> dict:
+        doc = json.loads(text)
+        if not (isinstance(doc, dict) and set(doc) <= {"age", "tag"}
+                and (type(doc.get("age", 0)) is int) and doc.get("tag", "alpha") in
+                ("alpha", "beta")):
+            raise AssertionError(f"the constrained output does not meet the schema: {text!r}")
+        return doc
+
+    calls0 = b.stats.program_calls.get("decode_pos_pallas_ext", 0)
+    r = await h.chat("Describe a harbour pilot as JSON.", 80, temperature=0.9, seed=7,
+                     response_format=rf)
+    text = r["choices"][0]["message"]["content"]
+    out["schema"] = dict(text=text, doc=meets_schema(text), tokens=r["usage"]["completion_tokens"],
+                         finish=r["choices"][0]["finish_reason"],
+                         ext_steps=b.stats.program_calls.get("decode_pos_pallas_ext", 0) - calls0)
+    log(f"ext: json_schema chat at temperature 0.9: {text!r} ({out['schema']['tokens']} tokens, "
+        f"finish {out['schema']['finish']}, {out['schema']['ext_steps']} ext steps)")
+
+    r = await h.chat("Say something about the sea.", 16, logprobs=True, top_logprobs=3)
+    content = r["choices"][0]["logprobs"]["content"]
+    n_out = r["usage"]["completion_tokens"]
+    if len(content) != n_out or any(len(e["top_logprobs"]) != 3
+                                    or e["top_logprobs"][0]["token"] != e["token"]
+                                    for e in content):
+        raise AssertionError(f"logprobs: {n_out} tokens, entries {content}")
+    out["logprobs"] = dict(tokens=n_out, first=content[0])
+    log(f"ext: logprobs chat at temperature 0: {n_out} tokens, one entry each, the top entry "
+        f"the chosen token; first {json.dumps(content[0])[:200]}")
+
+    hits0 = b.prefix_cache.counters()["hits"]
+    long_text = ("The pilot boards each ship outside the breakwater and brings it in to "
+                 "its berth. " * 6)[:480]
+    r = await h.chat(long_text, 12, n=2)
+    hits = b.prefix_cache.counters()["hits"] - hits0
+    out["n2"] = dict(prompt_tokens=r["usage"]["prompt_tokens"], choices=len(r["choices"]),
+                     hits=hits, same_text=len({c["message"]["content"]
+                                               for c in r["choices"]}) == 1)
+    log(f"ext: n=2 chat: {json.dumps(out['n2'])}")
+    if r["usage"]["prompt_tokens"] <= 256 or len(r["choices"]) != 2 or hits < 1:
+        raise AssertionError(f"n=2: {out['n2']}")
+
+    rider = "Count slowly from one to thirty."
+    alone, _, _ = await h.stream(rider, 64)
+    first = asyncio.Event()
+    live = asyncio.ensure_future(h.stream(rider, 64, first))
+    await asyncio.wait_for(first.wait(), 300)
+    calls0 = b.stats.program_calls.get("decode_pos_pallas_ext", 0)
+    c = await h.chat("Describe a harbour pilot as JSON.", 80, temperature=0.9, seed=8,
+                     response_format=rf)
+    beside, _, _ = await live
+    meets_schema(c["choices"][0]["message"]["content"])
+    ta, tb = (x["choices"][0]["message"]["content"] for x in (alone, beside))
+    out["ride_along"] = dict(same_text=ta == tb, tokens=beside["usage"]["completion_tokens"],
+                             ext_steps=b.stats.program_calls.get("decode_pos_pallas_ext", 0)
+                             - calls0)
+    log(f"ext: a greedy stream beside a constrained chat: {json.dumps(out['ride_along'])}")
+    if ta != tb:
+        raise AssertionError(f"the stream beside a constrained chat differs from alone: "
+                             f"{ta!r} vs {tb!r}")
+    return out
+
+
 # which kernel each KV mode's serve phase must launch, and must not
 EXPECTED = {
     "none": (("paged_decode_attention", "flash_attention", "flash_attention_chunk"),
@@ -1053,18 +1452,35 @@ EXPECTED = {
 }
 
 
-def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters) -> dict:
-    """Load the GGUF with the KV cache ``kv_quant``, gate its logits, profile
-    a decode step, then serve the chats with every launch counter set to 0
-    just before and read just after. Closes the engine and frees the card
-    before it returns."""
+def allocated(torch) -> int:
+    if not torch.cuda.is_available():
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters,
+               device: str = "cuda") -> dict:
+    """Load the GGUF with the KV cache ``kv_quant`` (speculative decoding
+    on: the registry's default), gate its logits, profile a decode step and
+    a verify, then serve with every launch counter set to 0 just before and
+    read just after: the serve chats and the spec phase with spec on, then,
+    in a registry built under SPEC_DECODE=0 (the first closed), the spec
+    phase's chats once, under the bf16 KV cache the ext phase, and the
+    prefix-cache phase (its gates compare a prefix hit with its miss beside
+    a live stream, whose steps must take the same forward). Closes the
+    engines and frees the card before it returns."""
     import gc
 
     from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
     from nats_llm_studio_tpu_torch.store import ModelStore
 
-    registry = TorchRegistry(ModelStore(model_root), device="cuda", max_seq_len=4096,
+    def make_registry():
+        return TorchRegistry(ModelStore(model_root), device=device, max_seq_len=4096,
                              max_batch_slots=8, kv_quant=kv_quant)
+
+    base = allocated(torch)
+    registry = make_registry()
     t0 = time.perf_counter()
     gate = model_phase(torch, registry, seed)
     eng = gate.pop("engine")
@@ -1072,16 +1488,47 @@ def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters) -> d
     log(f"model (kv {kv_quant}): {eng.cfg.n_layers} layers at Llama-3-8B widths, loaded and "
         f"checked in {time.perf_counter() - t0:.1f} s; max_seq {eng.batcher.max_seq}, "
         f"pool {pool}")
-    prof = decode_profile(torch, eng)
+    prof = decode_profile(torch, eng) if device == "cuda" else {}
+    sink: list = []
+    record_ids(eng.batcher, sink)
     del eng
     for f in counters:
         f.launches = 0
-    served = asyncio.run(serve_phase(registry, seed))
+
+    async def spec_on():
+        async with Served(registry) as h:
+            return await serve_chats(h, registry, seed), await spec_phase(torch, h, registry,
+                                                                          base, sink)
+
+    served, spec = asyncio.run(spec_on())
+    asyncio.run(registry.close())
+    del registry
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    os.environ["SPEC_DECODE"] = "0"
+    try:
+        registry = make_registry()
+    finally:
+        os.environ.pop("SPEC_DECODE")
+
+    async def spec_off():
+        async with Served(registry) as h:
+            record_ids((await registry.get_engine(MID)).batcher, sink)
+            off = await spec_off_phase(torch, h, registry, spec, sink)
+            ext = await ext_phase(h, registry) if kv_quant == "none" else None
+            # last: it ends by dropping the prefix cache for good
+            prefix = await prefix_phase(registry, h.chat, h.stream, seed)
+            return off, prefix, ext
+
+    spec_off, prefix, ext = asyncio.run(spec_off())
+    served["prefix"] = prefix
     launches = {f.__name__: f.launches for f in counters}
     log(f"serve (kv {kv_quant}): kernel launches {launches}")
     must, must_not = EXPECTED[kv_quant]
     for name in must:
-        if launches[name] <= 0:
+        if device == "cuda" and launches[name] <= 0:
             raise AssertionError(f"kv {kv_quant}: {name} was not launched on the main path")
     for name in must_not:
         if launches[name] != 0:
@@ -1089,8 +1536,10 @@ def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters) -> d
     asyncio.run(registry.close())
     del registry
     gc.collect()
-    torch.cuda.empty_cache()
-    return dict(gate=gate, pool=pool, prof=prof, served=served, launches=launches)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(gate=gate, pool=pool, prof=prof, served=served, launches=launches,
+                spec=dict(on=spec, off=spec_off), ext=ext)
 
 
 # -- phases 3 and 6: the model lifecycle ---------------------------------------
@@ -1209,12 +1658,6 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
 
     cuda = device == "cuda"
 
-    def allocated() -> int:
-        if not cuda:
-            return 0
-        torch.cuda.synchronize()
-        return torch.cuda.memory_allocated()
-
     def estimate(n_layers: int) -> dict:
         c = widths
         cfg = ModelConfig(vocab_size=c["vocab"], d_model=c["d_model"], n_layers=n_layers,
@@ -1258,13 +1701,13 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
         out["budget_bytes"] = h.registry.budget_bytes()
         log(f"lifecycle: admission budget read from the card: {out['budget_bytes']} bytes; "
             f"estimate for {MID}: {big}")
-        base = allocated()
+        base = allocated(torch)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         await h.registry.get_engine(MID)
         out["load_s"] = time.perf_counter() - t0
-        resident = allocated() - base
+        resident = allocated(torch) - base
         out.update(estimate=big, resident_bytes=resident)
         gate(abs(resident - big["params"] - big["kv_pool"]) <= 0.01 * (big["params"]
                                                                        + big["kv_pool"]),
@@ -1274,7 +1717,7 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
         long_text = ("The harbour town kept its records in a long ledger. " * 80)[:3980]
         data = ok(await h.chat(MID, long_text, 4), "long chat")
         out["long_prompt_tokens"] = data["response"]["usage"]["prompt_tokens"]
-        out["peak_bytes"] = (torch.cuda.max_memory_allocated() - base) if cuda else 0
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated(torch) - base) if cuda else 0
         log(f"lifecycle: {MID} loaded in {out['load_s']:.2f} s; resident {resident} bytes "
             f"(estimate params + pool {big['params'] + big['kv_pool']}); peak over the load "
             f"and a {out['long_prompt_tokens']}-token chat {out['peak_bytes']} bytes (estimate "
@@ -1291,7 +1734,7 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
             ok(r, "group chat")
         out["group_admits"] = batcher.stats.chunked_group_admits - g0
         out["group_prompt_tokens"] = [r["data"]["response"]["usage"]["prompt_tokens"] for r in rs]
-        out["group_peak_bytes"] = (torch.cuda.max_memory_allocated() - base) if cuda else 0
+        out["group_peak_bytes"] = (torch.cuda.max_memory_allocated(torch) - base) if cuda else 0
         log(f"lifecycle: four concurrent chats of {out['group_prompt_tokens']} tokens, "
             f"{out['group_admits']} admitted by one chunked group; peak over the load and "
             f"every chat {out['group_peak_bytes']} bytes (estimate total {big['total']})")
@@ -1324,9 +1767,9 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
             # cache before any eviction: its blocks are back in the pool
             freed["pool"] = eng.batcher.pool_stats()
             freed["prefix_blocks"] = eng.batcher.prefix_cache.blocks
-            before = allocated()
+            before = allocated(torch)
             await unload()
-            freed["evict"] = before - allocated()
+            freed["evict"] = before - allocated(torch)
 
         eng.unload = measured_unload
         ok(await h.chat(MID2, "hello", 4), f"chat to {MID2} once {MID} idles")
@@ -1348,9 +1791,9 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
              "eviction returned too few bytes")
 
         # (d) delete_model of the loaded model frees it; the model is gone
-        before = allocated()
+        before = allocated(torch)
         ok(await h.req("delete_model", {"model_id": MID2}), "delete_model")
-        out["delete_freed_bytes"] = before - allocated()
+        out["delete_freed_bytes"] = before - allocated(torch)
         env = await h.chat(MID2, "hello", 4)
         if env.get("ok") or "model not found" not in env.get("error", ""):
             raise AssertionError(f"a chat after delete_model: {env}")
@@ -1464,8 +1907,8 @@ def main() -> int:
             "replaces": src[wrapper][1], "design": src[wrapper][2], "shape": r["shape"],
             # the wrapper's launches over both serve phases and the lifecycle
             # phase (K2 serves both KV modes), at whatever shapes they ran: a
-            # second row of one wrapper (@T4096, @KW4096) reports the same
-            # counter, named by launches_of
+            # second row of one wrapper (@T4096, @KW4096, @W7, ...) reports
+            # the same counter, named by launches_of
             "launches": sum(p["launches"][wrapper] for p in paths.values())
             + lifecycle["launches"][wrapper],
             "launches_of": wrapper,
@@ -1484,6 +1927,9 @@ def main() -> int:
             "decode_profile": {k: v for k, v in p["prof"].items() if k != "top"},
             "prefix": p["served"]["prefix"],
             "group_gate": p["gate"]["group"],
+            "verify_gate": p["gate"]["verify"],
+            "spec": p["spec"],
+            "ext": p["ext"],
         }
     summary["lifecycle"] = lifecycle
     log(json.dumps(summary))

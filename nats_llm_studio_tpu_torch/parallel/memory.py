@@ -219,6 +219,9 @@ def estimate_load_bytes(cfg: ModelConfig, max_slots: int = 8,
       [mpad, C] chunk, the per-chunk logits kept for the prefix cache
       (``ceil(max_seq / C) * mpad * V * 4``), the selected prompt-end rows
       and one row's copies of its chunk-end rows.
+      A speculative verify's [B, k+1, V] f32 logits, weights and noise run
+      between admits, never beside one, and sit below either term: no term
+      of their own.
     """
     seq = min(max_seq_len or cfg.max_seq_len, cfg.max_seq_len)
     chunk, t = serving_geometry(seq)

@@ -29,7 +29,20 @@ the same admit regimes:
   into a block that is still shared copies it first (``pool_copy_block``);
 * decode runs bursts of single-token ``forward_decode_paged`` steps (K1)
   plus ``sample_rows`` (``decode_pos_pallas``), with each slot's block
-  table grown ahead of the burst.
+  table grown ahead of the burst;
+* with ``spec_decode_k`` > 0 and 1..``spec_max_active`` live slots, decode
+  verifies prompt-lookup drafts instead (``serve/spec.py``): one
+  ``forward_decode_paged`` of width k+1 (K1 with W = k+1 query rows a
+  slot) and ``spec_accept_rows`` (``spec_verify_pallas``), emitting up to
+  k+1 tokens a slot a dispatch. Rejected drafts' pool rows are stale by
+  position and are overwritten by the slot's next writes;
+* while a constrained (``response_format``) or logprob request is live,
+  every slot decodes one masked step a dispatch (``decode_pos_pallas_ext``):
+  the mask of a constrained row comes from its ``TokenDFA`` state
+  (``serve/constrain.py``), advanced on the host at readback, and each step
+  reads back the chosen token's logprob and the top ``LOGPROBS_K``. Such a
+  request's admit drops its first token and steps back one position, so
+  token 0 is sampled under the mask too (the rewind).
 
 Under ``cfg.kv_quant == "int8"`` the pool and the transient row caches are
 KVQ pairs (int8 codes + f32 scales): rows are quantized as they are
@@ -42,10 +55,9 @@ steps (the reference scans them on device); kernel launches queue on the
 current stream in program order, and the host reads tokens back one burst
 behind.
 
-Not ported yet: speculative decode, the ext path (constraints, logprobs,
-n>1), KV tiers (prefix demotion and promotion), slot suspend and parking,
-QoS and brownout, deadline propagation and the legacy contiguous-KV
-layout.
+Not ported yet: KV tiers (prefix demotion and promotion), slot suspend
+and parking, QoS and brownout, deadline propagation, the device-time
+ledger and the legacy contiguous-KV layout.
 """
 
 from __future__ import annotations
@@ -60,11 +72,12 @@ import time
 from dataclasses import dataclass, field
 from typing import AsyncIterator
 
+import numpy as np
 import torch
 
 from ..device import torch_dtype
 from ..engine.generator import SamplingParams, default_buckets
-from ..engine.sampling import sample_rows
+from ..engine.sampling import logprob_rows, sample_rows, spec_accept_rows
 from ..models.config import ModelConfig
 from ..models.llama import (
     ensure_lm_head,
@@ -72,6 +85,7 @@ from ..models.llama import (
     forward_decode_paged,
     make_cache,
 )
+from ..obs import LogHistogram
 from ..obs import emit as obs_emit
 from ..ops.kvcache import (
     KVQ,
@@ -86,6 +100,7 @@ from ..ops.kvcache import (
 from ..parallel.memory import KV_BLOCK_TOKENS, PREFILL_CHUNK, serving_geometry
 from .block_pool import BlockPool
 from .prefix_cache import PrefixCache
+from .spec import SpecConfig, SpecSlot, make_slot
 
 log = logging.getLogger(__name__)
 
@@ -93,6 +108,10 @@ log = logging.getLogger(__name__)
 # chunked admit must neither deliver tokens for it nor hand it to another
 # admit
 _RESERVED = object()
+
+# how many top-logprob (id, logprob) pairs the ext program reads back a
+# step; OpenAI caps top_logprobs requests below this
+LOGPROBS_K = 8
 
 
 class BatcherStopped(RuntimeError):
@@ -119,6 +138,23 @@ class _Request:
     generated: int = 0
     t_enq: float = 0.0
     cancelled: bool = False
+    # -- the ext regime: a TokenDFA when response_format asks for schema-
+    # constrained output, with its current state (advanced on the host at
+    # readback; the device sees only the state's vocab mask), and the
+    # logprob readback
+    constrain: object | None = None
+    cstate: int = 0
+    want_logprobs: bool = False
+    top_logprobs: int = 0
+    # the rewind: an ext admit drops its first token, steps back one
+    # position and re-runs prompt[-1] through the masked ext program
+    rewound: bool = False
+    # token ids delivered to the consumer, in order
+    emitted: list = field(default_factory=list)
+
+    @property
+    def is_ext(self) -> bool:
+        return self.constrain is not None or self.want_logprobs
 
     def emit(self, kind: str, value) -> None:
         self.loop.call_soon_threadsafe(self.out.put_nowait, (kind, value))
@@ -135,6 +171,15 @@ class BatcherStats:
     # requests admitted through a batched short / batched chunked admit
     grouped_admits: int = 0
     chunked_group_admits: int = 0
+    # speculative decoding: verify dispatches, draft tokens sent to them and
+    # drafts the model's own distribution kept; the per-verify accepted
+    # share (0 clamped to the bottom bucket) and its moving average
+    spec_verifies: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_accept_rate: LogHistogram = field(
+        default_factory=lambda: LogHistogram(lo=0.01, hi=1.0, growth=1.25))
+    spec_accept_ewma: float = 0.0
     # per-program host dispatch time (ms) and dispatch counts, keyed by the
     # reference's program names
     program_ms: dict = field(default_factory=dict)
@@ -143,6 +188,23 @@ class BatcherStats:
     def record_program(self, name: str, ms: float) -> None:
         self.program_ms[name] = self.program_ms.get(name, 0.0) + ms
         self.program_calls[name] = self.program_calls.get(name, 0) + 1
+
+    def spec_counters(self) -> dict[str, int]:
+        """Speculative-decoding counters (the reference's
+        ``lmstudio_spec_*_total`` families)."""
+        return {
+            "verifies": self.spec_verifies,
+            "drafted": self.spec_drafted,
+            "accepted": self.spec_accepted,
+        }
+
+    def record_spec(self, drafted: int, accepted: int) -> None:
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        rate = accepted / drafted
+        self.spec_accept_rate.record(max(rate, 0.01))
+        prev = self.spec_accept_ewma
+        self.spec_accept_ewma = rate if prev == 0.0 else 0.8 * prev + 0.2 * rate
 
     def snapshot(self) -> dict:
         return {
@@ -154,6 +216,10 @@ class BatcherStats:
             "shed": self.shed,
             "grouped_admits": self.grouped_admits,
             "chunked_group_admits": self.chunked_group_admits,
+            "spec_verifies": self.spec_verifies,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_ewma": round(self.spec_accept_ewma, 3),
             "program_calls": dict(self.program_calls),
             "program_ms": {k: round(v, 3) for k, v in self.program_ms.items()},
         }
@@ -176,8 +242,10 @@ class ContinuousBatcher:
     arrival for more, so a burst admits as one batch), ``max_group_admit``
     (8 short prompts a batched admit), ``max_group_long`` (4 long prompts a
     batched chunked admit), ``prefix_cache_blocks`` (0 = no prefix cache;
-    the registry passes 64) and ``kv_pool_blocks`` (0 = every slot at
-    max_seq plus the prefix budget)."""
+    the registry passes 64), ``kv_pool_blocks`` (0 = every slot at
+    max_seq plus the prefix budget), ``spec_decode_k`` (0 = no speculative
+    decoding; the registry passes 6) and ``spec_max_active`` (4: verify
+    dispatches run at 1..4 live slots)."""
 
     # the reference's serving defaults: 256-token prefill chunks, decode
     # bursts of 8 steps, 16-token KV blocks
@@ -189,7 +257,8 @@ class ContinuousBatcher:
                  max_seq_len: int | None = None, prefill_chunk: int | None = None,
                  decode_burst: int | None = None, admit_coalesce_ms: float = 3.0,
                  max_group_admit: int = 8, max_group_long: int = 4,
-                 prefix_cache_blocks: int = 0, kv_pool_blocks: int = 0):
+                 prefix_cache_blocks: int = 0, kv_pool_blocks: int = 0,
+                 spec_decode_k: int = 0, spec_max_active: int = 4):
         self.params = ensure_lm_head(params)
         self.cfg = cfg
         self.device = self.params["embed"].device
@@ -221,6 +290,9 @@ class ContinuousBatcher:
         # the pool pair [NB, L, Hkv, T, D], written in place by every program
         self._kv = self._new_kv_pool()
         self.stats = BatcherStats()
+        self.spec_cfg: SpecConfig | None = (
+            SpecConfig(k=spec_decode_k, max_active=max(1, spec_max_active))
+            if spec_decode_k > 0 else None)
         # the prefix cache's nodes hold (pool epoch, block ids) payloads: a
         # harvest is an incref, an eviction a decref, and payloads minted
         # before a pool reset free as no-ops
@@ -258,6 +330,10 @@ class ContinuousBatcher:
         self._fill_row_chunk = self._timed("fill_row_chunk", self._fill_row_chunk_fn)
         self._pool_copy_block = self._timed("pool_copy_block", self._pool_copy_block_fn)
         self._decode_pos_pallas = self._timed("decode_pos_pallas", self._decode_pos_pallas_fn)
+        self._decode_pos_pallas_ext = self._timed("decode_pos_pallas_ext",
+                                                  self._decode_pos_pallas_ext_fn)
+        self._spec_verify_pallas = self._timed("spec_verify_pallas",
+                                               self._spec_verify_pallas_fn)
 
         self._inbox: _queue.Queue = _queue.Queue()
         self._cancels: _queue.Queue = _queue.Queue()
@@ -396,6 +472,35 @@ class ContinuousBatcher:
             out.append(tok)
         return torch.stack(out, dim=1), tok
 
+    def _decode_pos_pallas_ext_fn(self, tok, KP, VP, tbl, pos, seeds, steps, temp, topk,
+                                  topp, mask):
+        """One masked single-token step (K1) with the logprob readback.
+        Returns (tokens [B], chosen logprobs [B], top ids [B, LOGPROBS_K],
+        top logprobs [B, LOGPROBS_K]); the tokens are the next carry."""
+        logits, KP, VP = forward_decode_paged(
+            self.params, self.cfg, tok[:, None], KP, VP, tbl, pos,
+        )
+        raw = logits[:, -1, :]
+        nxt = sample_rows(raw, seeds, steps, temp, topk, topp, mask=mask)
+        lp, top_ids, top_lp = logprob_rows(raw, nxt, LOGPROBS_K)
+        return nxt, lp, top_ids, top_lp
+
+    def _spec_verify_pallas_fn(self, tok, KP, VP, tbl, pos, drafts, dlen, seeds, steps,
+                               temp, topk, topp):
+        """Verify: the carry token and the k drafts as one width-(k+1)
+        paged forward (K1 with W = k+1 query rows a slot), then the
+        acceptance rule (``dlen``: each row's valid drafts, a host list like
+        the seeds, steps and sampling settings). Returns (tokens [B, k+1],
+        n_emit [B], the next carry [B]); row b's next position is
+        pos + n_emit."""
+        toks_in = torch.cat([tok[:, None], drafts], dim=1)
+        logits, KP, VP = forward_decode_paged(
+            self.params, self.cfg, toks_in, KP, VP, tbl, pos,
+        )
+        out, n_emit = spec_accept_rows(logits, drafts, dlen, seeds, steps, temp, topk, topp)
+        new_tok = torch.gather(out, 1, (n_emit.long() - 1)[:, None])[:, 0]
+        return out, n_emit, new_tok
+
     def _timed(self, name: str, fn):
         """Record every dispatch's host time under the program ``name``."""
         stats = self.stats
@@ -532,14 +637,17 @@ class ContinuousBatcher:
 
     # -- submission ----------------------------------------------------------
 
-    def _enqueue(self, prompt_ids: list[int], sp: SamplingParams) -> _Request:
+    def _enqueue(self, prompt_ids: list[int], sp: SamplingParams, constrain=None,
+                 want_logprobs: bool = False, top_logprobs: int = 0) -> _Request:
         if not prompt_ids:
             raise ValueError("empty prompt")
         if len(prompt_ids) >= self.max_seq:
             raise ValueError(f"prompt of {len(prompt_ids)} tokens >= max_seq {self.max_seq}")
         req = _Request(
             prompt_ids=list(prompt_ids), sp=sp, loop=asyncio.get_running_loop(),
-            out=asyncio.Queue(), t_enq=time.monotonic(),
+            out=asyncio.Queue(), t_enq=time.monotonic(), constrain=constrain,
+            cstate=constrain.start if constrain is not None else 0,
+            want_logprobs=bool(want_logprobs), top_logprobs=int(top_logprobs),
         )
         with self._submit_lock:
             if self._stopping:
@@ -552,22 +660,34 @@ class ContinuousBatcher:
         self._cancels.put(req)
 
     async def submit(self, prompt_ids: list[int], sp: SamplingParams,
-                     info: dict | None = None) -> AsyncIterator[int]:
+                     info: dict | None = None, constrain=None, want_logprobs: bool = False,
+                     top_logprobs: int = 0) -> AsyncIterator[int]:
         """Yield generated token ids for one request; ``info`` receives the
-        end reason ("stop" / "length" / "shutdown") as ``finish_reason``."""
-        async for batch in self.submit_batched(prompt_ids, sp, info=info):
+        end reason ("stop" / "length" / "shutdown") as ``finish_reason``.
+        See ``submit_batched`` for the ext options."""
+        async for batch in self.submit_batched(prompt_ids, sp, info=info, constrain=constrain,
+                                               want_logprobs=want_logprobs,
+                                               top_logprobs=top_logprobs):
             for tok in batch:
                 yield tok
 
     async def submit_batched(self, prompt_ids: list[int], sp: SamplingParams,
-                             info: dict | None = None) -> AsyncIterator[list]:
+                             info: dict | None = None, constrain=None,
+                             want_logprobs: bool = False,
+                             top_logprobs: int = 0) -> AsyncIterator[list]:
         """Like ``submit`` but yields lists: everything delivered since the
-        consumer last woke (a decode burst) comes out as one batch."""
+        consumer last woke (a decode burst) comes out as one batch.
+
+        ``constrain`` is a ``serve/constrain.py`` TokenDFA (schema-constrained
+        decoding); with ``want_logprobs`` each item is a ``(tok, logprob,
+        top_ids, top_logprobs)`` tuple instead of a bare id. Either option
+        routes the request through the masked single-step ext program."""
         if not self._started:
             self.start()
         if not prompt_ids:
             return
-        req = self._enqueue(prompt_ids, sp)
+        req = self._enqueue(prompt_ids, sp, constrain=constrain, want_logprobs=want_logprobs,
+                            top_logprobs=top_logprobs)
         done = False
         try:
             while True:
@@ -622,6 +742,10 @@ class ContinuousBatcher:
         dev = self.device
         KP, VP = self._kv
         coalesce_s = self.admit_coalesce_ms / 1e3
+        spec = self.spec_cfg
+        # each live slot's n-gram index over prompt + delivered tokens,
+        # made at its admit's readback and dropped with the slot
+        spec_slots: list[SpecSlot | None] = [None] * B
         tables: list[list[int]] = [[] for _ in range(B)]
         tbl_dev = torch.zeros((B, MB), dtype=torch.int32, device=dev)
         table_dirty = False
@@ -633,6 +757,8 @@ class ContinuousBatcher:
         host_steps = [0] * B
         host_seed = [0] * B
         # dispatches not read back yet: ("decode", toks, n, rows) |
+        # ("spec", toks, n_emit, [(slot, req, drafted), ...]) |
+        # ("ext", toks, logprobs, top_ids, top_logprobs, rows) |
         # ("admit", firsts, [(row in firsts, slot, req), ...])
         inflight: collections.deque = collections.deque()
         waitlist = self._waitlist
@@ -669,9 +795,16 @@ class ContinuousBatcher:
         def active() -> list[int]:
             return [i for i, r in enumerate(self._slots) if isinstance(r, _Request)]
 
+        def ext_live() -> bool:
+            """A live constrained or logprob slot puts every slot in the ext
+            regime: the burst and verify programs advance every row, so an
+            ext slot cannot sit one out."""
+            return any(isinstance(r, _Request) and r.is_ext for r in self._slots)
+
         def finish_slot(i: int) -> None:
             nonlocal table_dirty
             self._slots[i] = None
+            spec_slots[i] = None
             host_pos[i] = 0
             host_steps[i] = 0
             if tables[i]:
@@ -680,10 +813,13 @@ class ContinuousBatcher:
             table_dirty = True
 
         def deliver_all(req: _Request, slot: int, ids, advance: bool = True) -> None:
+            st = spec_slots[slot]
             try:
                 for t in ids:
                     if advance:  # decode tokens move the slot's position
                         req.pos += 1
+                    if st is not None:
+                        st.index.append(int(t))
                     reason = self._deliver(req, int(t))
                     if reason is not None:
                         finish_slot(slot)  # free BEFORE the end event
@@ -693,29 +829,100 @@ class ContinuousBatcher:
                 log.exception("delivery failed; dropping slot %d", slot)
                 finish_slot(slot)
 
+        def deliver_ext(req: _Request, slot: int, t: int, lp: float, top_ids, top_lps) -> None:
+            """One masked step's token: the DFA advances, and a document the
+            DFA can extend no further ends with "stop"."""
+            st = spec_slots[slot]
+            try:
+                req.pos += 1
+                if st is not None:
+                    st.index.append(t)  # an unconstrained slot riding along
+                dead = False
+                if req.constrain is not None:
+                    nstate = req.constrain.advance(req.cstate, t)
+                    if nstate is not None:
+                        # (None only for an EOS outside an accept state,
+                        # which the mask forbids; _deliver maps stop ids)
+                        req.cstate = nstate
+                    dead = not req.constrain.live(req.cstate)
+                if req.want_logprobs:
+                    reason = self._deliver(req, t, logprob=lp, top_ids=top_ids,
+                                           top_lps=top_lps)
+                else:
+                    reason = self._deliver(req, t)
+                if reason is None and dead:
+                    reason = "stop"
+                if reason is not None:
+                    finish_slot(slot)  # free BEFORE the end event
+                    req.emit("end", reason)
+            except Exception:  # noqa: BLE001 — dead client
+                log.exception("delivery failed; dropping slot %d", slot)
+                finish_slot(slot)
+
+        def gone(slot: int, req: _Request) -> bool:
+            """Whether a record's row no longer needs delivering: the slot
+            moved on, or the consumer left (its slot is freed here)."""
+            if self._slots[slot] is not req:
+                return True
+            if req.cancelled:
+                finish_slot(slot)
+                self.stats.cancelled += 1
+                return True
+            return False
+
         def process_record(rec) -> None:
             if rec[0] == "decode":
                 _, toks, n, rows = rec
                 ids = toks.cpu()  # ONE [B, n] readback per burst
                 for slot, req in rows:
+                    if not gone(slot, req):
+                        deliver_all(req, slot, ids[slot].tolist())
+            elif rec[0] == "spec":
+                _, toks, nacc, rows = rec
+                ids, nacc = toks.cpu(), nacc.cpu()
+                for slot, req, dlen in rows:
                     if self._slots[slot] is not req:
                         continue
-                    if req.cancelled:
-                        finish_slot(slot)
-                        self.stats.cancelled += 1
-                        continue
-                    deliver_all(req, slot, ids[slot].tolist())
+                    n_emit = int(nacc[slot])
+                    # host pos catches up here: a verify's advance depends
+                    # on the data (host_steps moved by k+1 at dispatch)
+                    host_pos[slot] += n_emit
+                    if dlen > 0:
+                        self.stats.record_spec(dlen, n_emit - 1)
+                    if not gone(slot, req):
+                        deliver_all(req, slot, ids[slot, :n_emit].tolist())
+            elif rec[0] == "ext":
+                _, toks, lps, tids, tlps, rows = rec
+                ids, lps, tids, tlps = toks.cpu(), lps.cpu(), tids.cpu(), tlps.cpu()
+                for slot, req in rows:
+                    if not gone(slot, req):
+                        deliver_ext(req, slot, int(ids[slot]), float(lps[slot]),
+                                    tids[slot].tolist(), tlps[slot].tolist())
             else:
                 _, firsts, rows = rec
                 ids = firsts.cpu()  # one readback for the whole admit
                 for j, slot, req in rows:
-                    if self._slots[slot] is not req:
+                    if gone(slot, req):
                         continue
-                    if req.cancelled:
-                        finish_slot(slot)
-                        self.stats.cancelled += 1
+                    if req.is_ext and not req.rewound:
+                        # the rewind: the admit sampled token 0 with no mask
+                        # and no logprobs. Drop it, step the slot back one
+                        # position and put prompt[-1] back on the carry: the
+                        # next ext step re-runs prompt[-1] at n-1 (the write
+                        # repeats the prefill's row; ensure_private copies a
+                        # shared block first) and samples the real token 0
+                        # under the mask, at rng step 0
+                        req.rewound = True
+                        host_pos[slot] -= 1
+                        host_steps[slot] = 0
+                        tok_dev[slot] = req.prompt_ids[-1]
                         continue
-                    deliver_all(req, slot, [int(ids[j])], advance=False)
+                    first = int(ids[j])
+                    deliver_all(req, slot, [first], advance=False)
+                    if spec is not None and self._slots[slot] is req:
+                        # history = prompt + the first token (on the carry,
+                        # not yet written to the pool)
+                        spec_slots[slot] = make_slot(req.prompt_ids, first, spec)
 
         def pump(depth: int = 1) -> None:
             while len(inflight) > depth or (inflight and not active()):
@@ -734,6 +941,106 @@ class ContinuousBatcher:
                     waitlist.remove(req)
                     self.stats.cancelled += 1
 
+        def grow_for(act: list[int], width: int) -> list[int]:
+            """Grow each row's table over the next ``width`` writes and
+            privatize any still-shared block in the write range; a row the
+            pool cannot grow is shed alone, before any dispatch. Returns the
+            rows still active."""
+            for i in act:
+                try:
+                    ensure_blocks(i, host_pos[i] + width)
+                    ensure_private(i, host_pos[i], host_pos[i] + width)
+                except _PoolExhausted as e:
+                    r = self._slots[i]
+                    finish_slot(i)
+                    r.emit("err", e)
+            return active()
+
+        def sampling_lists():
+            live = [r if isinstance(r, _Request) else None for r in self._slots]
+            return ([r.sp.temperature if r else 0.0 for r in live],
+                    [r.sp.top_k if r else 0 for r in live],
+                    [r.sp.top_p if r else 1.0 for r in live])
+
+        def decode_ext_once() -> None:
+            """ONE masked single-step dispatch over every active slot (the
+            ext regime): a constrained row carries its DFA state's vocab
+            mask, every other row bans nothing. One step at a time, because
+            the next mask is a host-side DFA walk over this step's token;
+            the caller drains before and after."""
+            nonlocal tok_dev
+            act = active()
+            if not act:
+                return
+            act = grow_for(act, 1)
+            if not act:
+                return
+            mask = None
+            if any(self._slots[i].constrain is not None for i in act):
+                m = np.ones((B, cfg.vocab_size), dtype=bool)
+                for i in act:
+                    r = self._slots[i]
+                    if r.constrain is not None:
+                        dm = r.constrain.mask(r.cstate)
+                        m[i, :] = False
+                        m[i, : dm.shape[0]] = dm
+                mask = torch.from_numpy(m).to(dev)
+            refresh_tables()
+            pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
+            toks, lps, tids, tlps = self._decode_pos_pallas_ext(
+                tok_dev, KP, VP, tbl_dev, pos, list(host_seed), list(host_steps),
+                *sampling_lists(), mask,
+            )
+            tok_dev = toks
+            self.stats.steps += 1
+            for i in act:
+                host_pos[i] += 1
+                host_steps[i] += 1
+            inflight.append(("ext", toks, lps, tids, tlps, [(i, self._slots[i]) for i in act]))
+
+        def spec_once() -> bool:
+            """ONE verify dispatch when a live slot has a prompt-lookup
+            draft. False (the caller runs a plain burst) when nothing
+            drafted, a row is too close to the cache end for a width-(k+1)
+            write, or no slot is active. The caller drains first (the
+            proposals read each slot's whole history) and after (host pos
+            catches up at the readback)."""
+            nonlocal tok_dev
+            act = active()
+            if not act:
+                return False
+            k = spec.k
+            if max(host_pos[i] for i in act) + k + 1 >= self.max_seq:
+                return False
+            drafts = [[0] * k for _ in range(B)]
+            dlens = [0] * B
+            for i in act:
+                st = spec_slots[i]
+                d = st.index.propose(k) if st is not None else []
+                if d:
+                    drafts[i][: len(d)] = d
+                    dlens[i] = len(d)
+            if not any(dlens):
+                return False  # nothing to verify: a plain burst is cheaper
+            # the verify writes k+1 rows a slot; the rows past the accepted
+            # ones are stale by position, but may land in a block the prefix
+            # cache still shares, so the whole range is privatized
+            if grow_for(act, k + 1) != act:
+                return False  # a row was shed: the plain burst re-scans
+            refresh_tables()
+            pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
+            out, nacc, tok_dev = self._spec_verify_pallas(
+                tok_dev, KP, VP, tbl_dev, pos,
+                torch.tensor(drafts, dtype=torch.int32, device=dev), dlens,
+                list(host_seed), list(host_steps), *sampling_lists(),
+            )
+            self.stats.steps += 1
+            self.stats.spec_verifies += 1
+            for i in act:
+                host_steps[i] += k + 1  # host_pos moves at the readback
+            inflight.append(("spec", out, nacc, [(i, self._slots[i], dlens[i]) for i in act]))
+            return True
+
         def decode_once() -> None:
             nonlocal tok_dev
             act = active()
@@ -742,28 +1049,14 @@ class ContinuousBatcher:
             # no row may run past the cache: near capacity, single steps
             headroom = self.max_seq - 1 - max(host_pos[i] for i in act)
             n = self.decode_burst if headroom >= self.decode_burst else 1
-            # grow each row's table over this burst's writes and privatize
-            # any still-shared block in the write range; a row the pool
-            # cannot grow is shed alone, before any dispatch
-            for i in act:
-                try:
-                    ensure_blocks(i, host_pos[i] + n)
-                    ensure_private(i, host_pos[i], host_pos[i] + n)
-                except _PoolExhausted as e:
-                    r = self._slots[i]
-                    finish_slot(i)
-                    r.emit("err", e)
-            act = active()
+            act = grow_for(act, n)
             if not act:
                 return
             refresh_tables()
-            live = [r if isinstance(r, _Request) else None for r in self._slots]
             pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
             toks, tok_dev = self._decode_pos_pallas(
                 tok_dev, KP, VP, tbl_dev, pos, list(host_seed), list(host_steps),
-                [r.sp.temperature if r else 0.0 for r in live],
-                [r.sp.top_k if r else 0 for r in live],
-                [r.sp.top_p if r else 1.0 for r in live], n,
+                *sampling_lists(), n,
             )
             self.stats.steps += n
             for i in act:
@@ -805,7 +1098,7 @@ class ContinuousBatcher:
                 )
                 if chunk_logits is not None and start + C <= n:
                     chunk_logits[start // C] = logits
-                if start + C < n:
+                if start + C < n and not ext_live():
                     decode_once()
                     pump()
             return logits
@@ -1037,7 +1330,7 @@ class ContinuousBatcher:
                     final = self._select_end(final, logits, end_chunk == j)
                     if glogits is not None:
                         glogits.append(logits)
-                    if start + C < max(ns):
+                    if start + C < max(ns) and not ext_live():
                         decode_once()
                         pump()
                 # tables before the harvest, which records their block ids
@@ -1075,6 +1368,7 @@ class ContinuousBatcher:
                 if isinstance(r, _Request):
                     r.emit("err", err)
                 self._slots[i] = None
+                spec_slots[i] = None
                 host_pos[i] = 0
                 host_steps[i] = 0
                 tables[i] = []
@@ -1120,7 +1414,8 @@ class ContinuousBatcher:
                            and len(waitlist[0].prompt_ids) > C
                            and not peek_hit(waitlist[0])):
                         group.append(waitlist.pop(0))
-                    if not head_hit and len(group) < cap and not waitlist and coalesce_s > 0:
+                    if (not head_hit and len(group) < cap and not waitlist and coalesce_s > 0
+                            and not ext_live()):
                         # a chunked admit costs far more than a short wait:
                         # top up with long prompts arriving right behind
                         # (as a decode burst when streams are live)
@@ -1246,20 +1541,45 @@ class ContinuousBatcher:
                 # is queued behind it, so TTFT does not wait a whole burst
                 if any(rec[0] == "admit" for rec in inflight):
                     pump(0)
-                decode_once()
-                pump()
+                if ext_live():
+                    # pump(0) first, so an ext admit's rewind lands before
+                    # its first masked step; after, so the DFA state moves
+                    # before the next mask is built
+                    pump(0)
+                    decode_ext_once()
+                    pump(0)
+                elif spec is not None and 0 < len(active()) <= spec.max_active:
+                    # low occupancy: drain (proposals read the whole
+                    # history), verify, drain again (host pos catches up at
+                    # the readback); a plain burst when nothing drafted
+                    pump(0)
+                    if spec_once():
+                        pump(0)
+                    else:
+                        decode_once()
+                        pump()
+                else:
+                    decode_once()
+                    pump()
             except Exception:  # noqa: BLE001 — the pool may be half written
                 log.exception("decode dispatch failed")
                 reset_after_failed_dispatch()
 
-    def _deliver(self, req: _Request, tok_id: int) -> str | None:
+    def _deliver(self, req: _Request, tok_id: int, logprob: float | None = None,
+                 top_ids: list | None = None, top_lps: list | None = None) -> str | None:
         """Push one token; returns the end reason when the request just
-        finished (the caller frees the slot, then emits the end)."""
+        finished (the caller frees the slot, then emits the end). A
+        ``want_logprobs`` request receives ``(tok, logprob, top_ids,
+        top_logprobs)`` tuples (the ext readback supplies the fields)."""
         if tok_id in req.sp.stop_ids:
             return "stop"
         req.generated += 1
         self.stats.tokens += 1
-        req.emit("tok", tok_id)
+        if req.want_logprobs:
+            req.emit("tok", (tok_id, logprob, top_ids, top_lps))
+        else:
+            req.emit("tok", tok_id)
+        req.emitted.append(int(tok_id))
         if req.generated >= req.sp.max_tokens or req.pos + 1 >= self.max_seq:
             return "length"
         return None

@@ -13,14 +13,17 @@ least recently used first to make room, and a load that still does not fit
 is refused with an error instead of running the card out of memory in the
 middle of serving another model. Every batcher gets the prefix cache
 (``PREFIX_CACHE_BLOCKS``, 64 blocks by default; ``PREFIX_CACHE=0`` turns
-it off). ``TorchChatEngine`` keeps ``JaxChatEngine``'s ``chat`` /
-``chat_stream`` / ``_completion`` reply shapes over the port's batcher.
+it off) and speculative decoding (``SPEC_DECODE_K``, 6 drafts by default,
+at up to ``SPEC_DECODE_MAX_ACTIVE`` = 4 live slots; ``SPEC_DECODE=0``
+turns it off). ``TorchChatEngine`` keeps ``JaxChatEngine``'s ``chat`` /
+``chat_stream`` / ``_completion`` reply shapes over the port's batcher,
+with its OpenAI extensions: ``response_format`` (schema-constrained
+decoding, ``serve/constrain.py``), ``logprobs`` / ``top_logprobs`` and
+``n`` choices (siblings admitted over the prefix cache), validated with the
+reference's error strings.
 
 Not ported yet: the mesh gate and precompile at pull time, engine
-supervision and restarts, spec decode, KV tiers and QoS. A chat that asks
-for a feature this port does not serve (``response_format``, ``logprobs``,
-``top_logprobs``, ``n`` > 1) gets an error naming the field instead of
-having it ignored.
+supervision and restarts, deadlines, KV tiers and QoS.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import asyncio
 import logging
 import os
 import time
+from dataclasses import replace as dc_replace
 from typing import Any, AsyncIterator
 
 import torch
@@ -43,13 +47,12 @@ from ..parallel.memory import estimate_load_bytes
 from ..store.manager import ModelStore, StoreError
 from ..utils.nuid import next_nuid
 from .api import ChatEngine, EngineError, ModelNotFound, Registry
-from .batcher import BatcherOverloaded, BatcherStopped, ContinuousBatcher
+from . import constrain as constrain_mod
+from .batcher import LOGPROBS_K, BatcherOverloaded, BatcherStopped, ContinuousBatcher
+from .constrain import ConstraintError, compile_token_dfa, validate_response_format
 from .template import render_chat_template, stop_token_ids
 
 log = logging.getLogger(__name__)
-
-# request fields of features this port does not serve yet
-UNSUPPORTED_FIELDS = ("response_format", "logprobs", "top_logprobs")
 
 
 def _prefix_cache_blocks_env(default: int = 64) -> int:
@@ -65,6 +68,32 @@ def _prefix_cache_blocks_env(default: int = 64) -> int:
         except ValueError:
             log.warning("ignoring non-integer PREFIX_CACHE_BLOCKS=%r", env)
     return default
+
+
+def _spec_decode_env(default_k: int = 6) -> tuple[int, int]:
+    """(spec_decode_k, spec_max_active) from the env (serve/spec.py).
+    ``SPEC_DECODE=0`` (or false/off) is the hard off-switch; otherwise
+    ``SPEC_DECODE_K`` sizes the draft (0 also disables) and
+    ``SPEC_DECODE_MAX_ACTIVE`` bounds the occupancy at which verify
+    dispatches still run."""
+    k = default_k
+    if os.environ.get("SPEC_DECODE", "").strip().lower() in ("0", "false", "off"):
+        k = 0
+    else:
+        env = os.environ.get("SPEC_DECODE_K", "").strip()
+        if env:
+            try:
+                k = max(0, int(env))
+            except ValueError:
+                log.warning("ignoring non-integer SPEC_DECODE_K=%r", env)
+    max_active = 4
+    env = os.environ.get("SPEC_DECODE_MAX_ACTIVE", "").strip()
+    if env:
+        try:
+            max_active = max(1, int(env))
+        except ValueError:
+            log.warning("ignoring non-integer SPEC_DECODE_MAX_ACTIVE=%r", env)
+    return k, max_active
 
 
 class TorchChatEngine(ChatEngine):
@@ -96,31 +125,79 @@ class TorchChatEngine(ChatEngine):
         prompt = render_chat_template(self.meta, messages, add_generation_prompt=True)
         return self.tokenizer.encode(prompt)
 
-    @staticmethod
-    def _check_supported(payload: dict) -> None:
-        for f in UNSUPPORTED_FIELDS:
-            if payload.get(f) not in (None, False, 0):
-                raise EngineError(f"unsupported field {f!r}: not served by this worker")
+    def _parse_ext(self, payload: dict):
+        """The engine-layer OpenAI extensions of a payload: (token_dfa,
+        want_logprobs, top_logprobs, n_choices). Raises EngineError with a
+        client-facing message on bad values."""
         try:
-            n = int(payload.get("n") or 1)
+            schema = validate_response_format(payload.get("response_format"))
+        except ValueError as e:
+            raise EngineError(f"invalid response_format: {e}") from e
+        dfa = None
+        if schema is not None:
+            if not constrain_mod.enabled():
+                raise EngineError(
+                    "invalid response_format: constrained decoding is "
+                    "disabled on this worker (CONSTRAIN=0)"
+                )
+            try:
+                dfa = compile_token_dfa(schema, self.tokenizer, self.cfg.vocab_size,
+                                        eos_ids=self._stop_ids)
+            except ConstraintError as e:
+                raise EngineError(f"invalid response_format: {e}") from e
+        try:
+            top_n = int(payload.get("top_logprobs") or 0)
+            n_choices = int(payload.get("n") or 1)
         except (TypeError, ValueError) as e:
             raise EngineError(f"invalid request: {e}") from e
-        if n != 1:
-            raise EngineError("unsupported field 'n': only n=1 is served by this worker")
+        if not 0 <= top_n <= LOGPROBS_K:
+            raise EngineError(
+                f"invalid top_logprobs: must be between 0 and {LOGPROBS_K}"
+            )
+        want_lp = bool(payload.get("logprobs")) or top_n > 0
+        if not 1 <= n_choices <= self.batcher.max_slots:
+            raise EngineError(
+                f"invalid n: must be between 1 and {self.batcher.max_slots}"
+            )
+        return dfa, want_lp, top_n, n_choices
+
+    def _lp_entry(self, item: tuple, top_n: int) -> dict:
+        """One OpenAI ``logprobs.content`` element from a batcher
+        (tok, logprob, top_ids, top_logprobs) tuple."""
+        tok, lp, top_ids, top_lps = item
+        s = self.tokenizer.decode([int(tok)])
+        entry: dict[str, Any] = {
+            "token": s,
+            "logprob": float(lp) if lp is not None else 0.0,
+            "bytes": list(s.encode("utf-8")),
+            "top_logprobs": [],
+        }
+        if top_n and top_ids:
+            for tid, tlp in list(zip(top_ids, top_lps))[:top_n]:
+                ts = self.tokenizer.decode([int(tid)])
+                entry["top_logprobs"].append({
+                    "token": ts,
+                    "logprob": float(tlp),
+                    "bytes": list(ts.encode("utf-8")),
+                })
+        return entry
 
     def _completion(self, text: str, n_prompt: int, n_out: int, finish: str,
-                    stats=None) -> dict:
+                    stats=None, logprobs=None) -> dict:
         """OpenAI-style body with LM Studio's stats block."""
+        choice: dict[str, Any] = {
+            "index": 0,
+            "message": {"role": "assistant", "content": text},
+            "finish_reason": finish,
+        }
+        if logprobs is not None:
+            choice["logprobs"] = logprobs
         out: dict[str, Any] = {
             "id": f"chatcmpl-{next_nuid()[:12].lower()}",
             "object": "chat.completion",
             "created": int(time.time()),
             "model": self.model_id,
-            "choices": [{
-                "index": 0,
-                "message": {"role": "assistant", "content": text},
-                "finish_reason": finish,
-            }],
+            "choices": [choice],
             "usage": {
                 "prompt_tokens": n_prompt,
                 "completion_tokens": n_out,
@@ -145,58 +222,155 @@ class TorchChatEngine(ChatEngine):
                 parts.append(chunk["choices"][0]["delta"].get("content", ""))
         return final if final is not None else self._completion("".join(parts), 0, 0, "stop")
 
-    async def chat_stream(self, payload: dict) -> AsyncIterator[dict]:
-        self._check_supported(payload)
-        prompt_ids = self._encode_prompt(payload)
-        sp = self._sampling(payload)
+    async def _stream_one(self, index: int, prompt_ids: list[int], sp: SamplingParams,
+                          dfa, want_lp: bool, top_n: int,
+                          result: dict) -> AsyncIterator[dict]:
+        """Drive ONE choice through the batcher: yields chunk dicts tagged
+        with choice ``index`` and fills ``result`` with the aggregate (text,
+        finish, stats, logprobs) on a clean completion."""
         stats = GenStats(prompt_tokens=len(prompt_ids))
         t0 = time.perf_counter()
         toks: list[int] = []
+        lp_entries: list[dict] = []
+        pending_lp: list[dict] = []  # entries held with incomplete UTF-8 text
         emitted = 0
         end_info: dict = {}
+        async for tok_batch in self.batcher.submit_batched(
+            prompt_ids, sp, info=end_info, constrain=dfa, want_logprobs=want_lp,
+            top_logprobs=top_n,
+        ):
+            if not toks:
+                stats.ttft_s = time.perf_counter() - t0
+            if want_lp:
+                # ext deliveries are (tok, logprob, top_ids, top_lps) tuples
+                entries = [self._lp_entry(t, top_n) for t in tok_batch]
+                lp_entries.extend(entries)
+                pending_lp.extend(entries)
+                tok_batch = [t[0] for t in tok_batch]
+            toks.extend(tok_batch)
+            stats.completion_tokens += len(tok_batch)
+            # emit only completed UTF-8 text
+            text = self.tokenizer.decode(toks)
+            if len(text) > emitted and not text.endswith("�"):
+                choice: dict[str, Any] = {
+                    "index": index,
+                    "delta": {"role": "assistant", "content": text[emitted:]},
+                    "finish_reason": None,
+                }
+                if want_lp:
+                    choice["logprobs"] = {"content": pending_lp}
+                    pending_lp = []
+                yield {"object": "chat.completion.chunk", "model": self.model_id,
+                       "choices": [choice]}
+                emitted = len(text)
+        stats.total_s = time.perf_counter() - t0
+        text = self.tokenizer.decode(toks)
+        if len(text) > emitted or pending_lp:
+            # flush text held back by the incomplete-UTF-8 guard
+            choice = {
+                "index": index,
+                "delta": {"role": "assistant", "content": text[emitted:]},
+                "finish_reason": None,
+            }
+            if want_lp:
+                choice["logprobs"] = {"content": pending_lp}
+            yield {"object": "chat.completion.chunk", "model": self.model_id,
+                   "choices": [choice]}
+        reason = end_info.get("finish_reason", "stop")
+        if reason == "shutdown" and not toks:
+            raise EngineError("worker draining, retry on another worker")
+        result.update(
+            text=text,
+            n_out=len(toks),
+            finish=reason if reason in ("length", "shutdown") else "stop",
+            stats=stats,
+            logprobs={"content": lp_entries} if want_lp else None,
+        )
+
+    async def chat_stream(self, payload: dict) -> AsyncIterator[dict]:
+        prompt_ids = self._encode_prompt(payload)
+        sp = self._sampling(payload)
+        dfa, want_lp, top_n, n_choices = self._parse_ext(payload)
+        results = [dict() for _ in range(n_choices)]
         try:
-            async for tok_batch in self.batcher.submit_batched(prompt_ids, sp, info=end_info):
-                if not toks:
-                    stats.ttft_s = time.perf_counter() - t0
-                toks.extend(tok_batch)
-                stats.completion_tokens += len(tok_batch)
-                # emit only completed UTF-8 text
-                text = self.tokenizer.decode(toks)
-                if len(text) > emitted and not text.endswith("�"):
-                    yield {
-                        "object": "chat.completion.chunk",
-                        "model": self.model_id,
-                        "choices": [{
-                            "index": 0,
-                            "delta": {"role": "assistant", "content": text[emitted:]},
-                            "finish_reason": None,
-                        }],
-                    }
-                    emitted = len(text)
+            if n_choices == 1:
+                async for chunk in self._stream_one(0, prompt_ids, sp, dfa, want_lp, top_n,
+                                                    results[0]):
+                    yield chunk
+            else:
+                async for chunk in self._stream_n(prompt_ids, sp, dfa, want_lp, top_n,
+                                                  results):
+                    yield chunk
         except BatcherOverloaded as e:
             raise EngineError(f"overloaded: {e}") from e
         except BatcherStopped as e:
             raise EngineError(str(e)) from e
         except ValueError as e:  # e.g. prompt longer than max_seq
             raise EngineError(str(e)) from e
-        stats.total_s = time.perf_counter() - t0
-        text = self.tokenizer.decode(toks)
-        if len(text) > emitted:
-            # flush text held back by the incomplete-UTF-8 guard
-            yield {
-                "object": "chat.completion.chunk",
-                "model": self.model_id,
-                "choices": [{
-                    "index": 0,
-                    "delta": {"role": "assistant", "content": text[emitted:]},
-                    "finish_reason": None,
-                }],
+        r0 = results[0]
+        out = self._completion(r0["text"], len(prompt_ids), sum(r["n_out"] for r in results),
+                               r0["finish"], r0["stats"], logprobs=r0.get("logprobs"))
+        for i, r in enumerate(results[1:], start=1):
+            choice: dict[str, Any] = {
+                "index": i,
+                "message": {"role": "assistant", "content": r["text"]},
+                "finish_reason": r["finish"],
             }
-        reason = end_info.get("finish_reason", "stop")
-        if reason == "shutdown" and not toks:
-            raise EngineError("worker draining, retry on another worker")
-        finish = reason if reason in ("length", "shutdown") else "stop"
-        yield self._completion(text, len(prompt_ids), len(toks), finish, stats)
+            if r.get("logprobs") is not None:
+                choice["logprobs"] = r["logprobs"]
+            out["choices"].append(choice)
+        yield out
+
+    async def _stream_n(self, prompt_ids, sp, dfa, want_lp, top_n,
+                        results) -> AsyncIterator[dict]:
+        """n>1 fan-out: each choice is its own batcher request. Choice 0
+        launches alone; the rest launch after its first chunk, when choice
+        0's admit has put the prompt's full chunks into the prefix cache, so
+        the siblings admit over the cached blocks (shared by refcount)
+        instead of n prefills. Chunks of all choices interleave on one
+        stream, tagged by ``choices[0].index``."""
+        done = object()
+        queue: asyncio.Queue = asyncio.Queue()
+        started = asyncio.Event()
+
+        def sp_for(i: int) -> SamplingParams:
+            # distinct seeds keep seeded choices distinct and replayable
+            if i == 0 or sp.seed is None:
+                return sp
+            return dc_replace(sp, seed=sp.seed + i)
+
+        async def drive(i: int) -> None:
+            try:
+                async for chunk in self._stream_one(i, prompt_ids, sp_for(i), dfa, want_lp,
+                                                    top_n, results[i]):
+                    await queue.put(chunk)
+                    if i == 0:
+                        started.set()
+            except Exception as e:  # noqa: BLE001 — re-raised by the merger
+                results[i]["error"] = e
+            finally:
+                if i == 0:
+                    started.set()
+                await queue.put(done)
+
+        tasks = [asyncio.ensure_future(drive(0))]
+        try:
+            await started.wait()
+            tasks += [asyncio.ensure_future(drive(i)) for i in range(1, len(results))]
+            finished = 0
+            while finished < len(results):
+                item = await queue.get()
+                if item is done:
+                    finished += 1
+                    continue
+                yield item
+        finally:
+            for t in tasks:
+                t.cancel()
+        for r in results:
+            if "error" in r:
+                # a missing choice makes the whole completion wrong
+                raise r["error"]
 
     def info(self) -> dict:
         return {
@@ -243,14 +417,21 @@ class TorchRegistry(Registry):
 
     ``prefix_cache_blocks`` is each batcher's prefix-cache budget in pool
     blocks; None reads ``PREFIX_CACHE`` / ``PREFIX_CACHE_BLOCKS``
-    (``_prefix_cache_blocks_env``)."""
+    (``_prefix_cache_blocks_env``). ``spec_decode_k`` and
+    ``spec_max_active`` are each batcher's speculative-decoding draft length
+    (0 = off) and occupancy bound; None reads ``SPEC_DECODE`` /
+    ``SPEC_DECODE_K`` / ``SPEC_DECODE_MAX_ACTIVE`` (``_spec_decode_env``)."""
 
     def __init__(self, store: ModelStore, device: str = "cuda",
                  max_seq_len: int | None = None, max_batch_slots: int = 8,
-                 kv_quant: str = "none", prefix_cache_blocks: int | None = None):
+                 kv_quant: str = "none", prefix_cache_blocks: int | None = None,
+                 spec_decode_k: int | None = None, spec_max_active: int | None = None):
         self.kv_quant = check_kv_quant(kv_quant)
         self.prefix_cache_blocks = (prefix_cache_blocks if prefix_cache_blocks is not None
                                     else _prefix_cache_blocks_env())
+        env_k, env_ma = _spec_decode_env()
+        self.spec_decode_k = spec_decode_k if spec_decode_k is not None else env_k
+        self.spec_max_active = spec_max_active if spec_max_active is not None else env_ma
         self.device = resolve_device(device)
         self.store = store
         self.dtype = default_dtype(self.device)
@@ -489,7 +670,9 @@ class TorchRegistry(Registry):
             reader.close()
         batcher = ContinuousBatcher(params, cfg, max_slots=self.max_batch_slots,
                                     max_seq_len=self.max_seq_len,
-                                    prefix_cache_blocks=self.prefix_cache_blocks)
+                                    prefix_cache_blocks=self.prefix_cache_blocks,
+                                    spec_decode_k=self.spec_decode_k,
+                                    spec_max_active=self.spec_max_active)
         batcher.start()
         log.info("loaded %s in %.1fs (%s, %s, kv %s, %s)", model_id,
                  time.perf_counter() - t0, cfg.arch, self.dtype, cfg.kv_quant, self.device)

@@ -17,7 +17,9 @@ dequantized in shared memory), every other K1 and K1q shape the FMA body;
 the paged cases cover bundles of 1 to 32 rows (one and two m-tiles),
 block sizes 8 to 128, a 4096-key slot, slots with fewer live tiles than
 splits, all-null tables and, for K1q, key rows with scales spread over
-decades.
+decades; both also at the speculative verify's width (W = 7, a 28-row
+bundle of two m-tiles). The sampling cases hold ``_pick`` and
+``spec_accept_from_noise`` on the card to the CPU on shared noise.
 """
 
 import math
@@ -487,3 +489,63 @@ def test_prefill_chunk_group_matches_single_admits(gen, kv_quant):
         assert torch.isfinite(group_bf[i]).all()
         assert rel(group32[i], alone32[i]) <= 2e-2
         assert rel(group_bf[i], alone32[i]) <= 1.25 * rel(alone_bf[i], alone32[i])
+
+
+# -- speculative verify: K1 and K1q at W = k + 1 and the acceptance rule ------------
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
+def test_paged_decode_verify_width7_two_m_tiles(gen, quant):
+    """The verify shape: W = 7 query rows a slot (k = 6 drafts) with
+    Llama-3's GQA group of 4, a 28-row bundle that takes two m16 tiles,
+    over slots whose 7 fresh rows cross a block edge; the tensor-core body
+    (plan body 1, or 2 over an int8 pool) and one launch."""
+    b, w, hq, hkv, d, t, nbt = 4, 7, 32, 8, 128, 16, 64
+    pos = [1017 - w, 250, 13, 700]
+    nb = 1 + b * nbt
+    shape = (nb, 2, hkv, t, d)
+    if quant:
+        kp, vp = _kvq(gen, *shape), _kvq(gen, *shape)
+        codes, counter = kp.q, pa.paged_decode_attention_kvq
+    else:
+        kp, vp = _rn(gen, *shape, dtype=torch.bfloat16), _rn(gen, *shape, dtype=torch.bfloat16)
+        codes, counter = kp, pa.paged_decode_attention
+    tbl = torch.arange(1, nb, dtype=torch.int32, device="cuda").reshape(b, nbt)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
+    assert pa._plan(q, codes, tbl)[0] == (2 if quant else 1)
+    before = counter.launches
+    got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, d ** -0.5)
+    assert counter.launches == before + 1
+    _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, d ** -0.5),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("v", [300, 128256])
+def test_spec_accept_from_noise_on_the_card_equals_cpu(gen, v):
+    """spec_accept_from_noise on the card takes what the CPU takes on the
+    same noise (tests/test_torch_spec.py holds the CPU to the JAX rule):
+    greedy, sampled, top-k and top-p rows, on bf16-valued logits with ties
+    at the top-k cut, drafts near each position's argmax."""
+    from nats_llm_studio_tpu_torch.engine import sampling
+
+    b, k = 8, 6
+    logits = (torch.randn((b, k + 1, v), generator=gen, device="cuda") * 8).round() / 4
+    order = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    tie = logits.gather(2, order[..., 3:4])
+    logits.scatter_(2, order[..., 3:8], tie.expand(-1, -1, 5))  # ranks 3..7 tied
+    temp = torch.tensor([0.0, 0.0, 0.8, 1.0, 0.7, 1.2, 0.9, 0.6], device="cuda")
+    top_k = torch.tensor([0, 0, 0, 5, 0, 5, 40, 0], device="cuda")
+    top_p = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.9, 0.8, 0.95, 1.0], device="cuda")
+    dlen = torch.tensor([6, 3, 6, 6, 4, 2, 6, 0], dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        pick = torch.randint(0, 3, (b, k), generator=gen, device="cuda")
+        drafts = order[:, :k].gather(2, pick[..., None])[..., 0].int()
+        u = torch.rand((b, k + 1), generator=gen, device="cuda")
+        gumbel = -torch.log(-torch.log(
+            torch.rand((b, k + 1, v), generator=gen, device="cuda").clamp_min(1e-30)))
+        got = sampling.spec_accept_from_noise(logits, drafts, dlen, u, gumbel, temp, top_k,
+                                              top_p)
+        want = sampling.spec_accept_from_noise(*(x.cpu() for x in (
+            logits, drafts, dlen, u, gumbel, temp, top_k, top_p)))
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])

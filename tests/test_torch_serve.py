@@ -160,11 +160,11 @@ async def test_chat_model_over_nats_matches_jax_greedy(tmp_path):
             texts.append(env["data"]["response"]["choices"][0]["message"]["content"])
         assert texts[0] == texts[1]
 
-        # a feature this port does not serve is refused by name
-        body = {"model": MID, "messages": short, "n": 2}
+        # more choices than batch slots is refused with the reference's error
+        body = {"model": MID, "messages": short, "n": 99}
         env = json.loads((await nc.request(
             "lmstudio.chat_model", json.dumps(body).encode(), timeout=10)).payload)
-        assert not env["ok"] and "'n'" in env["error"]
+        assert not env["ok"] and "invalid n: must be between 1 and 8" in env["error"]
     finally:
         await nc.close()
         await worker.drain()
