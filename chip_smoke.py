@@ -73,7 +73,23 @@ verifies (k = 6 prompt-lookup drafts at 1-4 live slots):
              constrained chat (its text alone). Every envelope must be ok;
              bf16 KV must launch K1, K2 and K3 and not K1q or K4, int8 KV
              K1q, K2 and K4 and not K1 or K3.
-6. lifecycle — bf16 KV, an embedded broker with the object-store module and
+6. overload — bf16 KV, 8 slots, the Worker over NATS with the supervisor
+             (every 0.5 s) and the debug subjects, a registry with
+             ADMIT_QUEUE_LIMIT 16, a 1 s brownout dwell, a DRR quantum of 16
+             tokens and max_restarts 1 (overload_phase): deadlines (shed at
+             submit with no admit program, shed while queued, aborted
+             mid-decode with the pool's blocks back), premium admitted
+             before a batch chat queued ahead of it, a burst past the queue
+             bound (every chat answered, depth and shed-only sheds, the
+             brownout events, gauge and no verify at level >= 1), the
+             heartbeat over a ~4000-token chunked prefill, profile naming
+             paged_decode_mma_kernel, debug.snapshot and debug.dump, the
+             loop's cost with the recorder on and off, a crash injected into
+             a decode program (restart, the same greedy text, memory within
+             1%), and a 2-layer model poisoned by two crashes and reset by
+             delete_model + pull_model; K1, K2 and K3 must launch, K1q and K4
+             must not.
+7. lifecycle — bf16 KV, an embedded broker with the object-store module and
              a worker whose ModelStore reaches the bucket: (a) a 2-layer GGUF
              at the same widths is published with ModelStore.publish_model
              and brought in by sync_model_from_bucket (sha256 must match the
@@ -980,8 +996,10 @@ class Served:
     ``chat`` (unary, any extra body fields) and ``stream`` (greedy,
     streamed) over ``lmstudio.chat_model``."""
 
-    def __init__(self, registry):
+    def __init__(self, registry, store: bool = False, **config):
         self.registry = registry
+        self.store = store  # the object-store module on the broker
+        self.config = config  # WorkerConfig fields beyond the broker's URL
 
     async def __aenter__(self):
         from nats_llm_studio_tpu_torch.config import WorkerConfig
@@ -989,7 +1007,12 @@ class Served:
         from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, connect
 
         self.broker = await EmbeddedBroker().start()
-        self.worker = Worker(WorkerConfig(nats_url=self.broker.url), self.registry)
+        if self.store:
+            from nats_llm_studio_tpu_torch.store import JetStreamStoreModule
+
+            JetStreamStoreModule(self.broker).install()
+        self.worker = Worker(WorkerConfig(nats_url=self.broker.url, **self.config),
+                             self.registry)
         await self.worker.start()
         self.nc = await connect(self.broker.url)
         return self
@@ -1542,7 +1565,492 @@ def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters,
                 spec=dict(on=spec, off=spec_off), ext=ext)
 
 
-# -- phases 3 and 6: the model lifecycle ---------------------------------------
+# -- phase 6: overload control and supervision -----------------------------------
+
+MIDP = "downloads/smoke-2layer"  # the overload phase's poison model (file:// pull)
+PROM_LINE = (r'^(# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+'
+             r'|[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})? '
+             r'[-+]?([0-9.]+([eE][-+]?[0-9]+)?|Inf|NaN))$')
+ADMIT_PROGRAMS = ("admit_fused_paged", "admit_many_fused_paged", "prefill_full", "prefill1",
+                  "prefill_chunk_group", "sample_first")
+
+
+class InjectedCrash(BaseException):
+    """A fault that escapes the owner loop's dispatch handlers (they catch
+    Exception): the loop ends, as on a real pump crash."""
+
+
+def arm_crash(b) -> None:
+    """Make the next decode dispatch of batcher ``b`` (a burst or a verify)
+    raise InjectedCrash once; the programs are restored before it raises,
+    so nothing of the fault stays on the batcher."""
+    names = ("_decode_pos_pallas", "_spec_verify_pallas")
+    orig = {n: getattr(b, n) for n in names}
+
+    def faulty(*a, **kw):
+        for n, f in orig.items():
+            setattr(b, n, f)
+        raise InjectedCrash("injected into a decode program")
+
+    for n in names:
+        setattr(b, n, faulty)
+
+
+async def stream_env(h: Served, body: dict, headers: dict | None = None,
+                     first: asyncio.Event | None = None,
+                     stop: asyncio.Event | None = None) -> dict:
+    """One streamed chat to its terminal envelope: {ok, error, text,
+    t_first, t_end, chunks} (monotonic times); a set ``stop`` closes the
+    stream after the next chunk (the worker then cancels the request)."""
+    out = {"ok": False, "error": None, "text": "", "t_first": None, "chunks": 0}
+    agen = h.nc.request_stream("lmstudio.chat_model", json.dumps({**body, "stream": True}).encode(),
+                               timeout=300.0, headers=headers)
+    try:
+        async for msg in agen:
+            env = json.loads(msg.payload)
+            done = bool(msg.headers and "Nats-Stream-Done" in msg.headers) or (
+                env.get("ok") and "response" in env.get("data", {}))
+            if not env.get("ok"):
+                out["error"] = env.get("error")
+                out["retryable"] = env.get("retryable")
+                break
+            if done:
+                out["ok"] = True
+                out["final"] = env["data"]["response"]
+                break
+            if out["t_first"] is None:
+                out["t_first"] = time.monotonic()
+                if first is not None:
+                    first.set()
+            out["chunks"] += 1
+            out["text"] += env["data"]["chunk"]["choices"][0]["delta"]["content"]
+            if stop is not None and stop.is_set():
+                out["error"] = "closed by the client"
+                break
+    finally:
+        await agen.aclose()
+        if first is not None:
+            first.set()  # an error before the first chunk ends the wait too
+    out["t_end"] = time.monotonic()
+    return out
+
+
+def chat_body(content: str, n: int, **kw) -> dict:
+    return {"model": MID, "messages": [{"role": "user", "content": content}],
+            "temperature": 0, "max_tokens": n, **kw}
+
+
+async def chat_env(h: Served, body: dict, headers: dict | None = None,
+                   timeout: float = 120.0) -> dict:
+    msg = await h.nc.request("lmstudio.chat_model", json.dumps(body).encode(),
+                             timeout=timeout, headers=headers)
+    return json.loads(msg.payload)
+
+
+async def subject(h: Served, name: str, body=None, timeout: float = 30.0):
+    msg = await h.nc.request(f"lmstudio.{name}", json.dumps(body or {}).encode(),
+                             timeout=timeout)
+    return msg.payload if name == "metrics.prom" else json.loads(msg.payload)
+
+
+async def live_streams(h: Served, n: int, tokens, content: str = "Tell a long story about "
+                       "the sea and the ships on it.") -> tuple[list, list]:
+    """``n`` greedy streams (``tokens`` each, or a list), returned once every
+    one has its first chunk: (tasks, stop events)."""
+    tokens = tokens if isinstance(tokens, list) else [tokens] * n
+    firsts = [asyncio.Event() for _ in range(n)]
+    stops = [asyncio.Event() for _ in range(n)]
+    tasks = [asyncio.ensure_future(stream_env(h, chat_body(content, tokens[i]),
+                                              first=firsts[i], stop=stops[i]))
+             for i in range(n)]
+    await asyncio.wait_for(asyncio.gather(*(f.wait() for f in firsts)), 300.0)
+    failed = [t.result()["error"] for t in tasks if t.done() and not t.result()["ok"]]
+    if failed:
+        raise AssertionError(f"overload: live streams failed: {failed}")
+    return tasks, stops
+
+
+async def wait_for(pred, what: str, timeout: float = 60.0, step: float = 0.02):
+    t_end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > t_end:
+            raise AssertionError(f"overload: timed out waiting for {what}")
+        await asyncio.sleep(step)
+
+
+async def settle(h: Served, b) -> None:
+    """Wait for an idle batcher at brownout level 0. The owner loop ticks
+    the controller only while it has work, so a trickle of short chats
+    carries it through the dwell."""
+    await wait_for(lambda: b.idle, "an idle batcher")
+    t_end = time.monotonic() + 30.0
+    while b.brownout_level != 0:
+        if time.monotonic() > t_end:
+            raise AssertionError("overload: the level did not come back to normal")
+        await chat_env(h, chat_body("calm", 4))
+        await asyncio.sleep(0.1)
+
+
+async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
+                         device: str = "cuda") -> dict:
+    """Overload control and supervision through the Worker over NATS, bf16
+    KV, 8 slots, the 32-layer model (speculative decoding on, as served):
+
+    deadlines: with 8 streams live, a chat whose X-Deadline-Ms has passed is
+    shed at submit (no admit or prefill program runs), a queued chat whose
+    300 ms deadline passes before a slot frees is shed before prefill, and
+    a lone stream whose 2 s deadline passes mid-decode ends retryably with
+    ``deadline exceeded mid-decode`` (deadline to terminal envelope
+    recorded); the pool's free blocks come back. QoS (DRR quantum 16): with
+    one slot freeing, a premium chat queued after a batch one is admitted
+    first. Queue bounds and brownout (ADMIT_QUEUE_LIMIT 16, dwell 1 s): 8
+    live streams and a burst of 24 chats, then 4 more once SHED_ONLY is
+    reached: depth and fair-share sheds past the bound, brownout sheds, every chat gets a terminal
+    envelope (served + shed = sent), the events ring shows brownout ->
+    shed_only -> ... -> normal under a trickle, no verify runs at level >= 1,
+    and the lmstudio_brownout_level gauge follows the level. A ~4000-token
+    prompt prefilled in chunks beside a live stream (K3): the largest
+    heartbeat age, and no hang declared; meanwhile profile (a Chrome trace
+    naming paged_decode_mma_kernel), debug.snapshot (slot refcounts = the
+    pool's) and debug.dump (a file under OBS_DUMP_DIR). Supervision: a
+    crash injected into a decode program, the supervisor's restart, the
+    same greedy text, memory_allocated within 1% of before the crash; on a
+    2-layer model at the same widths, pulled by file:// URL, two crashes
+    poison it (max_restarts 1), chats get the retryable envelope, health
+    names it, delete_model + pull_model reset it. metrics names the card,
+    every line of metrics.prom parses, events hold the brownout and
+    engine_supervisor transitions, a chat's stats.trace holds its stages in
+    order. The loop's cost: wall ms per decode step at 8 slots with the
+    recorder on and off."""
+    import gc
+    import re
+
+    from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+    from nats_llm_studio_tpu_torch.store import ModelStore
+    from nats_llm_studio_tpu_torch.transport.envelope import deadline_header_value
+
+    out: dict = {}
+    dumps = staging.parent / "dumps"
+    knobs = {"BROWNOUT_DWELL_S": "1.0"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        registry = TorchRegistry(ModelStore(model_root), device=device, max_seq_len=4096,
+                                 max_batch_slots=8, kv_quant="none", admit_queue_limit=16,
+                                 restart_backoff_s=0.5, max_restarts=1,
+                                 obs_recorder_interval_ms=50.0, obs_dump_dir=str(dumps),
+                                 qos_quantum_tokens=16)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k) if v is None else os.environ.update({k: v})
+
+    def batcher():
+        return registry.loaded_engines()[MID].batcher
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            raise AssertionError(f"overload: {msg}")
+
+    async with Served(registry, store=True, supervise_interval_s=0.5,
+                      debug_subjects=True) as h:
+        t_phase = time.perf_counter()
+        # 0. the lone greedy chat every supervision gate compares against,
+        # and its stage waterfall
+        sea = chat_body("Say something about the sea.", 32)
+        env = await chat_env(h, sea)
+        gate(env.get("ok"), f"first chat: {env}")
+        text0 = env["data"]["response"]["choices"][0]["message"]["content"]
+        tr = env["data"]["response"]["stats"]["trace"]
+        order = ["recv", "enqueue", "admit", "prefill", "first_token", "decode_done", "publish"]
+        gate(list(tr["marks_ms"]) == order
+             and [tr["marks_ms"][k] for k in order] == sorted(tr["marks_ms"].values())
+             and env.get("trace_id") == tr["trace_id"], f"stats.trace out of order: {tr}")
+        out["trace"] = tr
+        free0 = batcher().pool_stats()["blocks_free"]
+        log(f"overload: load + first chat {time.perf_counter() - t_phase:.1f} s; trace {tr}")
+
+        # 1. deadlines
+        b = batcher()
+        tasks, _ = await live_streams(h, 8, 100)
+        req0, admits0 = b.stats.requests, {k: b.stats.program_calls.get(k, 0)
+                                           for k in ADMIT_PROGRAMS}
+        env = await chat_env(h, chat_body("late", 8),
+                             {"X-Deadline-Ms": deadline_header_value(-1.0)})
+        gate(not env["ok"] and env.get("retryable") is True
+             and "deadline already expired at submit (shed_cause=deadline)" in env["error"],
+             f"expired deadline: {env}")
+        gate({k: b.stats.program_calls.get(k, 0) for k in ADMIT_PROGRAMS} == admits0
+             and b.stats.requests == req0, "the expired chat ran an admit or prefill program")
+        t_send = time.monotonic()
+        env = await chat_env(h, chat_body("queued", 8),
+                             {"X-Deadline-Ms": deadline_header_value(0.3)})
+        queued_ms = (time.monotonic() - t_send - 0.3) * 1e3
+        gate(not env["ok"] and env.get("retryable") is True and "(shed_cause=deadline)" in env["error"]
+             and ("queued" in env["error"] or "skipped prefill" in env["error"]),
+             f"queued deadline: {env}")
+        gate(b.stats.requests == req0, "the queued chat was admitted")
+        streams = await asyncio.gather(*tasks)
+        gate(all(s["ok"] for s in streams), f"live streams: {[s['error'] for s in streams]}")
+        t_send = time.monotonic()
+        s = await stream_env(h, chat_body("Tell an endless story.", 3000),
+                             {"X-Deadline-Ms": deadline_header_value(2.0)})
+        abort_ms = (s["t_end"] - t_send - 2.0) * 1e3
+        gate(not s["ok"] and s.get("retryable") is True
+             and "deadline exceeded mid-decode after" in (s["error"] or ""),
+             f"mid-decode deadline: {s}")
+        await wait_for(lambda: b.idle, "the aborted slot to free")
+        await wait_for(lambda: b.pool_stats()["blocks_free"] == free0,
+                       "the pool's free blocks to come back", timeout=5.0)
+        out["deadline"] = {"queued_shed_after_deadline_ms": queued_ms,
+                           "abort_after_deadline_ms": abort_ms,
+                           "abort_tokens": s["chunks"], "shed_causes": b.stats.shed_cause_counts(),
+                           "queued_error": env["error"]}
+        log(f"overload: deadlines: shed at submit; queued shed {queued_ms:.0f} ms after its "
+            f"deadline; mid-decode abort's terminal envelope {abort_ms:.0f} ms after its "
+            f"deadline ({s['chunks']} chunks); free blocks back to {free0}")
+
+        # 2. QoS: one slot frees with a batch and a premium chat queued
+        tasks, stops = await live_streams(h, 8, [400] * 7 + [24])
+        hdr = {"lowco": {"X-Tenant": "lowco", "X-Priority": "batch"},
+               "bigco": {"X-Tenant": "bigco", "X-Priority": "premium"}}
+        ask = "Describe the harbour at dawn, the boats, the gulls and the fishermen."
+        qos = {"lowco": asyncio.ensure_future(stream_env(h, chat_body(ask, 8), hdr["lowco"]))}
+        await wait_for(lambda: b.queue_depth >= 1, "the batch chat to queue")
+        qos["bigco"] = asyncio.ensure_future(stream_env(h, chat_body(ask, 8), hdr["bigco"]))
+        await wait_for(lambda: b.queue_depth >= 2, "the premium chat to queue")
+        prem = await qos["bigco"]
+        for st in stops:
+            st.set()
+        low = await qos["lowco"]
+        await asyncio.gather(*tasks)
+        gate(prem["ok"] and low["ok"], f"qos chats: {prem['error']} / {low['error']}")
+        gate(prem["t_first"] < low["t_first"], "the batch chat was admitted before the premium")
+        tenants = b.tenant_stats.snapshot()
+        gate(all(tenants.get(t, {}).get("served", 0) >= 1 for t in ("lowco", "bigco")),
+             f"tenant stats: {tenants}")
+        out["qos"] = {"premium_first_by_s": low["t_first"] - prem["t_first"],
+                      "tenants": {t: tenants[t] for t in ("lowco", "bigco")}}
+        log(f"overload: qos: premium admitted {out['qos']['premium_first_by_s']:.2f} s before "
+            f"the batch chat queued ahead of it; tenants {out['qos']['tenants']}")
+        await settle(h, b)
+
+        # 3. queue bounds and brownout
+        verify_levels: list = []
+        verify = b._spec_verify_pallas
+
+        def spy(*a, **kw):
+            verify_levels.append(b.brownout_level)
+            return verify(*a, **kw)
+
+        b._spec_verify_pallas = spy
+        ev0 = (await subject(h, "events", {"limit": 1}))["data"]["emitted_total"]
+        tasks, _ = await live_streams(h, 8, 120)
+        sent = 8
+        burst = [asyncio.ensure_future(chat_env(h, chat_body(f"burst {i}", 8)))
+                 for i in range(24)]
+        sent += 24
+        gauges = []
+        late: list = []
+        t_end = time.monotonic() + 120.0
+        while not all(f.done() for f in burst + tasks + late):
+            lvl0 = b.brownout_level
+            text = (await subject(h, "metrics.prom")).decode()
+            m = re.search(r'^lmstudio_brownout_level\{[^}]*model="%s"[^}]*\} (\d+)$'
+                          % re.escape(MID), text, re.M)
+            gauges.append((lvl0, int(m.group(1)), b.brownout_level))
+            if b.brownout_level == 2 and not late:
+                late = [asyncio.ensure_future(chat_env(h, chat_body(f"late {i}", 8)))
+                        for i in range(4)]
+                sent += 4
+            gate(time.monotonic() < t_end, "the storm did not drain")
+            await asyncio.sleep(0.05)
+        results = [f.result() for f in burst + late] + [t.result() for t in tasks]
+        served = sum(1 for r in results if r.get("ok"))
+        shed = [r["error"] for r in results if not r.get("ok")]
+        gate(all(r.get("retryable") is True and "shed_cause=" in e for r, e in
+                 zip([r for r in results if not r.get("ok")], shed)), f"sheds: {shed}")
+        causes = {c: sum(f"shed_cause={c}" in e for e in shed)
+                  for c in ("depth", "fair_share", "brownout")}
+        gate(served + len(shed) == sent, f"served {served} + shed {len(shed)} != sent {sent}")
+        gate(causes["depth"] + causes["fair_share"] > 0 and late and all(not f.result()["ok"] and "brownout shed-only"
+                                                   in f.result()["error"] for f in late),
+             f"storm sheds: {causes}, late {[f.result() for f in late]}")
+        gate(all(g[1] in (g[0], g[2]) for g in gauges) and max(g[1] for g in gauges) == 2,
+             f"the brownout gauge left the level: {gauges}")
+        # a premium stream that drafts (a run of one character, PERF.md
+        # §4) while the level steps down: paused verifies at level >= 1,
+        # verifies once it is back at 0
+        lvl = b.brownout_level
+        s = await stream_env(h, chat_body("a" * 1500, 150), {"X-Priority": "premium"})
+        gate(lvl >= 1 and s["ok"], f"the drafting stream at level {lvl}: {s['error']}")
+        await settle(h, b)  # back to normal under a trickle
+        evs = [e for e in (await subject(h, "events", {"kind": "brownout", "limit": 100})
+                           )["data"]["events"] if e["seq"] >= ev0]
+        names = [e["level_name"] for e in evs]
+        gate("brownout" in names and "shed_only" in names and names[-1] == "normal"
+             and names.index("brownout") < names.index("shed_only"), f"brownout events {names}")
+        text = (await subject(h, "metrics.prom")).decode()
+        gate(re.search(r'^lmstudio_brownout_level\{[^}]*model="%s"[^}]*\} 0$'
+                       % re.escape(MID), text, re.M) is not None, "the gauge did not return to 0")
+        b._spec_verify_pallas = verify
+        gate(verify_levels and all(lvl == 0 for lvl in verify_levels),
+             f"verifies ran at levels {verify_levels}")
+        out["brownout"] = {"sent": sent, "served": served, "shed": len(shed), "causes": causes,
+                           "events": names, "verifies_at_level0": len(verify_levels),
+                           "gauge_samples": len(gauges)}
+        log(f"overload: storm: sent {sent}, served {served}, shed {len(shed)} {causes}; "
+            f"levels {names}; a drafting stream from level {lvl}: {len(verify_levels)} "
+            f"verifies, all at level 0")
+
+        # 4. the loop's cost at 8 slots, recorder on and off (on, off, off, on)
+        async def loop_cost(on: bool, tokens: int) -> dict:
+            """Wall ms a decode step of 8 streams, from their first chunks
+            to their ends (the admits left out). The kernels a step are
+            decode_profile's (serve_path, the same registry settings):
+            profiler sessions on two threads of one process lost their
+            kernels in some orders on the card, so the loop is not
+            profiled here."""
+            b.recorder.enabled = on
+            tasks, _ = await live_streams(h, 8, tokens, "count the waves")
+            steps0, t0 = b.stats.steps, time.perf_counter()
+            await asyncio.gather(*tasks)
+            steps = b.stats.steps - steps0
+            return {"recorder": on, "steps": steps,
+                    "wall_ms_per_step": (time.perf_counter() - t0) * 1e3 / steps}
+
+        cost = [await loop_cost(on, 40) for on in (True, False, False, True)]
+        b.recorder.enabled = True
+        out["loop_cost"] = cost
+        for c in cost:
+            log(f"overload: 8 streams, recorder {'on ' if c['recorder'] else 'off'}: "
+                f"{c['wall_ms_per_step']:.2f} ms wall a decode step ({c['steps']} steps)")
+
+        # 5. a ~4000-token prompt prefilled in chunks beside a live stream:
+        # the heartbeat; then, beside a stream, profile and the debug subjects
+        await settle(h, b)
+        tasks, stops = await live_streams(h, 1, 600)
+        hb = [0.0]
+        long_chat = asyncio.ensure_future(chat_env(h, chat_body("a" * 3990, 4)))
+        while not long_chat.done():
+            hb[0] = max(hb[0], b.heartbeat_age_s())
+            await asyncio.sleep(0.005)
+        env = long_chat.result()
+        gate(env["ok"] and env["data"]["response"]["usage"]["prompt_tokens"] > 3900,
+             f"long chat: {env.get('error')}")
+        n_long = env["data"]["response"]["usage"]["prompt_tokens"]
+        snap = (await subject(h, "debug.snapshot", {"model": MID}))["data"]["engines"][MID]
+        gate(bool(snap["slots"]) and all(
+            e["block_refcounts"] == [b._pool.refcount(x) for x in e["blocks"]]
+            for e in snap["slots"].values()), f"debug.snapshot slots: {snap['slots']}")
+        dump = await subject(h, "debug.dump", {"model": MID})
+        gate(dump["ok"] and dump["data"]["dumps"][MID].startswith(str(dumps))
+             and Path(dump["data"]["dumps"][MID]).exists(), f"debug.dump: {dump}")
+        prof = await subject(h, "profile", {"seconds": 1.0}, timeout=120.0)
+        gate(prof["ok"] and prof["data"].get("bucket") == "profiles", f"profile: {prof}")
+        trace_text = Path(prof["data"]["trace_file"]).read_text()
+        gate(device != "cuda" or "paged_decode_mma_kernel" in trace_text,
+             "the profile trace does not name paged_decode_mma_kernel")
+        stops[0].set()
+        await asyncio.gather(*tasks)
+        hung = [e for e in (await subject(h, "events", {"kind": "engine_supervisor",
+                                                        "limit": 100}))["data"]["events"]
+                if "hung" in e["state"]]
+        gate(not hung, f"the supervisor declared the engine hung: {hung}")
+        out["heartbeat_max_age_s"] = hb[0]
+        out["profile"] = {"trace_bytes": len(trace_text), "bucket": prof["data"].get("bucket")}
+        log(f"overload: heartbeat age at most {hb[0]:.3f} s over a {n_long}-token chunked "
+            f"prefill beside a stream; profile trace {len(trace_text)} bytes names "
+            f"paged_decode_mma_kernel; debug.dump {dump['data']['dumps'][MID]}")
+
+        del b, verify, spy
+
+        # 6. crash, supervised restart, the same text, the memory back
+        await settle(h, batcher())
+        gc.collect()
+        mem_before = allocated(torch)
+        arm_crash(batcher())
+        t_crash = time.monotonic()
+        env = await chat_env(h, sea)
+        gate(not env["ok"] and env.get("retryable") is True
+             and "engine crashed (InjectedCrash: injected into a decode program)" in env["error"],
+             f"crash envelope: {env}")
+        await wait_for(lambda: registry.engine_restarts_total == 1, "the restart", 300.0)
+        t_restarted = time.monotonic()
+        evs = (await subject(h, "events", {"limit": 500}))["data"]["events"]
+        crash_ev = [e for e in evs if e["kind"] == "engine_crash"][-1]
+        sup_ev = [e for e in evs if e["kind"] == "engine_supervisor" and e["state"] == "crashed"
+                  and e["model"] == MID][-1]
+        detect_s = sup_ev["mono"] - crash_ev["mono"]
+        gate(detect_s <= 0.5 + 0.5, f"the supervisor saw the crash after {detect_s:.2f} s")
+        gc.collect()
+        mem_after = allocated(torch)
+        gate(abs(mem_after - mem_before) <= 0.01 * mem_before,
+             f"memory after the restart {mem_after} vs {mem_before} before the crash")
+        env = await chat_env(h, sea)
+        gate(env["ok"] and env["data"]["response"]["choices"][0]["message"]["content"] == text0,
+             "the greedy text after the restart differs")
+        out["restart"] = {"detect_s": detect_s, "crash_to_restarted_s": t_restarted - t_crash,
+                          "restart_ms": registry.restart_latency_ms.snapshot().total,
+                          "mem_before": mem_before, "mem_after": mem_after,
+                          "kernel_build_s": registry.kernel_build_s}
+        log(f"overload: crash seen by the supervisor after {detect_s:.2f} s, restarted "
+            f"{t_restarted - t_crash:.1f} s after the crash (restart_engine "
+            f"{out['restart']['restart_ms']:.0f} ms, kernels built in "
+            f"{registry.kernel_build_s:.2f} s); memory {mem_before} -> {mem_after} bytes; "
+            f"same greedy text")
+
+        # 7. poison on a 2-layer model at the same widths, and its reset
+        staged = staging / "smoke-2layer.gguf"
+        write_gguf(torch, staged, 2, seed + 7, device=device)
+        url = {"identifier": f"file://{staged}"}
+        gate((await subject(h, "pull_model", url, timeout=300.0))["ok"], "pull of the 2-layer")
+        small = dict(chat_body("Say something about the sea.", 8), model=MIDP)
+        for i in range(2):
+            gate((await chat_env(h, small))["ok"], f"2-layer chat before crash {i + 1}")
+            arm_crash(registry.loaded_engines()[MIDP].batcher)
+            env = await chat_env(h, small)
+            gate(not env["ok"] and "engine crashed" in env["error"], f"2-layer crash: {env}")
+            if i == 0:
+                await wait_for(lambda: registry.engine_restarts_total == 2, "the 2-layer restart")
+        await wait_for(lambda: MIDP in registry.poisoned_models(), "the poison")
+        env = await chat_env(h, small)
+        gate(not env["ok"] and env.get("retryable") is True and env["error"].startswith(
+            f"error in chat: model {MIDP} is poisoned (2 crashes in 120s (last: crashed)); "
+            f"delete or pull it to reset"), f"poisoned envelope: {env}")
+        health = (await subject(h, "health"))["data"]
+        gate(health.get("poisoned") == [MIDP] and health["poisoned_reasons"][MIDP].startswith(
+            "2 crashes in 120s"), f"health.poisoned: {health.get('poisoned')}")
+        gate((await subject(h, "delete_model", {"model_id": MIDP}))["ok"], "delete")
+        gate((await subject(h, "pull_model", url, timeout=300.0))["ok"], "pull after delete")
+        gate(not registry.poisoned_models() and (await chat_env(h, small))["ok"],
+             "the 2-layer model still refused after delete + pull")
+        gate((await subject(h, "delete_model", {"model_id": MIDP}))["ok"], "final delete")
+        staged.unlink()
+        out["poison"] = {"error": env["error"]}
+
+        # 8. the remaining observability gates
+        metrics = (await subject(h, "metrics"))["data"]
+        gate(device != "cuda" or metrics["devices"][0] == {
+            "id": 0, "platform": "gpu", "kind": torch.cuda.get_device_name(0)},
+            f"metrics.devices: {metrics['devices']}")
+        text = (await subject(h, "metrics.prom")).decode()
+        bad = [ln for ln in text.splitlines() if ln and not re.match(PROM_LINE, ln)]
+        gate(not bad, f"metrics.prom lines that do not parse: {bad[:3]}")
+        kinds = {e["kind"] for e in (await subject(h, "events", {"limit": 500}))["data"]["events"]}
+        gate({"brownout", "engine_supervisor", "engine_restart", "engine_poisoned"} <= kinds,
+             f"event kinds: {sorted(kinds)}")
+        out["prom_lines"] = len(text.splitlines())
+        out["seconds"] = time.perf_counter() - t_phase
+    await registry.close()
+    del registry
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"overload: phase ok in {out['seconds']:.1f} s")
+    return out
+
+
+# -- phases 3 and 7: the model lifecycle ---------------------------------------
 
 
 class Lifecycle:
@@ -1565,8 +2073,10 @@ class Lifecycle:
         JetStreamStoreModule(self.broker, store_dir=self.store_dir).install()
         self.cfg = WorkerConfig(nats_url=self.broker.url, models_dir=self.model_root)
         self.store_nc = await connect(self.broker.url)
+        # brownout off: the admission gates below hold the budget at the
+        # estimate on purpose, where the headroom signal would shed chats
         self.registry = TorchRegistry(make_store(self.cfg, self.store_nc), device=self.device,
-                                      max_seq_len=4096, max_batch_slots=8)
+                                      max_seq_len=4096, max_batch_slots=8, brownout=False)
         self.worker = Worker(self.cfg, self.registry)
         await self.worker.start()
         self.nc = await connect(self.broker.url)
@@ -1857,11 +2367,24 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; disk: {shutil.disk_usage(work)}")
     lifecycle = asyncio.run(pull_phase(staged, model_root))
     staged.unlink()
+    # the pulled copy is the served model from here on; the staging dir
+    # stays for the overload phase's 2-layer model
 
     counters = (pa.paged_decode_attention, pa.paged_decode_attention_kvq, fa.flash_attention,
                 fa.flash_attention_chunk, fa.flash_attention_chunk_kvq)
     paths = {kv: serve_path(torch, model_root, kv, args.seed, counters)
              for kv in ("none", "int8")}
+    for f in counters:
+        f.launches = 0
+    overload = asyncio.run(overload_phase(torch, model_root, staged.parent, args.seed))
+    overload["launches"] = {f.__name__: f.launches for f in counters}
+    log(f"overload (kv none): kernel launches {overload['launches']}")
+    for name in EXPECTED["none"][0]:
+        if overload["launches"][name] <= 0:
+            raise AssertionError(f"overload: {name} was not launched")
+    for name in EXPECTED["none"][1]:
+        if overload["launches"][name] != 0:
+            raise AssertionError(f"overload: {name} was launched under the bf16 KV cache")
     for f in counters:
         f.launches = 0
     lifecycle.update(asyncio.run(lifecycle_phase(torch, model_root, work, args.seed)))
@@ -1905,12 +2428,13 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src[wrapper][0],
             "replaces": src[wrapper][1], "design": src[wrapper][2], "shape": r["shape"],
-            # the wrapper's launches over both serve phases and the lifecycle
-            # phase (K2 serves both KV modes), at whatever shapes they ran: a
+            # the wrapper's launches over both serve phases, the overload and
+            # the lifecycle phases (K2 serves both KV modes), at whatever
+            # shapes they ran: a
             # second row of one wrapper (@T4096, @KW4096, @W7, ...) reports
             # the same counter, named by launches_of
             "launches": sum(p["launches"][wrapper] for p in paths.values())
-            + lifecycle["launches"][wrapper],
+            + overload["launches"][wrapper] + lifecycle["launches"][wrapper],
             "launches_of": wrapper,
             "max_abs_err": r["max_abs_err"], "max_row_rel_err": r["max_row_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1931,6 +2455,7 @@ def main() -> int:
             "spec": p["spec"],
             "ext": p["ext"],
         }
+    summary["overload"] = overload
     summary["lifecycle"] = lifecycle
     log(json.dumps(summary))
     log(json.dumps({"kernels": rows}))

@@ -7,8 +7,9 @@ Mirror of ``nats_llm_studio_tpu/main.py`` for the port:
   ``LMSTUDIO_MODELS_DIR`` and reaches the ``MODEL_BUCKET`` Object Store
   bucket over NATS, optionally behind an in-process broker with the
   object-store module, with the KV cache that ``TPU_KV_QUANT`` ("none" or
-  "int8") names. The device defaults to the card; with no card the
-  command fails unless ``--device cpu`` is given.
+  "int8") names and the overload, supervision and recorder knobs of
+  ``config.WorkerConfig``. The device defaults to the card; with no card
+  the command fails unless ``--device cpu`` is given.
 * ``broker [--port N] [--store-dir DIR]``: the embedded NATS broker with
   the object-store module alone.
 * ``publish GGUF MODEL_ID``: import a GGUF into the local cache and upload
@@ -65,6 +66,13 @@ async def _run_serve(args: argparse.Namespace) -> None:
     registry = TorchRegistry(
         make_store(cfg, nc), device=args.device, max_seq_len=cfg.max_seq_len,
         max_batch_slots=cfg.max_batch_slots, kv_quant=cfg.kv_quant_mode,
+        admit_queue_limit=cfg.admit_queue_limit, admit_max_age_ms=cfg.admit_max_age_ms,
+        restart_backoff_s=cfg.engine_restart_backoff_s,
+        restart_backoff_max_s=cfg.engine_restart_backoff_max_s,
+        max_restarts=cfg.engine_max_restarts, restart_window_s=cfg.engine_restart_window_s,
+        brownout=cfg.brownout, obs_recorder=cfg.obs_recorder,
+        obs_recorder_interval_ms=cfg.obs_recorder_interval_ms, obs_dump_dir=cfg.obs_dump_dir,
+        worker_id=cfg.worker_id, qos_quantum_tokens=cfg.qos_quantum_tokens,
     )
     worker = Worker(cfg, registry)
     await worker.start()

@@ -55,8 +55,106 @@ class WorkerConfig:
         default_factory=lambda: float(_env("NATS_PING_INTERVAL_S", "30"))
     )
     worker_id: str = field(default_factory=lambda: _env("WORKER_ID", ""))
+    # overload bounds on the batcher admit queue (0 disables either).
+    # Depth: chat_model sheds immediately past this many queued requests.
+    # Age: waiters older than this are shed at admit time. Shedding replies
+    # with an honest error envelope so queue-group peers absorb the overflow;
+    # without bounds the reference's r4 bench measured 38.6 s of silent
+    # queueing. Unset ADMIT_QUEUE_LIMIT derives 4 x MAX_BATCH_SLOTS; an
+    # explicit 0 disables the depth bound.
+    admit_queue_limit: int = field(
+        default_factory=lambda: int(_env("ADMIT_QUEUE_LIMIT", "-1"))
+    )
+    admit_max_age_ms: float = field(
+        default_factory=lambda: float(_env("ADMIT_MAX_AGE_MS", "30000"))
+    )
+    # -- engine supervision (serve/worker.py + serve/registry.py) ------------
+    # watchdog poll period over loaded batchers; 0 disables supervision
+    supervise_interval_s: float = field(
+        default_factory=lambda: float(_env("SUPERVISE_INTERVAL_S", "2"))
+    )
+    # a NON-idle batcher whose owner loop hasn't stamped its heartbeat for
+    # this long is declared hung and restarted. The port builds its kernels
+    # when the engine loads, before the batcher starts, so the first
+    # prefill does not stall the loop on nvcc. 0 disables the hang check
+    # (crash detection stays).
+    engine_heartbeat_timeout_s: float = field(
+        default_factory=lambda: float(_env("ENGINE_HEARTBEAT_TIMEOUT_S", "120"))
+    )
+    engine_restart_backoff_s: float = field(
+        default_factory=lambda: float(_env("ENGINE_RESTART_BACKOFF_S", "0.5"))
+    )
+    engine_restart_backoff_max_s: float = field(
+        default_factory=lambda: float(_env("ENGINE_RESTART_BACKOFF_MAX_S", "30"))
+    )
+    # more than this many crashes inside the window poisons the model:
+    # get_engine refuses (retryable envelope) until a delete/pull resets it
+    engine_max_restarts: int = field(
+        default_factory=lambda: int(_env("ENGINE_MAX_RESTARTS", "3"))
+    )
+    engine_restart_window_s: float = field(
+        default_factory=lambda: float(_env("ENGINE_RESTART_WINDOW_S", "120"))
+    )
+    # -- overload robustness (serve/brownout.py + serve/batcher.py) ----------
+    # end-to-end deadline propagation: the worker converts X-Deadline-Ms to
+    # a monotonic deadline (capped by chat_timeout_s) so the batcher can
+    # shed expired requests before prefill and abort mid-decode slots whose
+    # caller gave up. DEADLINE_PROPAGATION=0/false/off disables it.
+    # DEADLINE_MIN_TOKENS and the BROWNOUT_* thresholds parse in
+    # serve/registry.py.
+    deadline_propagation: bool = field(
+        default_factory=lambda: _env("DEADLINE_PROPAGATION", "1").strip().lower()
+        not in ("0", "false", "off")
+    )
+    # adaptive brownout controller: NORMAL -> BROWNOUT -> SHED_ONLY with
+    # hysteresis on queue depth, queue age p95, and device-memory headroom.
+    # BROWNOUT=0/false/off disables it (the depth/age sheds stay).
+    brownout: bool = field(
+        default_factory=lambda: _env("BROWNOUT", "1").strip().lower()
+        not in ("0", "false", "off")
+    )
+    # -- flight recorder + debug subjects (obs/recorder.py) ------------------
+    # bounded ring of periodic batcher state frames, sampled by the owner
+    # loop; anomaly dumps (engine crash and restart, SHED_ONLY entry, slow
+    # requests) write frames + event tail + trace to OBS_DUMP_DIR.
+    # OBS_RECORDER=0 disables sampling and dumps; an empty OBS_DUMP_DIR
+    # keeps the in-memory ring but writes nothing to disk.
+    obs_recorder: bool = field(
+        default_factory=lambda: _env("OBS_RECORDER", "1").strip().lower()
+        not in ("0", "false", "off")
+    )
+    obs_recorder_interval_ms: float = field(
+        default_factory=lambda: float(_env("OBS_RECORDER_INTERVAL_MS", "250"))
+    )
+    obs_dump_dir: str = field(default_factory=lambda: _env("OBS_DUMP_DIR", "").strip())
+    # deep-introspection subjects (lmstudio.debug.snapshot / .dump): off by
+    # default — they expose slot tables and can force disk writes
+    debug_subjects: bool = field(
+        default_factory=lambda: _env("DEBUG_SUBJECTS", "0").strip().lower()
+        in ("1", "true", "on")
+    )
+    # cross-process span emission on {prefix}.obs.spans; OBS_SPANS=0 turns
+    # it off (Traceparent headers still flow)
+    obs_spans: bool = field(
+        default_factory=lambda: _env("OBS_SPANS", "1").strip().lower()
+        not in ("0", "false", "off")
+    )
+    # -- multi-tenant QoS (serve/qos.py) -------------------------------------
+    # deficit-round-robin quantum in prompt tokens per round per unit of
+    # class weight
+    qos_quantum_tokens: int = field(
+        default_factory=lambda: int(_env("QOS_QUANTUM_TOKENS", "256"))
+    )
+    # tenant-label cardinality cap for the Prometheus exposition: the top-K
+    # tenants by volume keep their own rows, the rest roll up into
+    # tenant="other". 0 disables the cap.
+    qos_tenant_topk: int = field(
+        default_factory=lambda: int(_env("QOS_TENANT_TOPK", "8"))
+    )
 
     def __post_init__(self) -> None:
+        if self.admit_queue_limit < 0:  # unset: scale with the slot count
+            self.admit_queue_limit = 4 * self.max_batch_slots
         if not self.worker_id:
             from .utils import next_nuid
 

@@ -1,7 +1,6 @@
 """Fixed-capacity structured event ring for post-hoc incident diagnosis.
 
-Copy of ``nats_llm_studio_tpu/obs/events.py`` without ``emitted``,
-``dropped`` and ``clear``.
+Copy of ``nats_llm_studio_tpu/obs/events.py``, whole.
 
 Aggregate counters say *that* requests were shed; the event ring says
 *which* and *why* — the last N notable happenings (sheds, cancels, ring
@@ -45,6 +44,15 @@ class EventRing:
             self._seq += 1
         return ev
 
+    @property
+    def emitted(self) -> int:
+        return self._seq
+
+    @property
+    def dropped(self) -> int:
+        """Events that have been overwritten (fell out of the window)."""
+        return max(0, self._seq - self.capacity)
+
     def snapshot(self, kind: str | None = None, limit: int | None = None) -> list[dict]:
         """Events oldest-first, optionally filtered by ``kind`` and capped
         to the most recent ``limit``."""
@@ -60,6 +68,11 @@ class EventRing:
         if limit is not None and limit >= 0:
             out = out[-limit:]
         return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf = [None] * self.capacity
+            self._seq = 0
 
 
 # process-wide default ring: the batcher owner thread, the registry, and

@@ -1,9 +1,10 @@
 """Bounded log-bucket histograms: O(1) record, O(buckets) snapshot.
 
-Copy of ``nats_llm_studio_tpu/obs/histogram.py`` trimmed to what
-``serve/prefix_cache.py`` uses: ``LogHistogram.record`` / ``snapshot`` and
-``HistSnapshot.percentile`` (no snapshot deltas, ``to_dict`` or
-cross-worker merge helpers).
+Copy of ``nats_llm_studio_tpu/obs/histogram.py`` trimmed to what the
+prefix cache, the batcher's stats and the Prometheus renderer use:
+``LogHistogram`` (``record``, ``snapshot``, ``count``, ``max``,
+``percentile``) and ``HistSnapshot`` (``percentile``, ``mean``; no snapshot
+deltas, ``to_dict`` or cross-worker merge helpers).
 
 A fixed geometric bucket ladder covers [lo, hi] with a bounded relative
 error per bucket (``growth`` - 1 worst case), so a long-lived worker's
@@ -48,6 +49,10 @@ class HistSnapshot:
     total: float
     vmin: float | None  # None on empty snapshots and on deltas
     vmax: float | None
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
 
     def percentile(self, q: float) -> float:
         """Estimate the q-quantile (0 <= q <= 1) by linear interpolation
@@ -122,3 +127,14 @@ class LogHistogram:
                 vmin=self._vmin,
                 vmax=self._vmax,
             )
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def max(self) -> float:
+        return self._vmax if self._vmax is not None else 0.0
+
+    def percentile(self, q: float) -> float:
+        return self.snapshot().percentile(q)

@@ -55,9 +55,31 @@ steps (the reference scans them on device); kernel launches queue on the
 current stream in program order, and the host reads tokens back one burst
 behind.
 
+Overload control, as the reference's: ``max_queue`` bounds the admit queue
+at submit (``shed_cause=depth``) and ``max_queue_age_ms`` sheds waiters that
+stayed slot-starved too long (``shed_cause=age``). A request's
+``deadline`` (monotonic, from the client's ``X-Deadline-Ms``) sheds it at
+submit when already past, before prefill when it passes in the queue or the
+live rate estimates say it cannot make ``deadline_min_tokens`` tokens in
+time, and aborts it at the next readback once it passes mid-decode; all
+three are retryable and cause-tagged ``deadline``. ``brownout``
+(``serve/brownout.py``) is ticked once per owner-loop pass from host-side
+signals only (queue depth and age, and ``hbm_headroom_fn``, which the
+registry computes from its admission ledger): from BROWNOUT on it sheds
+the lower priority classes at submit, tightens the queue limit, halves the
+decode burst, pauses verifies and prefix-cache inserts; SHED_ONLY also
+sheds standard traffic and runs single steps. Admission order is deficit
+round-robin over tenants (``serve/qos.py``), weighted by priority class;
+a single tenant admits in FIFO order. The owner loop stamps ``heartbeat``
+once per pass; a crash fails every request retryably, keeps the error's
+type and text in ``crashed`` and drops its frames (which hold the pool and
+the row caches), so the registry's restart gives the memory back. The
+flight recorder samples host-side frames; ``debug_snapshot`` reads the
+slot view the loop publishes.
+
 Not ported yet: KV tiers (prefix demotion and promotion), slot suspend
-and parking, QoS and brownout, deadline propagation, the device-time
-ledger and the legacy contiguous-KV layout.
+and parking (and with them QoS preemption and brownout's suspend lever),
+the device-time ledger and the legacy contiguous-KV layout.
 """
 
 from __future__ import annotations
@@ -69,6 +91,7 @@ import queue as _queue
 import random
 import threading
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import AsyncIterator
 
@@ -85,7 +108,7 @@ from ..models.llama import (
     forward_decode_paged,
     make_cache,
 )
-from ..obs import LogHistogram
+from ..obs import LogHistogram, Trace
 from ..obs import emit as obs_emit
 from ..ops.kvcache import (
     KVQ,
@@ -99,7 +122,16 @@ from ..ops.kvcache import (
 )
 from ..parallel.memory import KV_BLOCK_TOKENS, PREFILL_CHUNK, serving_geometry
 from .block_pool import BlockPool
+from .brownout import LEVEL_NAMES, SHED_ONLY, BrownoutConfig, BrownoutController
 from .prefix_cache import PrefixCache
+from .qos import (
+    ANON_TENANT,
+    DEFAULT_PRIORITY,
+    DrrScheduler,
+    TenantStats,
+    class_rank,
+    class_weight,
+)
 from .spec import SpecConfig, SpecSlot, make_slot
 
 log = logging.getLogger(__name__)
@@ -112,6 +144,41 @@ _RESERVED = object()
 # how many top-logprob (id, logprob) pairs the ext program reads back a
 # step; OpenAI caps top_logprobs requests below this
 LOGPROBS_K = 8
+
+# the text of CUDA errors that leave the context unusable: every later call
+# in the process fails too, so neither a pool reset nor an engine reload
+# can recover (check_launch reports codes 700, 710, 715, 716 and 719 by
+# number)
+_CONTEXT_LOST = (
+    "illegal memory access", "device-side assert", "misaligned address",
+    "illegal instruction", "unspecified launch failure",
+    "CUDA error 700", "CUDA error 710", "CUDA error 715", "CUDA error 716",
+    "CUDA error 719",
+)
+
+
+def cuda_context_lost(err) -> bool:
+    """Whether ``err`` (an exception or its text) is a CUDA error after
+    which the process's context is unusable."""
+    text = str(err)
+    return any(m in text for m in _CONTEXT_LOST)
+
+
+def _drop_frames(err: BaseException) -> None:
+    """Release the frames an exception keeps, and those of the exceptions
+    chained to it: their locals (the loop's pool, row caches, logits) stay
+    allocated for as long as the exception is referenced. Type and text
+    stay."""
+    stack, seen = [err], set()
+    while stack:
+        e = stack.pop()
+        if e is None or id(e) in seen:
+            continue
+        seen.add(id(e))
+        if e.__traceback__ is not None:
+            traceback.clear_frames(e.__traceback__)
+            e.__traceback__ = None
+        stack += [e.__cause__, e.__context__]
 
 
 class BatcherStopped(RuntimeError):
@@ -136,8 +203,15 @@ class _Request:
     slot: int = -1
     pos: int = 0
     generated: int = 0
-    t_enq: float = 0.0
+    t_enq: float = 0.0  # monotonic enqueue time (queue-delay metric)
+    t_admit: float = 0.0  # monotonic admit-dispatch time (prefill metric)
+    trace: Trace | None = None  # per-request stage marks (obs/trace.py)
     cancelled: bool = False
+    # absolute monotonic deadline from the client's budget (None = none);
+    # past it the request is shed before prefill or aborted mid-decode
+    deadline: float | None = None
+    # a deadline abort, as opposed to a consumer-gone cancel
+    deadline_hit: bool = False
     # -- the ext regime: a TokenDFA when response_format asks for schema-
     # constrained output, with its current state (advanced on the host at
     # readback; the device sees only the state's vocab mask), and the
@@ -151,6 +225,21 @@ class _Request:
     rewound: bool = False
     # token ids delivered to the consumer, in order
     emitted: list = field(default_factory=list)
+    # -- multi-tenant QoS (serve/qos.py): the X-Tenant / X-Priority
+    # identity; raw-NATS callers default to the anonymous standard tenant.
+    # ``weight`` overrides the class weight in DRR when set (0 = class)
+    tenant: str = ANON_TENANT
+    priority: str = DEFAULT_PRIORITY
+    weight: float = 0.0
+
+    @property
+    def rank(self) -> int:
+        """0 = batch (shed first) .. 2 = premium (shed last)."""
+        return class_rank(self.priority)
+
+    @property
+    def drr_weight(self) -> float:
+        return self.weight if self.weight > 0 else float(class_weight(self.priority))
 
     @property
     def is_ext(self) -> bool:
@@ -166,11 +255,14 @@ class BatcherStats:
     tokens: int = 0
     steps: int = 0
     peak_active: int = 0
-    cancelled: int = 0
-    shed: int = 0
+    cancelled: int = 0  # consumer-gone requests whose slot/queue entry was freed
+    shed: int = 0  # requests refused or dropped by an overload bound
     # requests admitted through a batched short / batched chunked admit
     grouped_admits: int = 0
     chunked_group_admits: int = 0
+    # in-flight requests failed with a retryable error by an owner-thread
+    # crash (the registry keeps the total past the batcher at a restart)
+    inflight_failed_retryable: int = 0
     # speculative decoding: verify dispatches, draft tokens sent to them and
     # drafts the model's own distribution kept; the per-verify accepted
     # share (0 clamped to the bottom bucket) and its moving average
@@ -180,22 +272,111 @@ class BatcherStats:
     spec_accept_rate: LogHistogram = field(
         default_factory=lambda: LogHistogram(lo=0.01, hi=1.0, growth=1.25))
     spec_accept_ewma: float = 0.0
-    # per-program host dispatch time (ms) and dispatch counts, keyed by the
-    # reference's program names
-    program_ms: dict = field(default_factory=dict)
+    # bounded log-bucket histograms (obs/histogram.py), recorded on the
+    # owner thread and snapshotted by the metrics handlers
+    admit_delay_ms: LogHistogram = field(default_factory=LogHistogram)
+    ttft_ms: LogHistogram = field(default_factory=LogHistogram)  # enqueue -> first token
+    prefill_ms: LogHistogram = field(default_factory=LogHistogram)  # admit -> first token
+    decode_step_ms: LogHistogram = field(default_factory=LogHistogram)  # per step, at readback
+    tokens_per_step: LogHistogram = field(
+        default_factory=lambda: LogHistogram(lo=1.0, hi=4096.0, growth=1.25))
+    # "depth" | "age" | "deadline" | "brownout" | "fair_share" | "kv_pool" -> count
+    shed_causes: dict = field(default_factory=dict)
+    cancel_causes: dict = field(default_factory=dict)  # where the cancel landed
+    # per-program host dispatch time (ms) and tokens a dispatch, keyed by
+    # the reference's program names, and dispatch counts
+    program_ms: dict = field(default_factory=dict)  # name -> LogHistogram
+    program_tokens: dict = field(default_factory=dict)  # name -> LogHistogram
     program_calls: dict = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock)
 
     def record_program(self, name: str, ms: float) -> None:
-        self.program_ms[name] = self.program_ms.get(name, 0.0) + ms
+        h = self.program_ms.get(name)
+        if h is None:
+            with self._lock:
+                h = self.program_ms.setdefault(name, LogHistogram())
+        h.record(ms)
         self.program_calls[name] = self.program_calls.get(name, 0) + 1
 
+    def record_tokens(self, name: str, tokens: float) -> None:
+        """Tokens one dispatch of ``name`` moved."""
+        if tokens <= 0:
+            return
+        ht = self.program_tokens.get(name)
+        if ht is None:
+            with self._lock:
+                ht = self.program_tokens.setdefault(
+                    name, LogHistogram(lo=1.0, hi=1e6, growth=1.25))
+        ht.record(float(tokens))
+
+    def program_histograms(self) -> dict[str, LogHistogram]:
+        with self._lock:
+            return dict(self.program_ms)
+
+    def program_token_histograms(self) -> dict[str, LogHistogram]:
+        with self._lock:
+            return dict(self.program_tokens)
+
+    def record_admit_delay(self, ms: float) -> None:
+        """Queue delay (enqueue -> admit dispatch), ms."""
+        self.admit_delay_ms.record(ms)
+
+    def record_shed(self, cause: str = "depth", waited_ms: float | None = None) -> None:
+        """Sheds happen on two threads (submit-side bounds on the caller's
+        event loop, the age and deadline sweeps on the owner thread), so
+        the counts move under the lock."""
+        with self._lock:
+            self.shed += 1
+            self.shed_causes[cause] = self.shed_causes.get(cause, 0) + 1
+        ev = {"cause": cause}
+        if waited_ms is not None:
+            ev["waited_ms"] = round(waited_ms, 1)
+        obs_emit("shed", **ev)
+
+    def record_cancel(self, where: str = "active") -> None:
+        """A consumer-gone (or deadline-aborted) request reclaimed, tagged
+        with where the cancel landed."""
+        self.cancelled += 1
+        self.cancel_causes[where] = self.cancel_causes.get(where, 0) + 1
+        obs_emit("cancel", where=where)
+
+    def shed_cause_counts(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self.shed_causes)
+
+    def histograms(self) -> dict[str, LogHistogram]:
+        """Name -> histogram, for the Prometheus exposition."""
+        return {
+            "admit_queue_delay_ms": self.admit_delay_ms,
+            "ttft_ms": self.ttft_ms,
+            "prefill_ms": self.prefill_ms,
+            "decode_step_ms": self.decode_step_ms,
+            "tokens_per_step": self.tokens_per_step,
+            "spec_accept_rate": self.spec_accept_rate,
+        }
+
     def spec_counters(self) -> dict[str, int]:
-        """Speculative-decoding counters (the reference's
-        ``lmstudio_spec_*_total`` families)."""
+        """Speculative-decoding counters (the ``lmstudio_spec_*_total``
+        families)."""
         return {
             "verifies": self.spec_verifies,
             "drafted": self.spec_drafted,
             "accepted": self.spec_accepted,
+        }
+
+    def counters(self) -> dict[str, int]:
+        """Monotonic counters, for the Prometheus exposition (the
+        reference's, less the legacy ring's ``ring_compactions`` and XLA's
+        ``decode_recompiles``)."""
+        return {
+            "requests": self.requests,
+            "tokens": self.tokens,
+            "decode_steps": self.steps,
+            "grouped_admits": self.grouped_admits,
+            "chunked_group_admits": self.chunked_group_admits,
+            "cancelled": self.cancelled,
+            "shed": self.shed,
+            "inflight_failed_retryable": self.inflight_failed_retryable,
         }
 
     def record_spec(self, drafted: int, accepted: int) -> None:
@@ -207,21 +388,40 @@ class BatcherStats:
         self.spec_accept_ewma = rate if prev == 0.0 else 0.8 * prev + 0.2 * rate
 
     def snapshot(self) -> dict:
+        adm = self.admit_delay_ms.snapshot()
+        ttft = self.ttft_ms.snapshot()
+        pre = self.prefill_ms.snapshot()
+        dec = self.decode_step_ms.snapshot()
+        with self._lock:
+            shed_causes = dict(self.shed_causes)
+            programs = dict(self.program_ms)
         return {
             "requests": self.requests,
             "tokens": self.tokens,
-            "steps": self.steps,
-            "peak_active": self.peak_active,
+            "decode_steps": self.steps,
+            "peak_active_slots": self.peak_active,
             "cancelled": self.cancelled,
             "shed": self.shed,
+            "shed_causes": shed_causes,
+            "inflight_failed_retryable": self.inflight_failed_retryable,
             "grouped_admits": self.grouped_admits,
             "chunked_group_admits": self.chunked_group_admits,
             "spec_verifies": self.spec_verifies,
             "spec_drafted": self.spec_drafted,
             "spec_accepted": self.spec_accepted,
             "spec_accept_ewma": round(self.spec_accept_ewma, 3),
+            "tokens_per_step_avg": round(self.tokens / self.steps, 2) if self.steps else 0.0,
+            "admit_queue_delay_p50_ms": round(adm.percentile(0.5), 1),
+            "admit_queue_delay_p95_ms": round(adm.percentile(0.95), 1),
+            "admit_queue_delay_max_ms": round(adm.vmax or 0.0, 1),
+            "ttft_p50_ms": round(ttft.percentile(0.5), 1),
+            "ttft_p95_ms": round(ttft.percentile(0.95), 1),
+            "prefill_p50_ms": round(pre.percentile(0.5), 1),
+            "prefill_p95_ms": round(pre.percentile(0.95), 1),
+            "decode_step_p50_ms": round(dec.percentile(0.5), 1),
+            "decode_step_p95_ms": round(dec.percentile(0.95), 1),
             "program_calls": dict(self.program_calls),
-            "program_ms": {k: round(v, 3) for k, v in self.program_ms.items()},
+            "program_ms": {k: round(h.snapshot().total, 3) for k, h in programs.items()},
         }
 
 
@@ -245,7 +445,14 @@ class ContinuousBatcher:
     the registry passes 64), ``kv_pool_blocks`` (0 = every slot at
     max_seq plus the prefix budget), ``spec_decode_k`` (0 = no speculative
     decoding; the registry passes 6) and ``spec_max_active`` (4: verify
-    dispatches run at 1..4 live slots)."""
+    dispatches run at 1..4 live slots); the overload knobs ``max_queue`` (0
+    = no depth bound), ``max_queue_age_ms`` (0 = no age bound),
+    ``brownout`` (a ``BrownoutConfig``, None = off), ``hbm_headroom_fn``
+    (the free fraction of the device-memory budget, or None), and
+    ``deadline_min_tokens`` (1); ``recorder`` (a ``FlightRecorder``, None =
+    off) and ``qos_quantum_tokens`` (256: the DRR quantum in prompt tokens).
+    QoS preemption stays off, as in the reference when slot suspend is off:
+    it rides slot suspend, which the port does not have yet."""
 
     # the reference's serving defaults: 256-token prefill chunks, decode
     # bursts of 8 steps, 16-token KV blocks
@@ -258,7 +465,11 @@ class ContinuousBatcher:
                  decode_burst: int | None = None, admit_coalesce_ms: float = 3.0,
                  max_group_admit: int = 8, max_group_long: int = 4,
                  prefix_cache_blocks: int = 0, kv_pool_blocks: int = 0,
-                 spec_decode_k: int = 0, spec_max_active: int = 4):
+                 spec_decode_k: int = 0, spec_max_active: int = 4,
+                 max_queue: int = 0, max_queue_age_ms: float = 0.0,
+                 brownout: BrownoutConfig | None = None, hbm_headroom_fn=None,
+                 deadline_min_tokens: int = 1, recorder=None,
+                 qos_quantum_tokens: int = 256):
         self.params = ensure_lm_head(params)
         self.cfg = cfg
         self.device = self.params["embed"].device
@@ -280,6 +491,9 @@ class ContinuousBatcher:
         self.admit_coalesce_ms = max(0.0, admit_coalesce_ms)
         self.max_group_admit = max(1, max_group_admit)
         self.max_group_long = max(1, max_group_long)
+        # overload bounds (0 = off): depth sheds at submit, age at admit
+        self.max_queue = max(0, max_queue)
+        self.max_queue_age_ms = max(0.0, max_queue_age_ms)
         self.kv_block_tokens = T
         self.blocks_per_row = self.max_seq // T
         # every slot at max_seq plus the prefix budget, +1 for the null
@@ -315,6 +529,24 @@ class ContinuousBatcher:
                 acquire_fn=_pc_acquire, free_fn=_pc_release,
             )
 
+        # adaptive brownout, ticked by the owner loop (None = off); the
+        # headroom probe is the registry's admission ledger, host state only
+        self.brownout: BrownoutController | None = (
+            BrownoutController(brownout) if brownout is not None else None)
+        self.hbm_headroom_fn = hbm_headroom_fn
+        # deadline feasibility floor: a waiter that cannot make this many
+        # tokens before its deadline (by the live rate EWMAs) is shed
+        # before prefill instead of being aborted mid-stream
+        self.deadline_min_tokens = max(1, deadline_min_tokens)
+        self._prefill_rate_ewma = 0.0  # prompt tokens/s, at first token
+        self._decode_spt_ewma = 0.0  # seconds a decode step, at readback
+        self.recorder = recorder
+        self._drr = DrrScheduler(quantum=max(1, int(qos_quantum_tokens)))
+        self.tenant_stats = TenantStats()
+        # the live slots' positions and tables for debug_snapshot(),
+        # replaced wholesale by the owner loop (a GIL-atomic swap)
+        self._slot_view: dict[int, dict] = {}
+
         self._admit_fused_paged = self._timed("admit_fused_paged", self._admit_fused_paged_fn)
         self._admit_many_fused_paged = self._timed("admit_many_fused_paged",
                                                    self._admit_many_fused_paged_fn)
@@ -344,6 +576,10 @@ class ContinuousBatcher:
         self._thread: threading.Thread | None = None
         self._wl_len = 0
         self._waitlist: list[_Request] = []
+        # supervision surface: the owner loop stamps ``heartbeat`` once per
+        # pass; ``crashed`` holds the exception that ended it (type and
+        # text, its frames dropped)
+        self.heartbeat = time.monotonic()
         self.crashed: BaseException | None = None
 
     # -- programs ----------------------------------------------------------
@@ -502,7 +738,8 @@ class ContinuousBatcher:
         return out, n_emit, new_tok
 
     def _timed(self, name: str, fn):
-        """Record every dispatch's host time under the program ``name``."""
+        """Record every dispatch's host time under the program ``name``
+        (the call sites record the tokens it moved, ``record_tokens``)."""
         stats = self.stats
 
         def run(*args, **kwargs):
@@ -526,7 +763,11 @@ class ContinuousBatcher:
             pc.reclaim(k - pool.free_blocks)
             got = pool.alloc(k)
         if got is None:
-            self.stats.shed += 1
+            self.stats.record_shed("kv_pool")
+            if self.recorder is not None:
+                # rate-limited: a starved pool sheds every admit attempt
+                self.recorder.dump("kv_pool_exhausted",
+                                   extra={"needed": k, "free": pool.free_blocks})
             raise _PoolExhausted(
                 f"kv block pool exhausted ({k} blocks needed, "
                 f"{pool.free_blocks} free) (shed_cause=kv_pool); "
@@ -568,18 +809,173 @@ class ContinuousBatcher:
         self._thread.start()
 
     def _run_guarded(self) -> None:
+        """Owner-thread entry: an escape from the loop fails every request
+        retryably and leaves the crash for the supervisor. The exception's
+        frames hold the loop's locals (the pool, row caches, logits): they
+        are logged as text and dropped, so a restart can free the memory."""
         try:
             self._run()
-        except BaseException as e:  # noqa: BLE001 — fail waiters, record the crash
-            log.exception("batcher pump loop crashed")
+        except BaseException as e:  # noqa: BLE001 — watchdogs need everything
+            log.error("batcher pump loop crashed\n%s", "".join(traceback.format_exception(e)))
+            _drop_frames(e)
             self.crashed = e
-            self._stopping = True
-            for r in list(self._waitlist) + [s for s in self._slots if isinstance(s, _Request)]:
-                r.emit("err", BatcherStopped(f"batcher crashed ({e}); retry on another worker"))
-            self._drain_all("shutdown")
+            error = f"{type(e).__name__}: {e}"
+            n = self._fail_inflight_retryable(e)
+            obs_emit("engine_crash", error=error, inflight_failed=n)
+            if self.recorder is not None:
+                self.recorder.dump("engine_crash", extra={"error": error, "inflight_failed": n})
+
+    def _fail_inflight_retryable(self, cause: BaseException) -> int:
+        """Fail every in-flight and queued request with a BatcherStopped
+        that carries the retryable marker. Returns the count."""
+        with self._submit_lock:
+            self._stopping = True  # no new submits past this point
+        err = BatcherStopped(
+            f"engine crashed ({type(cause).__name__}: {cause}); "
+            f"retry on another worker"
+        )
+        n = 0
+
+        def fail(req: _Request) -> None:
+            # count BEFORE emit: the consumer may read the counter at once
+            nonlocal n
+            n += 1
+            self.stats.inflight_failed_retryable += 1
+            req.emit("err", err)
+
+        for req in self._waitlist:
+            fail(req)
+        self._waitlist.clear()
+        self._wl_len = 0
+        for i, req in enumerate(self._slots):
+            if isinstance(req, _Request):
+                fail(req)
+            self._slots[i] = None
+        self._slot_view = {}
+        while True:
+            try:
+                req = self._inbox.get_nowait()
+            except _queue.Empty:
+                break
+            if req is not None:
+                fail(req)
+        return n
+
+    @property
+    def brownout_level(self) -> int:
+        """0 normal / 1 brownout / 2 shed-only; 0 when the controller is off."""
+        return self.brownout.level if self.brownout is not None else 0
+
+    @property
+    def queue_depth(self) -> int:
+        """Waitlist + unread inbox (two GIL-atomic reads; any thread)."""
+        return self._wl_len + self._inbox.qsize()
+
+    def _headroom(self) -> float | None:
+        if self.hbm_headroom_fn is None:
+            return None
+        try:
+            return self.hbm_headroom_fn()
+        except Exception:  # noqa: BLE001 — the probe is best-effort
+            return None
+
+    def _recorder_frame(self, depth: int, n_active: int) -> dict:
+        """One flight-recorder frame (owner thread): host-side state only,
+        so sampling adds no device sync to the loop."""
+        st = self.stats
+        fr = {
+            "queue_depth": depth,
+            "active_slots": n_active,
+            "brownout_level": self.brownout_level,
+            "decode_spt_ewma_ms": round(self._decode_spt_ewma * 1e3, 3),
+            "spec_accept_ewma": round(st.spec_accept_ewma, 3),
+            "requests": st.requests,
+            "tokens": st.tokens,
+            "shed": st.shed,
+            "cancelled": st.cancelled,
+            "inflight_failed_retryable": st.inflight_failed_retryable,
+        }
+        hr = self._headroom()
+        if hr is not None:
+            fr["hbm_headroom_frac"] = round(hr, 4)
+        ps = self._pool.stats()
+        fr["pool_blocks_free"] = ps["blocks_free"]
+        fr["pool_blocks_live"] = ps["blocks_live"]
+        fr["pool_blocks_shared"] = ps["blocks_shared"]
+        return fr
+
+    def debug_snapshot(self) -> dict:
+        """The ``lmstudio.debug.snapshot`` view: each live slot's position
+        and block table with refcounts, the pool and prefix-cache
+        summaries, the brownout state and the recorder's tail. Safe from
+        any thread: reads the slot view the owner loop swaps wholesale and
+        the pool's host-side counters."""
+        pool = self._pool
+        slots: dict[int, dict] = {}
+        for i, ent in sorted(self._slot_view.items()):
+            e = dict(ent)
+            if e.get("blocks"):
+                e["block_refcounts"] = [pool.refcount(b) for b in e["blocks"]]
+            slots[i] = e
+        snap: dict = {
+            "max_slots": self.max_slots,
+            "max_seq": self.max_seq,
+            "paged": True,
+            "kv_quant": self.cfg.kv_quant,
+            "kv_block_tokens": self.kv_block_tokens,
+            "queue_depth": self.queue_depth,
+            "slots": slots,
+            "decode_spt_ewma_ms": round(self._decode_spt_ewma * 1e3, 3),
+            "spec_accept_ewma": round(self.stats.spec_accept_ewma, 3),
+            "pool": pool.stats(),
+        }
+        bo = self.brownout
+        if bo is not None:
+            snap["brownout"] = {"level": bo.level, "level_name": LEVEL_NAMES[bo.level],
+                                "transitions": bo.transitions}
+        if self.prefix_cache is not None:
+            snap["prefix_cache"] = self.prefix_cache.stats()
+        if self.recorder is not None:
+            snap["recorder_tail"] = self.recorder.tail(20)
+            snap["recorder_frames_sampled"] = self.recorder.frames_sampled
+        return snap
+
+    def _note_prefill_rate(self, tokens: int, seconds: float) -> None:
+        if seconds <= 0 or tokens <= 0:
+            return
+        rate = tokens / seconds
+        prev = self._prefill_rate_ewma
+        self._prefill_rate_ewma = rate if prev == 0.0 else 0.8 * prev + 0.2 * rate
+
+    def _note_decode_spt(self, step_seconds: float) -> None:
+        if step_seconds <= 0:
+            return
+        prev = self._decode_spt_ewma
+        self._decode_spt_ewma = step_seconds if prev == 0.0 else 0.8 * prev + 0.2 * step_seconds
+
+    def _estimate_serve_s(self, req: _Request) -> float:
+        """Seconds to prefill ``req`` and decode its feasibility floor of
+        tokens, from the live rate EWMAs (0.0 while cold: then only the
+        already-expired are shed)."""
+        est = 0.0
+        if self._prefill_rate_ewma > 0.0:
+            est += len(req.prompt_ids) / self._prefill_rate_ewma
+        min_tok = max(1, min(self.deadline_min_tokens, req.sp.max_tokens))
+        return est + min_tok * self._decode_spt_ewma
+
+    def _tenant_served(self, req: _Request) -> None:
+        """Per-tenant completion accounting: generated tokens and queue age."""
+        age_ms = max(0.0, (req.t_admit - req.t_enq) * 1e3)
+        self.tenant_stats.record_served(req.tenant, req.generated, age_ms)
+
+    def heartbeat_age_s(self) -> float:
+        """Seconds since the owner loop last topped its pass. Meaningful only
+        while the batcher is not idle: an idle owner blocks on its inbox."""
+        return time.monotonic() - self.heartbeat
 
     @property
     def alive(self) -> bool:
+        """True while the owner thread runs and has not crashed."""
         return self.crashed is None and self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
@@ -592,8 +988,10 @@ class ContinuousBatcher:
             self._stopping = True
             if running:
                 self._inbox.put(None)
-        if running:
+        if self._thread is not None:
+            # a crashed owner may still be writing its crash dump
             self._thread.join(timeout=30.0)
+        if running:
             self._drain_all("shutdown")
         if self._thread is not None and self._thread.is_alive():
             log.warning("batcher thread still running after stop; its device "
@@ -637,21 +1035,69 @@ class ContinuousBatcher:
 
     # -- submission ----------------------------------------------------------
 
-    def _enqueue(self, prompt_ids: list[int], sp: SamplingParams, constrain=None,
-                 want_logprobs: bool = False, top_logprobs: int = 0) -> _Request:
+    def _enqueue(self, prompt_ids: list[int], sp: SamplingParams, trace: Trace | None = None,
+                 deadline: float | None = None, constrain=None, want_logprobs: bool = False,
+                 top_logprobs: int = 0, tenant: str = ANON_TENANT,
+                 priority: str = DEFAULT_PRIORITY, weight: float = 0.0) -> _Request:
         if not prompt_ids:
             raise ValueError("empty prompt")
         if len(prompt_ids) >= self.max_seq:
             raise ValueError(f"prompt of {len(prompt_ids)} tokens >= max_seq {self.max_seq}")
         req = _Request(
             prompt_ids=list(prompt_ids), sp=sp, loop=asyncio.get_running_loop(),
-            out=asyncio.Queue(), t_enq=time.monotonic(), constrain=constrain,
-            cstate=constrain.start if constrain is not None else 0,
+            out=asyncio.Queue(), t_enq=time.monotonic(), trace=trace, deadline=deadline,
+            constrain=constrain, cstate=constrain.start if constrain is not None else 0,
             want_logprobs=bool(want_logprobs), top_logprobs=int(top_logprobs),
+            tenant=str(tenant or ANON_TENANT), priority=priority,
+            weight=max(0.0, float(weight)),
         )
+        self.tenant_stats.record_request(req.tenant)
+        if trace is not None:
+            trace.mark("enqueue", req.t_enq)
+        # expired before it was queued: shed at submit, no device work
+        if deadline is not None and req.t_enq >= deadline:
+            self.stats.record_shed("deadline")
+            self.tenant_stats.record_shed(req.tenant)
+            raise BatcherOverloaded(
+                "deadline already expired at submit (shed_cause=deadline); "
+                "retry on another worker"
+            )
+        bo = self.brownout
         with self._submit_lock:
             if self._stopping:
                 raise BatcherStopped("batcher is stopped; retry on another worker")
+            if bo is not None and bo.level >= SHED_ONLY and self.idle:
+                # the owner loop ticks the controller only while it has
+                # work; a drained pipeline parks it on the inbox, so tick
+                # from here with the current (calm) signals, or the level
+                # would stay at shed-only for good
+                bo.update(depth_frac=self._inbox.qsize() / (self.max_queue or 4 * self.max_slots),
+                          age_p95_ms=0.0, hbm_headroom_frac=self._headroom())
+            if bo is not None and bo.level > req.rank:
+                # the level is the lowest class still admitted: BROWNOUT
+                # sheds batch, SHED_ONLY batch and standard; premium only
+                # meets the depth bound below
+                self.stats.record_shed("brownout")
+                self.tenant_stats.record_shed(req.tenant)
+                if bo.level >= SHED_ONLY:
+                    msg = ("brownout shed-only: worker saturated "
+                           "(shed_cause=brownout); retry on another worker")
+                else:
+                    msg = (f"brownout: {req.priority} class shed first "
+                           f"(shed_cause=brownout); retry on another worker")
+                raise BatcherOverloaded(msg)
+            limit = bo.effective_queue_limit(self.max_queue) if bo is not None else self.max_queue
+            if limit:
+                # premium rides a 50% depth grace past the bound; the owner
+                # loop displaces the lowest-fair-share waiters instead
+                eff = limit + (limit >> 1) + 1 if req.rank >= 2 else limit
+                if self._inbox.qsize() + self._wl_len >= eff:
+                    self.stats.record_shed("depth")
+                    self.tenant_stats.record_shed(req.tenant)
+                    raise BatcherOverloaded(
+                        f"admit queue full ({limit} waiting) "
+                        f"(shed_cause=depth); retry on another worker"
+                    )
             self._inbox.put(req)
         return req
 
@@ -660,21 +1106,30 @@ class ContinuousBatcher:
         self._cancels.put(req)
 
     async def submit(self, prompt_ids: list[int], sp: SamplingParams,
-                     info: dict | None = None, constrain=None, want_logprobs: bool = False,
-                     top_logprobs: int = 0) -> AsyncIterator[int]:
+                     info: dict | None = None, trace: Trace | None = None,
+                     deadline: float | None = None, constrain=None,
+                     want_logprobs: bool = False, top_logprobs: int = 0,
+                     tenant: str = ANON_TENANT, priority: str = DEFAULT_PRIORITY,
+                     weight: float = 0.0) -> AsyncIterator[int]:
         """Yield generated token ids for one request; ``info`` receives the
         end reason ("stop" / "length" / "shutdown") as ``finish_reason``.
+        ``deadline`` is an absolute ``time.monotonic()`` value: past it the
+        request is shed before prefill or aborted mid-decode. ``tenant``,
+        ``priority`` and ``weight`` place it in the fair-share admission.
         See ``submit_batched`` for the ext options."""
-        async for batch in self.submit_batched(prompt_ids, sp, info=info, constrain=constrain,
-                                               want_logprobs=want_logprobs,
-                                               top_logprobs=top_logprobs):
+        async for batch in self.submit_batched(
+                prompt_ids, sp, info=info, trace=trace, deadline=deadline,
+                constrain=constrain, want_logprobs=want_logprobs,
+                top_logprobs=top_logprobs, tenant=tenant, priority=priority, weight=weight):
             for tok in batch:
                 yield tok
 
     async def submit_batched(self, prompt_ids: list[int], sp: SamplingParams,
-                             info: dict | None = None, constrain=None,
-                             want_logprobs: bool = False,
-                             top_logprobs: int = 0) -> AsyncIterator[list]:
+                             info: dict | None = None, trace: Trace | None = None,
+                             deadline: float | None = None, constrain=None,
+                             want_logprobs: bool = False, top_logprobs: int = 0,
+                             tenant: str = ANON_TENANT, priority: str = DEFAULT_PRIORITY,
+                             weight: float = 0.0) -> AsyncIterator[list]:
         """Like ``submit`` but yields lists: everything delivered since the
         consumer last woke (a decode burst) comes out as one batch.
 
@@ -686,8 +1141,9 @@ class ContinuousBatcher:
             self.start()
         if not prompt_ids:
             return
-        req = self._enqueue(prompt_ids, sp, constrain=constrain, want_logprobs=want_logprobs,
-                            top_logprobs=top_logprobs)
+        req = self._enqueue(prompt_ids, sp, trace=trace, deadline=deadline, constrain=constrain,
+                            want_logprobs=want_logprobs, top_logprobs=top_logprobs,
+                            tenant=tenant, priority=priority, weight=weight)
         done = False
         try:
             while True:
@@ -795,6 +1251,21 @@ class ContinuousBatcher:
         def active() -> list[int]:
             return [i for i, r in enumerate(self._slots) if isinstance(r, _Request)]
 
+        def rebuild_slot_view() -> None:
+            """Publish the live slots' host-side state for debug_snapshot()
+            (copies, swapped in wholesale)."""
+            view: dict[int, dict] = {}
+            for i, r in enumerate(self._slots):
+                if not isinstance(r, _Request):
+                    continue
+                ent = {"pos": host_pos[i], "prompt_tokens": len(r.prompt_ids),
+                       "generated": r.generated, "max_tokens": r.sp.max_tokens,
+                       "cancelled": r.cancelled, "blocks": list(tables[i])}
+                if r.trace is not None:
+                    ent["trace_id"] = r.trace.trace_id
+                view[i] = ent
+            self._slot_view = view
+
         def ext_live() -> bool:
             """A live constrained or logprob slot puts every slot in the ext
             regime: the burst and verify programs advance every row, so an
@@ -805,6 +1276,9 @@ class ContinuousBatcher:
             nonlocal table_dirty
             self._slots[i] = None
             spec_slots[i] = None
+            # keep the cross-thread view honest even when the loop is about
+            # to block idle on the inbox
+            self._slot_view.pop(i, None)
             host_pos[i] = 0
             host_steps[i] = 0
             if tables[i]:
@@ -822,6 +1296,7 @@ class ContinuousBatcher:
                         st.index.append(int(t))
                     reason = self._deliver(req, int(t))
                     if reason is not None:
+                        self._tenant_served(req)
                         finish_slot(slot)  # free BEFORE the end event
                         req.emit("end", reason)
                         return
@@ -853,33 +1328,44 @@ class ContinuousBatcher:
                 if reason is None and dead:
                     reason = "stop"
                 if reason is not None:
+                    self._tenant_served(req)
                     finish_slot(slot)  # free BEFORE the end event
                     req.emit("end", reason)
             except Exception:  # noqa: BLE001 — dead client
                 log.exception("delivery failed; dropping slot %d", slot)
                 finish_slot(slot)
 
-        def gone(slot: int, req: _Request) -> bool:
+        def gone(slot: int, req: _Request, where: str = "decode") -> bool:
             """Whether a record's row no longer needs delivering: the slot
-            moved on, or the consumer left (its slot is freed here)."""
+            moved on, or the consumer left or its deadline passed (its slot
+            and blocks are freed here)."""
             if self._slots[slot] is not req:
                 return True
             if req.cancelled:
                 finish_slot(slot)
-                self.stats.cancelled += 1
+                self.stats.record_cancel("deadline" if req.deadline_hit else where)
                 return True
             return False
 
+        def note_step(t_disp: float, n: int) -> None:
+            """A decode record's per-step latency, dispatch to readable
+            tokens (pipeline wait included: what a stream sees)."""
+            step_s = (time.monotonic() - t_disp) / n
+            self.stats.decode_step_ms.record(step_s * 1e3)
+            self._note_decode_spt(step_s)
+
         def process_record(rec) -> None:
             if rec[0] == "decode":
-                _, toks, n, rows = rec
+                _, toks, n, rows, t_disp = rec
                 ids = toks.cpu()  # ONE [B, n] readback per burst
+                note_step(t_disp, n)
                 for slot, req in rows:
                     if not gone(slot, req):
                         deliver_all(req, slot, ids[slot].tolist())
             elif rec[0] == "spec":
-                _, toks, nacc, rows = rec
+                _, toks, nacc, rows, t_disp = rec
                 ids, nacc = toks.cpu(), nacc.cpu()
+                self.stats.decode_step_ms.record((time.monotonic() - t_disp) * 1e3)
                 for slot, req, dlen in rows:
                     if self._slots[slot] is not req:
                         continue
@@ -892,8 +1378,9 @@ class ContinuousBatcher:
                     if not gone(slot, req):
                         deliver_all(req, slot, ids[slot, :n_emit].tolist())
             elif rec[0] == "ext":
-                _, toks, lps, tids, tlps, rows = rec
+                _, toks, lps, tids, tlps, rows, t_disp = rec
                 ids, lps, tids, tlps = toks.cpu(), lps.cpu(), tids.cpu(), tlps.cpu()
+                note_step(t_disp, 1)
                 for slot, req in rows:
                     if not gone(slot, req):
                         deliver_ext(req, slot, int(ids[slot]), float(lps[slot]),
@@ -902,7 +1389,7 @@ class ContinuousBatcher:
                 _, firsts, rows = rec
                 ids = firsts.cpu()  # one readback for the whole admit
                 for j, slot, req in rows:
-                    if gone(slot, req):
+                    if gone(slot, req, "admit"):
                         continue
                     if req.is_ext and not req.rewound:
                         # the rewind: the admit sampled token 0 with no mask
@@ -936,10 +1423,10 @@ class ContinuousBatcher:
                     return
                 if 0 <= req.slot < B and self._slots[req.slot] is req:
                     finish_slot(req.slot)
-                    self.stats.cancelled += 1
+                    self.stats.record_cancel("active")
                 elif req in waitlist:
                     waitlist.remove(req)
-                    self.stats.cancelled += 1
+                    self.stats.record_cancel("waitlist")
 
         def grow_for(act: list[int], width: int) -> list[int]:
             """Grow each row's table over the next ``width`` writes and
@@ -991,12 +1478,15 @@ class ContinuousBatcher:
                 tok_dev, KP, VP, tbl_dev, pos, list(host_seed), list(host_steps),
                 *sampling_lists(), mask,
             )
+            self.stats.record_tokens("decode_pos_pallas_ext", len(act))
             tok_dev = toks
             self.stats.steps += 1
+            self.stats.tokens_per_step.record(float(len(act)))
             for i in act:
                 host_pos[i] += 1
                 host_steps[i] += 1
-            inflight.append(("ext", toks, lps, tids, tlps, [(i, self._slots[i]) for i in act]))
+            inflight.append(("ext", toks, lps, tids, tlps, [(i, self._slots[i]) for i in act],
+                             time.monotonic()))
 
         def spec_once() -> bool:
             """ONE verify dispatch when a live slot has a prompt-lookup
@@ -1034,11 +1524,14 @@ class ContinuousBatcher:
                 torch.tensor(drafts, dtype=torch.int32, device=dev), dlens,
                 list(host_seed), list(host_steps), *sampling_lists(),
             )
+            self.stats.record_tokens("spec_verify_pallas", len(act) * (k + 1))
             self.stats.steps += 1
             self.stats.spec_verifies += 1
+            self.stats.tokens_per_step.record(float(len(act)))
             for i in act:
                 host_steps[i] += k + 1  # host_pos moves at the readback
-            inflight.append(("spec", out, nacc, [(i, self._slots[i], dlens[i]) for i in act]))
+            inflight.append(("spec", out, nacc, [(i, self._slots[i], dlens[i]) for i in act],
+                             time.monotonic()))
             return True
 
         def decode_once() -> None:
@@ -1046,9 +1539,12 @@ class ContinuousBatcher:
             act = active()
             if not act:
                 return
-            # no row may run past the cache: near capacity, single steps
+            # no row may run past the cache: near capacity, single steps;
+            # brownout shortens the burst (a shed or abort lands sooner)
             headroom = self.max_seq - 1 - max(host_pos[i] for i in act)
-            n = self.decode_burst if headroom >= self.decode_burst else 1
+            burst = (self.brownout.effective_burst(self.decode_burst)
+                     if self.brownout is not None else self.decode_burst)
+            n = burst if headroom >= burst else 1
             act = grow_for(act, n)
             if not act:
                 return
@@ -1058,11 +1554,14 @@ class ContinuousBatcher:
                 tok_dev, KP, VP, tbl_dev, pos, list(host_seed), list(host_steps),
                 *sampling_lists(), n,
             )
+            self.stats.record_tokens("decode_pos_pallas", len(act) * n)
             self.stats.steps += n
+            self.stats.tokens_per_step.record(float(len(act)))
             for i in act:
                 host_pos[i] += n
                 host_steps[i] += n
-            inflight.append(("decode", toks, n, [(i, self._slots[i]) for i in act]))
+            inflight.append(("decode", toks, n, [(i, self._slots[i]) for i in act],
+                             time.monotonic()))
 
         def harvest_prefix(prompt_ids, chunk_logits, slot: int, skip_chunks: int = 0) -> None:
             """Insert the prompt's full chunks into the prefix cache with no
@@ -1071,6 +1570,8 @@ class ContinuousBatcher:
             were themselves hits, so their nodes exist already."""
             if pc is None:
                 return
+            if self.brownout is not None and self.brownout.pause_prefix_harvest:
+                return  # browned out: admits stop filling the cache
             n_full = len(prompt_ids) // C
             if n_full <= skip_chunks:
                 return
@@ -1096,6 +1597,7 @@ class ContinuousBatcher:
                     torch.tensor([chunk], dtype=torch.int32, device=dev), k1, v1,
                     start, min(n - 1 - start, C - 1), self._win_bucket(start + C),
                 )
+                self.stats.record_tokens("prefill1", min(C, n - start))
                 if chunk_logits is not None and start + C <= n:
                     chunk_logits[start // C] = logits
                 if start + C < n and not ext_live():
@@ -1113,6 +1615,7 @@ class ContinuousBatcher:
                 bids = ids + [0] * (max(1, bucket // T) - len(ids))
                 tokens = torch.tensor([req.prompt_ids + [0] * (bucket - n)],
                                       dtype=torch.int32, device=dev)
+                self.stats.record_tokens("admit_fused_paged", n)
                 return self._admit_fused_paged(
                     KP, VP, tokens, n, torch.tensor(bids, dtype=torch.int32), seed, samp,
                 )
@@ -1158,6 +1661,7 @@ class ContinuousBatcher:
                     tokens = torch.tensor([req.prompt_ids + [0] * (wb - n)],
                                           dtype=torch.int32, device=dev)
                     logits = self._prefill_full(tokens, k1, v1, n)
+                    self.stats.record_tokens("prefill_full", n)
                     # only the prompt-end row exists here
                     if chunk_logits is not None and n % C == 0:
                         chunk_logits[n_full - 1] = logits
@@ -1191,6 +1695,8 @@ class ContinuousBatcher:
             nonlocal table_dirty
             out = []
             for j, (slot, req) in enumerate(rows):
+                if req.trace is not None:
+                    req.trace.mark("prefill")  # prefill dispatched; first token next
                 req.slot = slot
                 req.pos = ns[j]
                 self._slots[slot] = req
@@ -1212,7 +1718,18 @@ class ContinuousBatcher:
                 self._slots[s] = None
             table_dirty = True
 
+        def start_admit(reqs) -> None:
+            """Queue delay ends where the admit starts (a chunked prefill's
+            seconds are prefill, not queueing)."""
+            t_admit = time.monotonic()
+            for r in reqs:
+                r.t_admit = t_admit
+                self.stats.record_admit_delay((t_admit - r.t_enq) * 1e3)
+                if r.trace is not None:
+                    r.trace.mark("admit", t_admit)
+
         def admit_one(req: _Request) -> None:
+            start_admit([req])
             slot = self._slots.index(None)
             n = len(req.prompt_ids)
             sp = req.sp
@@ -1256,6 +1773,7 @@ class ContinuousBatcher:
             ns = [len(r.prompt_ids) for r in reqs]
             if not group_fits(ns):
                 return False
+            start_admit(reqs)
             slots: list[int] = []
             try:
                 for _ in reqs:
@@ -1279,6 +1797,7 @@ class ContinuousBatcher:
                     KP, VP, tokens, [ns[i] for i in idx], bid_rows,
                     [seeds[i] for i in idx], samps,
                 )
+                self.stats.record_tokens("admit_many_fused_paged", sum(ns[i] for i in idx))
             except BaseException:
                 release_slots(slots)
                 raise
@@ -1301,6 +1820,7 @@ class ContinuousBatcher:
                         r.emit("err", e)
                 return
             m = len(reqs)
+            start_admit(reqs)
             slots: list[int] = []
             try:
                 for _ in reqs:
@@ -1327,6 +1847,7 @@ class ContinuousBatcher:
                         torch.tensor(rows, dtype=torch.int32, device=dev), km, vm,
                         start, last_pos, self._win_bucket(start + C),
                     )
+                    self.stats.record_tokens("prefill_chunk_group", mpad * C)
                     final = self._select_end(final, logits, end_chunk == j)
                     if glogits is not None:
                         glogits.append(logits)
@@ -1356,12 +1877,16 @@ class ContinuousBatcher:
             self.stats.chunked_group_admits += m
             install(list(zip(slots, reqs)), firsts, seeds, ns)
 
-        def reset_after_failed_dispatch() -> None:
+        def reset_after_failed_dispatch(cause: Exception) -> None:
             """A failed dispatch may have left the pool half written: fail
             the live streams and start over with a fresh pool. The epoch
             bump makes every prefix-cache payload minted before it free as
-            a no-op."""
+            a no-op. A CUDA error that kills the context is re-raised: no
+            fresh pool can be made in this process, so the loop ends and
+            the supervisor takes over."""
             nonlocal KP, VP, tok_dev, table_dirty
+            if cuda_context_lost(cause):
+                raise cause
             inflight.clear()
             err = RuntimeError("batcher cache reset after a failed device dispatch")
             for i, r in enumerate(self._slots):
@@ -1390,12 +1915,14 @@ class ContinuousBatcher:
             """Whether an inbox item is a live request (a cancelled one is
             counted and dropped)."""
             if item.cancelled:
-                self.stats.cancelled += 1
+                self.stats.record_cancel("inbox")
                 return False
             return True
 
         def fail_all(reqs: list[_Request], e: BaseException) -> None:
             for r in reqs:
+                if isinstance(e, _PoolExhausted):
+                    self.tenant_stats.record_shed(r.tenant)
                 r.emit("err", e)
 
         def admit_waiters() -> None:
@@ -1426,7 +1953,7 @@ class ContinuousBatcher:
                             except Exception as e:  # noqa: BLE001 — the pool may be half written
                                 log.exception("decode dispatch failed")
                                 fail_all(group, e)
-                                reset_after_failed_dispatch()
+                                reset_after_failed_dispatch(e)
                                 continue
                             topup(group, cap, None)
                         else:
@@ -1440,7 +1967,7 @@ class ContinuousBatcher:
                         except Exception as e:  # noqa: BLE001 — surface to callers
                             log.exception("group admit failed")
                             fail_all(group, e)
-                            reset_after_failed_dispatch()
+                            reset_after_failed_dispatch(e)
                         continue
                 else:
                     head_bucket = self._bucket(len(waitlist[0].prompt_ids))
@@ -1459,18 +1986,19 @@ class ContinuousBatcher:
                         except Exception as e:  # noqa: BLE001 — surface to callers
                             log.exception("group admit failed")
                             fail_all(group, e)
-                            reset_after_failed_dispatch()
+                            reset_after_failed_dispatch(e)
                             continue
                 self._wl_len = len(waitlist)
                 for req in group:
                     try:
                         admit_one(req)
                     except _PoolExhausted as e:
+                        self.tenant_stats.record_shed(req.tenant)
                         req.emit("err", e)
                     except Exception as e:  # noqa: BLE001 — surface to the caller
                         log.exception("admit failed")
                         req.emit("err", e)
-                        reset_after_failed_dispatch()
+                        reset_after_failed_dispatch(e)
             self._wl_len = len(waitlist)
 
         def topup(group: list[_Request], cap: int, deadline: float | None) -> None:
@@ -1499,7 +2027,110 @@ class ContinuousBatcher:
                     waitlist.append(nxt)
                     return
 
+        def overload_tick(now: float) -> None:
+            """Once a pass, on host-side state only: the recorder's frame,
+            the brownout controller, the deadline sweeps (queued waiters
+            shed before any prefill, live slots aborted at their next
+            readback) and the fair-share order of the waitlist."""
+            depth = len(waitlist) + self._inbox.qsize()
+            rebuild_slot_view()
+            rec = self.recorder
+            if rec is not None and rec.due(now):
+                rec.sample(self._recorder_frame(depth=depth, n_active=len(active())), now=now)
+            bo = self.brownout
+            if bo is not None:
+                # queue depth as a fraction of the (configured, or nominal
+                # 4x-slots) limit, queue-age p95 over the waiters, headroom
+                before = bo.level
+                limit = self.max_queue or 4 * self.max_slots
+                ages = sorted((now - r.t_enq) * 1e3 for r in waitlist)
+                age_p95 = ages[max(0, int(len(ages) * 0.95) - 1)] if ages else 0.0
+                headroom = self._headroom()
+                bo.update(depth_frac=depth / limit, age_p95_ms=age_p95,
+                          hbm_headroom_frac=headroom, now=now)
+                if bo.level == SHED_ONLY and before < SHED_ONLY and rec is not None:
+                    rec.dump("shed_only_entry",
+                             extra={"depth": depth, "age_p95_ms": round(age_p95, 1),
+                                    "hbm_headroom_frac": headroom})
+            if waitlist and any(r.deadline is not None for r in waitlist):
+                kept = []
+                for r in waitlist:
+                    left = None if r.deadline is None else r.deadline - now
+                    if left is None or (left > 0 and self._estimate_serve_s(r) <= left):
+                        kept.append(r)
+                        continue
+                    waited_ms = (now - r.t_enq) * 1e3
+                    self.stats.record_shed("deadline", waited_ms=waited_ms)
+                    self.tenant_stats.record_shed(r.tenant)
+                    msg = (
+                        f"deadline infeasible (~{self._estimate_serve_s(r) * 1e3:.0f} ms "
+                        f"needed, {left * 1e3:.0f} ms left) "
+                        f"(shed_cause=deadline); skipped prefill; "
+                        if left > 0
+                        else f"deadline expired after {waited_ms:.0f} ms "
+                        f"queued (shed_cause=deadline); "
+                    )
+                    r.emit("err", BatcherOverloaded(msg + "retry on another worker"))
+                waitlist[:] = kept
+                self._wl_len = len(waitlist)
+            for r in self._slots:
+                if (isinstance(r, _Request) and r.deadline is not None
+                        and not r.cancelled and now > r.deadline):
+                    r.deadline_hit = True
+                    r.cancelled = True
+                    r.emit("err", BatcherOverloaded(
+                        f"deadline exceeded mid-decode after {r.generated} "
+                        f"tokens (shed_cause=deadline); retry on another worker"))
+            if len(waitlist) > 1:
+                # deficit round-robin over tenants, prompt tokens as cost,
+                # class (or key) weight as share; one tenant keeps FIFO
+                waitlist[:] = self._drr.order(
+                    waitlist, tenant_of=lambda r: r.tenant,
+                    cost_of=lambda r: len(r.prompt_ids), weight_of=lambda r: r.drr_weight)
+                # the premium depth grace at submit can leave the queue over
+                # its bound: displace the excess from the back of the DRR
+                # order, lowest class first
+                limit = bo.effective_queue_limit(self.max_queue) if bo is not None \
+                    else self.max_queue
+                if limit and len(waitlist) > limit:
+                    order = {id(r): i for i, r in enumerate(waitlist)}
+                    victims = sorted(waitlist, key=lambda r: (r.rank, -order[id(r)]))
+                    vset = {id(r) for r in victims[: len(waitlist) - limit]}
+                    for r in waitlist:
+                        if id(r) in vset:
+                            self.stats.record_shed("fair_share",
+                                                   waited_ms=(now - r.t_enq) * 1e3)
+                            self.tenant_stats.record_shed(r.tenant)
+                            r.emit("err", BatcherOverloaded(
+                                "displaced by weighted fair share "
+                                "(shed_cause=fair_share); retry on another worker"))
+                    waitlist[:] = [r for r in waitlist if id(r) not in vset]
+            self._wl_len = len(waitlist)
+
+        def age_sweep() -> None:
+            """Waiters still slot-starved after admission had its chance and
+            older than the bound are shed with an honest error instead of
+            queueing invisibly."""
+            if not (self.max_queue_age_ms and waitlist):
+                return
+            now = time.monotonic()
+            kept = []
+            for r in waitlist:
+                waited_ms = (now - r.t_enq) * 1e3
+                if waited_ms > self.max_queue_age_ms:
+                    self.stats.record_shed("age", waited_ms=waited_ms)
+                    self.tenant_stats.record_shed(r.tenant)
+                    r.emit("err", BatcherOverloaded(
+                        f"shed after {waited_ms:.0f} ms queued "
+                        f"(> {self.max_queue_age_ms:.0f} ms bound) "
+                        f"(shed_cause=age); retry on another worker"))
+                else:
+                    kept.append(r)
+            waitlist[:] = kept
+            self._wl_len = len(waitlist)
+
         while True:
+            self.heartbeat = time.monotonic()  # supervisor liveness stamp
             act = active()
             self.stats.peak_active = max(self.stats.peak_active, len(act))
             block = not act and not waitlist and not inflight
@@ -1535,7 +2166,10 @@ class ContinuousBatcher:
                             waitlist.append(nxt)
                             self._wl_len = len(waitlist)
             drain_cancels()
+            overload_tick(time.monotonic())
             admit_waiters()
+            age_sweep()
+            bo = self.brownout
             try:
                 # an admit's first token is read back before the next burst
                 # is queued behind it, so TTFT does not wait a whole burst
@@ -1548,7 +2182,8 @@ class ContinuousBatcher:
                     pump(0)
                     decode_ext_once()
                     pump(0)
-                elif spec is not None and 0 < len(active()) <= spec.max_active:
+                elif (spec is not None and 0 < len(active()) <= spec.max_active
+                      and not (bo is not None and bo.pause_spec)):
                     # low occupancy: drain (proposals read the whole
                     # history), verify, drain again (host pos catches up at
                     # the readback); a plain burst when nothing drafted
@@ -1561,9 +2196,9 @@ class ContinuousBatcher:
                 else:
                     decode_once()
                     pump()
-            except Exception:  # noqa: BLE001 — the pool may be half written
+            except Exception as e:  # noqa: BLE001 — the pool may be half written
                 log.exception("decode dispatch failed")
-                reset_after_failed_dispatch()
+                reset_after_failed_dispatch(e)
 
     def _deliver(self, req: _Request, tok_id: int, logprob: float | None = None,
                  top_ids: list | None = None, top_lps: list | None = None) -> str | None:
@@ -1572,20 +2207,35 @@ class ContinuousBatcher:
         ``want_logprobs`` request receives ``(tok, logprob, top_ids,
         top_logprobs)`` tuples (the ext readback supplies the fields)."""
         if tok_id in req.sp.stop_ids:
+            if req.trace is not None:
+                req.trace.mark("decode_done")
             return "stop"
         req.generated += 1
         self.stats.tokens += 1
+        if req.generated == 1:
+            # the first token closes both latency halves: TTFT (enqueue ->
+            # token) and prefill (admit dispatch -> token)
+            now = time.monotonic()
+            self.stats.ttft_ms.record((now - req.t_enq) * 1e3)
+            if req.t_admit:
+                self.stats.prefill_ms.record((now - req.t_admit) * 1e3)
+                self._note_prefill_rate(len(req.prompt_ids), now - req.t_admit)
+            if req.trace is not None:
+                req.trace.mark("first_token", now)
         if req.want_logprobs:
             req.emit("tok", (tok_id, logprob, top_ids, top_lps))
         else:
             req.emit("tok", tok_id)
         req.emitted.append(int(tok_id))
         if req.generated >= req.sp.max_tokens or req.pos + 1 >= self.max_seq:
+            if req.trace is not None:
+                req.trace.mark("decode_done")
             return "length"
         return None
 
     def _drain_all(self, reason: str, waitlist: list[_Request] = ()) -> None:
         self._wl_len = 0
+        self._slot_view = {}
         for req in waitlist:
             req.emit("end", reason)
         if isinstance(waitlist, list):

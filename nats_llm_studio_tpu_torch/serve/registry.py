@@ -22,8 +22,25 @@ decoding, ``serve/constrain.py``), ``logprobs`` / ``top_logprobs`` and
 ``n`` choices (siblings admitted over the prefix cache), validated with the
 reference's error strings.
 
-Not ported yet: the mesh gate and precompile at pull time, engine
-supervision and restarts, deadlines, KV tiers and QoS.
+Overload and supervision, as the reference's: every batcher gets the admit
+queue bounds (the serve command passes ``WorkerConfig``'s
+``ADMIT_QUEUE_LIMIT``, 4 x the slots when unset, and ``ADMIT_MAX_AGE_MS``,
+30 s), the brownout controller (``BROWNOUT``, on;
+``BROWNOUT_*`` thresholds) fed by ``_hbm_headroom_frac`` (the budget less
+what the admission ledger has committed, from host state: no CUDA call),
+the deadline floor (``DEADLINE_MIN_TOKENS``), the DRR quantum
+(``QOS_QUANTUM_TOKENS``) and a flight recorder (``OBS_RECORDER``,
+``OBS_RECORDER_INTERVAL_MS``, ``OBS_DUMP_DIR``). ``TorchChatEngine`` passes
+the worker's trace, deadline, tenant and priority through ``submit``.
+``restart_engine`` (the worker's supervisor calls it) unloads a crashed or
+hung engine and reloads it after a capped backoff; more than
+``max_restarts`` crashes inside ``restart_window_s``, or one CUDA error that
+leaves the context unusable, poison the model until ``delete`` or ``pull``
+resets it. On the card ``_load`` builds the kernels before the batcher
+starts, so the first prefill never stalls the owner loop on ``nvcc``.
+
+Not ported yet: the mesh gate and precompile at pull time, the drain flag,
+the HBM ledger, KV tiers and QoS preemption.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ import logging
 import os
 import time
 from dataclasses import replace as dc_replace
+from pathlib import Path
 from typing import Any, AsyncIterator
 
 import torch
@@ -45,10 +63,20 @@ from ..models.config import ModelConfig, check_kv_quant
 from ..models.llama import ensure_lm_head, load_params_from_gguf
 from ..parallel.memory import estimate_load_bytes
 from ..store.manager import ModelStore, StoreError
+from ..obs import FlightRecorder, LogHistogram
+from ..obs import emit as obs_emit
 from ..utils.nuid import next_nuid
 from .api import ChatEngine, EngineError, ModelNotFound, Registry
 from . import constrain as constrain_mod
-from .batcher import LOGPROBS_K, BatcherOverloaded, BatcherStopped, ContinuousBatcher
+from .batcher import (
+    LOGPROBS_K,
+    BatcherOverloaded,
+    BatcherStopped,
+    ContinuousBatcher,
+    cuda_context_lost,
+)
+from .brownout import BrownoutConfig
+from .qos import ANON_TENANT, DEFAULT_PRIORITY, parse_priority_header
 from .constrain import ConstraintError, compile_token_dfa, validate_response_format
 from .template import render_chat_template, stop_token_ids
 
@@ -94,6 +122,47 @@ def _spec_decode_env(default_k: int = 6) -> tuple[int, int]:
         except ValueError:
             log.warning("ignoring non-integer SPEC_DECODE_MAX_ACTIVE=%r", env)
     return k, max_active
+
+
+def _env_float(name: str, default: float) -> float:
+    env = os.environ.get(name, "").strip()
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            log.warning("ignoring non-numeric %s=%r", name, env)
+    return default
+
+
+def _brownout_env(enabled: bool | None = None) -> BrownoutConfig | None:
+    """Adaptive-brownout config from the env (serve/brownout.py), or None
+    when disabled. ``BROWNOUT=0`` (or false/off) is the hard off-switch
+    (default on); the BROWNOUT_* threshold knobs tune the hysteresis."""
+    if enabled is None:
+        enabled = os.environ.get("BROWNOUT", "").strip().lower() not in ("0", "false", "off")
+    if not enabled:
+        return None
+    return BrownoutConfig(
+        depth_hi=_env_float("BROWNOUT_DEPTH_HI", 0.75),
+        depth_lo=_env_float("BROWNOUT_DEPTH_LO", 0.40),
+        age_hi_ms=_env_float("BROWNOUT_AGE_HI_MS", 1500.0),
+        age_lo_ms=_env_float("BROWNOUT_AGE_LO_MS", 500.0),
+        hbm_lo_frac=_env_float("BROWNOUT_HBM_LO", 0.05),
+        dwell_s=_env_float("BROWNOUT_DWELL_S", 2.0),
+    )
+
+
+def _deadline_min_tokens_env(default: int = 1) -> int:
+    """Feasibility floor for deadline-aware admission: a request that cannot
+    deliver this many tokens before its deadline skips prefill and is shed
+    retryably (DEADLINE_MIN_TOKENS, default 1 = just the first token)."""
+    env = os.environ.get("DEADLINE_MIN_TOKENS", "").strip()
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            log.warning("ignoring non-integer DEADLINE_MIN_TOKENS=%r", env)
+    return default
 
 
 class TorchChatEngine(ChatEngine):
@@ -223,8 +292,8 @@ class TorchChatEngine(ChatEngine):
         return final if final is not None else self._completion("".join(parts), 0, 0, "stop")
 
     async def _stream_one(self, index: int, prompt_ids: list[int], sp: SamplingParams,
-                          dfa, want_lp: bool, top_n: int,
-                          result: dict) -> AsyncIterator[dict]:
+                          trace, deadline, dfa, want_lp: bool, top_n: int,
+                          result: dict, qos: tuple | None = None) -> AsyncIterator[dict]:
         """Drive ONE choice through the batcher: yields chunk dicts tagged
         with choice ``index`` and fills ``result`` with the aggregate (text,
         finish, stats, logprobs) on a clean completion."""
@@ -235,9 +304,11 @@ class TorchChatEngine(ChatEngine):
         pending_lp: list[dict] = []  # entries held with incomplete UTF-8 text
         emitted = 0
         end_info: dict = {}
+        tenant, priority, weight = qos or (ANON_TENANT, DEFAULT_PRIORITY, 0.0)
         async for tok_batch in self.batcher.submit_batched(
-            prompt_ids, sp, info=end_info, constrain=dfa, want_logprobs=want_lp,
-            top_logprobs=top_n,
+            prompt_ids, sp, info=end_info, trace=trace, deadline=deadline, constrain=dfa,
+            want_logprobs=want_lp, top_logprobs=top_n, tenant=tenant, priority=priority,
+            weight=weight,
         ):
             if not toks:
                 stats.ttft_s = time.perf_counter() - t0
@@ -288,18 +359,26 @@ class TorchChatEngine(ChatEngine):
         )
 
     async def chat_stream(self, payload: dict) -> AsyncIterator[dict]:
+        # what the worker injects from the request's headers, popped so the
+        # payload stays the verbatim OpenAI body: the trace the batcher
+        # stamps, the monotonic deadline, the tenant and priority class
+        trace = payload.pop("_trace", None)
+        deadline = payload.pop("_deadline", None)
+        tenant = str(payload.pop("_tenant", None) or ANON_TENANT)
+        priority, weight = parse_priority_header(payload.pop("_priority", None))
+        qos = (tenant, priority, weight)
         prompt_ids = self._encode_prompt(payload)
         sp = self._sampling(payload)
         dfa, want_lp, top_n, n_choices = self._parse_ext(payload)
         results = [dict() for _ in range(n_choices)]
         try:
             if n_choices == 1:
-                async for chunk in self._stream_one(0, prompt_ids, sp, dfa, want_lp, top_n,
-                                                    results[0]):
+                async for chunk in self._stream_one(0, prompt_ids, sp, trace, deadline, dfa,
+                                                    want_lp, top_n, results[0], qos=qos):
                     yield chunk
             else:
-                async for chunk in self._stream_n(prompt_ids, sp, dfa, want_lp, top_n,
-                                                  results):
+                async for chunk in self._stream_n(prompt_ids, sp, trace, deadline, dfa, want_lp,
+                                                  top_n, results, qos=qos):
                     yield chunk
         except BatcherOverloaded as e:
             raise EngineError(f"overloaded: {e}") from e
@@ -321,8 +400,8 @@ class TorchChatEngine(ChatEngine):
             out["choices"].append(choice)
         yield out
 
-    async def _stream_n(self, prompt_ids, sp, dfa, want_lp, top_n,
-                        results) -> AsyncIterator[dict]:
+    async def _stream_n(self, prompt_ids, sp, trace, deadline, dfa, want_lp, top_n,
+                        results, qos: tuple | None = None) -> AsyncIterator[dict]:
         """n>1 fan-out: each choice is its own batcher request. Choice 0
         launches alone; the rest launch after its first chunk, when choice
         0's admit has put the prompt's full chunks into the prefix cache, so
@@ -341,8 +420,9 @@ class TorchChatEngine(ChatEngine):
 
         async def drive(i: int) -> None:
             try:
-                async for chunk in self._stream_one(i, prompt_ids, sp_for(i), dfa, want_lp,
-                                                    top_n, results[i]):
+                async for chunk in self._stream_one(i, prompt_ids, sp_for(i),
+                                                    trace if i == 0 else None, deadline,
+                                                    dfa, want_lp, top_n, results[i], qos=qos):
                     await queue.put(chunk)
                     if i == 0:
                         started.set()
@@ -420,12 +500,31 @@ class TorchRegistry(Registry):
     (``_prefix_cache_blocks_env``). ``spec_decode_k`` and
     ``spec_max_active`` are each batcher's speculative-decoding draft length
     (0 = off) and occupancy bound; None reads ``SPEC_DECODE`` /
-    ``SPEC_DECODE_K`` / ``SPEC_DECODE_MAX_ACTIVE`` (``_spec_decode_env``)."""
+    ``SPEC_DECODE_K`` / ``SPEC_DECODE_MAX_ACTIVE`` (``_spec_decode_env``).
+
+    The overload knobs go to every batcher: ``admit_queue_limit`` and
+    ``admit_max_age_ms`` (0 = off; the serve command passes
+    ``ADMIT_QUEUE_LIMIT`` / ``ADMIT_MAX_AGE_MS``), ``brownout`` (None reads ``BROWNOUT`` and the
+    ``BROWNOUT_*`` thresholds), ``deadline_min_tokens`` (None reads
+    ``DEADLINE_MIN_TOKENS``), ``qos_quantum_tokens`` (None reads
+    ``QOS_QUANTUM_TOKENS``) and the flight recorder's ``obs_recorder``,
+    ``obs_recorder_interval_ms``, ``obs_dump_dir`` (None reads
+    ``OBS_RECORDER`` / ``OBS_RECORDER_INTERVAL_MS`` / ``OBS_DUMP_DIR``).
+    ``restart_backoff_s``, ``restart_backoff_max_s``, ``max_restarts`` and
+    ``restart_window_s`` shape ``restart_engine``."""
 
     def __init__(self, store: ModelStore, device: str = "cuda",
                  max_seq_len: int | None = None, max_batch_slots: int = 8,
                  kv_quant: str = "none", prefix_cache_blocks: int | None = None,
-                 spec_decode_k: int | None = None, spec_max_active: int | None = None):
+                 spec_decode_k: int | None = None, spec_max_active: int | None = None,
+                 admit_queue_limit: int = 0, admit_max_age_ms: float = 0.0,
+                 restart_backoff_s: float = 0.5, restart_backoff_max_s: float = 30.0,
+                 max_restarts: int = 3, restart_window_s: float = 120.0,
+                 brownout: bool | None = None, deadline_min_tokens: int | None = None,
+                 obs_recorder: bool | None = None,
+                 obs_recorder_interval_ms: float | None = None,
+                 obs_dump_dir: str | None = None, worker_id: str = "",
+                 qos_quantum_tokens: int | None = None):
         self.kv_quant = check_kv_quant(kv_quant)
         self.prefix_cache_blocks = (prefix_cache_blocks if prefix_cache_blocks is not None
                                     else _prefix_cache_blocks_env())
@@ -453,6 +552,45 @@ class TorchRegistry(Registry):
         self._prefix_bytes: dict[str, int] = {}
         self._last_used: dict[str, float] = {}
         self.evict_grace_s = 1.0
+        # overload bounds handed to every batcher (0 = off); the serve
+        # command passes WorkerConfig's ADMIT_QUEUE_LIMIT / ADMIT_MAX_AGE_MS
+        self.admit_queue_limit = admit_queue_limit
+        self.admit_max_age_ms = admit_max_age_ms
+        self.brownout_cfg = _brownout_env(brownout)
+        self.deadline_min_tokens = (deadline_min_tokens if deadline_min_tokens is not None
+                                    else _deadline_min_tokens_env())
+        self.qos_quantum_tokens = (qos_quantum_tokens if qos_quantum_tokens is not None
+                                   else int(_env_float("QOS_QUANTUM_TOKENS", 256)))
+        # engine supervision: capped exponential backoff between restarts;
+        # more than max_restarts crashes inside restart_window_s poison the
+        # model (get_engine refuses, retryably, until delete or pull)
+        self.restart_backoff_s = restart_backoff_s
+        self.restart_backoff_max_s = restart_backoff_max_s
+        self.max_restarts = max_restarts
+        self.restart_window_s = restart_window_s
+        self._crash_times: dict[str, list[float]] = {}
+        self._poisoned: dict[str, str] = {}  # model_id -> reason
+        self.engine_restarts_total = 0
+        # taken from crashed batchers' stats at restart, so the total
+        # outlives the batcher object
+        self.inflight_failed_retryable = 0
+        self.restart_latency_ms = LogHistogram()
+        # seconds the last load spent building kernels (0 when built)
+        self.kernel_build_s = 0.0
+        self.obs_recorder = (obs_recorder if obs_recorder is not None
+                             else os.environ.get("OBS_RECORDER", "1").strip().lower()
+                             not in ("0", "false", "off"))
+        self.obs_recorder_interval_ms = (obs_recorder_interval_ms
+                                         if obs_recorder_interval_ms is not None
+                                         else _env_float("OBS_RECORDER_INTERVAL_MS", 250.0))
+        self.obs_dump_dir = (obs_dump_dir if obs_dump_dir is not None
+                             else os.environ.get("OBS_DUMP_DIR", "").strip())
+        self.worker_id = worker_id
+        # process counters merged into every recorder frame (the worker
+        # adds its own); each is a host-side read
+        self.recorder_counters: dict[str, Any] = {
+            "engine_restarts": lambda: self.engine_restarts_total,
+        }
 
     # -- Registry ------------------------------------------------------------
 
@@ -475,18 +613,37 @@ class TorchRegistry(Registry):
 
     async def pull(self, identifier: str) -> str:
         try:
-            _, transcript = await self.store.pull(identifier)
+            path, transcript = await self.store.pull(identifier)
         except StoreError as e:
             raise EngineError(str(e)) from None
+        # a fresh pull is the other operator reset path for a poisoned
+        # model: the one the identifier names and the one whose directory
+        # the files landed in (an object name or a URL is not a model id;
+        # the reference resets only the identifier)
+        for mid in {identifier, self._pulled_model_id(path, identifier)}:
+            self._poisoned.pop(mid, None)
+            self._crash_times.pop(mid, None)
         return transcript
+
+    def _pulled_model_id(self, path, identifier: str) -> str:
+        """The ``publisher/model`` cache directory a pulled file lies in."""
+        try:
+            rel = Path(path).resolve().relative_to(self.store.models_dir.resolve())
+        except ValueError:
+            return identifier
+        return "/".join(rel.parts[:2])
 
     async def delete(self, model_id: str) -> str:
         eng = self._engines.pop(model_id, None)
         self._hbm_committed.pop(model_id, None)
         self._prefix_bytes.pop(model_id, None)
         self._last_used.pop(model_id, None)
+        # operator reset path for a poisoned engine
+        self._poisoned.pop(model_id, None)
+        self._crash_times.pop(model_id, None)
         if eng is not None:
             await eng.unload()
+            obs_emit("engine_unload", model=model_id, reason="delete")
         try:
             return self.store.delete_local(model_id)
         except StoreError as e:
@@ -503,6 +660,14 @@ class TorchRegistry(Registry):
 
     async def get_engine(self, model_id: str) -> ChatEngine:
         self._requests += 1
+        poisoned = self._poisoned.get(model_id)
+        if poisoned is not None:
+            # refuse until reset; the retryable marker lets a queue-group
+            # peer (whose copy may be healthy) take the retry
+            raise EngineError(
+                f"model {model_id} is poisoned ({poisoned}); delete or pull "
+                f"it to reset — retry on another worker"
+            )
         eng = self._engines.get(model_id)
         if eng is not None:
             self._last_used[model_id] = time.monotonic()
@@ -628,6 +793,18 @@ class TorchRegistry(Registry):
         dropping the cache gives back."""
         return self._estimate(paths)["prefix"]
 
+    def _hbm_headroom_frac(self) -> float | None:
+        """Free fraction of the admission budget (the brownout signal), or
+        None when no budget is known: the budget less what the admission
+        ledger has committed. Called by every owner loop on every pass, so
+        it reads host state only (the card's budget was read once, when the
+        registry was built)."""
+        budget = self.budget_bytes()
+        if not budget:
+            return None
+        committed = sum(self._hbm_committed.values())
+        return max(0.0, (budget - committed) / budget)
+
     def _pick_idle_victim(self) -> str | None:
         # grace window: an engine targeted within the last evict_grace_s is
         # never evicted even if its batcher looks idle. get_engine bumps
@@ -668,22 +845,130 @@ class TorchRegistry(Registry):
             meta = dict(reader.metadata)
         finally:
             reader.close()
+        if self.device.type == "cuda":
+            # build (or find built) every kernel the engine launches now,
+            # before its owner loop starts: a cold nvcc inside the first
+            # prefill would stall the heartbeat the supervisor watches
+            from ..ops import _build
+
+            tb = time.perf_counter()
+            report = _build.build_all()
+            for name in _build.SOURCES:
+                _build.load_library(name)
+            self.kernel_build_s = time.perf_counter() - tb
+            built = sorted(n for n, r in report.items() if not r["cached"])
+            obs_emit("kernel_build", model=model_id, built=built,
+                     seconds=round(self.kernel_build_s, 2))
+        recorder = FlightRecorder(
+            enabled=self.obs_recorder, interval_ms=self.obs_recorder_interval_ms,
+            dump_dir=self.obs_dump_dir, engine=model_id, worker_id=self.worker_id,
+            counter_fns=dict(self.recorder_counters),
+        )
         batcher = ContinuousBatcher(params, cfg, max_slots=self.max_batch_slots,
                                     max_seq_len=self.max_seq_len,
                                     prefix_cache_blocks=self.prefix_cache_blocks,
                                     spec_decode_k=self.spec_decode_k,
-                                    spec_max_active=self.spec_max_active)
+                                    spec_max_active=self.spec_max_active,
+                                    max_queue=self.admit_queue_limit,
+                                    max_queue_age_ms=self.admit_max_age_ms,
+                                    brownout=self.brownout_cfg,
+                                    hbm_headroom_fn=self._hbm_headroom_frac,
+                                    deadline_min_tokens=self.deadline_min_tokens,
+                                    recorder=recorder,
+                                    qos_quantum_tokens=self.qos_quantum_tokens)
+        if batcher.brownout is not None:
+            batcher.brownout.engine = model_id
         batcher.start()
-        log.info("loaded %s in %.1fs (%s, %s, kv %s, %s)", model_id,
-                 time.perf_counter() - t0, cfg.arch, self.dtype, cfg.kv_quant, self.device)
+        load_s = time.perf_counter() - t0
+        log.info("loaded %s in %.1fs (%s, %s, kv %s, %s)", model_id, load_s, cfg.arch,
+                 self.dtype, cfg.kv_quant, self.device)
+        obs_emit("engine_load", model=model_id, seconds=round(load_s, 2), arch=cfg.arch,
+                 dtype=self.dtype)
         return TorchChatEngine(model_id, batcher, tokenizer, cfg, meta,
                                quantization="/".join(sorted(quant)))
 
+    # -- engine supervision ----------------------------------------------------
+
+    async def restart_engine(self, model_id: str, reason: str = "crash") -> str:
+        """Tear down and relaunch one engine (the worker supervisor's action
+        on a crashed or hung batcher). Returns "restarted", "poisoned" (too
+        many crashes inside the window, or a CUDA error that left the
+        context unusable: refuse until reset) or "gone" (already unloaded by
+        a concurrent delete or eviction). A reload failure propagates as
+        EngineError after the teardown."""
+        t0 = time.monotonic()
+        async with self._load_lock:
+            eng = self._engines.pop(model_id, None)
+            if eng is None:
+                return "gone"
+            self._hbm_committed.pop(model_id, None)
+            self._prefix_bytes.pop(model_id, None)
+            self._last_used.pop(model_id, None)
+            b = eng.batcher
+            # the total outlives this batcher object
+            self.inflight_failed_retryable += b.stats.inflight_failed_retryable
+            # its recorder holds the pre-crash timeline: kept past the
+            # unload for the restart dump below
+            recorder = b.recorder
+            crash = b.crashed
+            await eng.unload()
+            obs_emit("engine_unload", model=model_id, reason=reason)
+            now = time.monotonic()
+            times = [t for t in self._crash_times.get(model_id, [])
+                     if now - t <= self.restart_window_s]
+            times.append(now)
+            self._crash_times[model_id] = times
+            why = None
+            if crash is not None and cuda_context_lost(crash):
+                # every reload in this process would fail too: poison now
+                # instead of spending the restarts on reloading the weights
+                why = f"CUDA context lost ({type(crash).__name__}: {crash})"
+            elif len(times) > self.max_restarts:
+                why = f"{len(times)} crashes in {self.restart_window_s:.0f}s (last: {reason})"
+            if why is not None:
+                self._poisoned[model_id] = why
+                log.error("engine %s poisoned: %s", model_id, why)
+                obs_emit("engine_poisoned", model=model_id, reason=why)
+                return "poisoned"
+            backoff = min(self.restart_backoff_s * (2 ** (len(times) - 1)),
+                          self.restart_backoff_max_s)
+        # backoff and reload outside the load lock: get_engine takes it
+        await asyncio.sleep(backoff)
+        await self.get_engine(model_id)
+        self.engine_restarts_total += 1
+        latency_ms = (time.monotonic() - t0) * 1e3
+        self.restart_latency_ms.record(latency_ms)
+        log.info("engine %s restarted in %.0f ms (reason: %s)", model_id, latency_ms, reason)
+        obs_emit("engine_restart", model=model_id, reason=reason, ms=round(latency_ms, 1))
+        # after the emit, so the dump's event tail holds the restart; forced
+        # past the rate limit the crash dump just used
+        recorder.dump("engine_restart", force=True,
+                      extra={"model": model_id, "restart_reason": reason,
+                             "restart_ms": round(latency_ms, 1)})
+        return "restarted"
+
     def engine_health(self) -> dict[str, dict[str, Any]]:
-        return {
-            mid: {"alive": bool(eng.batcher.alive), "idle": bool(eng.batcher.idle)}
-            for mid, eng in self._engines.items()
-        }
+        """Per-engine liveness for the health subject: ``alive`` (owner
+        thread running, no crash), ``ready`` (alive and accepting),
+        ``idle``, ``heartbeat_age_s`` (only meaningful when not idle),
+        ``crashed`` (the crash's type and text, or None) and
+        ``brownout_level``."""
+        out: dict[str, dict[str, Any]] = {}
+        for mid, eng in self._engines.items():
+            b = eng.batcher
+            out[mid] = {
+                "alive": bool(b.alive),
+                "ready": bool(b.alive and not b._stopping),
+                "idle": bool(b.idle),
+                "heartbeat_age_s": round(b.heartbeat_age_s(), 3),
+                "crashed": (f"{type(b.crashed).__name__}: {b.crashed}"
+                            if b.crashed is not None else None),
+                "brownout_level": int(b.brownout_level),
+            }
+        return out
+
+    def poisoned_models(self) -> dict[str, str]:
+        return dict(self._poisoned)
 
     def loaded_engines(self) -> dict[str, Any]:
         return dict(self._engines)
@@ -696,6 +981,10 @@ class TorchRegistry(Registry):
             "backend": self.device.type,
             "hbm_committed_bytes": sum(self._hbm_committed.values()),
         }
+        if self.engine_restarts_total:
+            out["engine_restarts"] = self.engine_restarts_total
+        if self._poisoned:
+            out["poisoned"] = dict(self._poisoned)
         if self._engines:
             out["batcher"] = {m: e.batcher.stats.snapshot() for m, e in self._engines.items()}
             prefix = {m: e.batcher.prefix_cache.stats() for m, e in self._engines.items()

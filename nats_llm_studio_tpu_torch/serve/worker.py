@@ -1,34 +1,57 @@
 """NATS worker for the port: list_models, pull_model, delete_model,
-sync_model_from_bucket, chat_model (unary and streamed) and health.
+sync_model_from_bucket, chat_model (unary and streamed), health, metrics,
+metrics.prom, events, profile, and with ``DEBUG_SUBJECTS=1`` debug.snapshot
+and debug.dump.
 
-Slim port of ``nats_llm_studio_tpu/serve/worker.py``: the same subjects,
+Port of ``nats_llm_studio_tpu/serve/worker.py``: the same subjects,
 queue group, ``{ok, error?, data?}`` envelopes, validation strings and
 ``data`` fields, and streaming contract
 (OpenAI-style chunks on the reply inbox, then the aggregate completion with
 a ``Nats-Stream-Done`` header), so the JAX worker's clients talk to this one
-unchanged. A chat carrying a header for a feature this worker does not
-serve (QoS priority, disaggregated prefill) gets an error envelope naming
-the header.
+unchanged. A chat's ``X-Deadline-Ms`` becomes the batcher's deadline (capped
+by ``chat_timeout_s``; ``DEADLINE_PROPAGATION=0`` turns it off),
+``X-Tenant`` / ``X-Priority`` place it in the fair-share admission, and
+``X-Trace-Id`` / ``Traceparent`` name its trace: the response's
+``stats.trace`` holds the stage marks, the envelopes carry ``trace_id``,
+and a ``worker.serve`` span goes to ``<prefix>.obs.spans``. The supervisor
+task (every ``SUPERVISE_INTERVAL_S``) hands a crashed or hung engine to
+the registry's ``restart_engine``. ``metrics.prom`` renders the reference's
+families for every feature the port has; ``profile`` captures a
+``torch.profiler`` trace (CPU ranges and, on the card, every kernel) into
+a worker-chosen directory, exported as a Chrome trace and zipped into the
+``profiles`` bucket. A chat carrying ``X-KV-Prefill-Worker`` (disaggregated
+prefill, not served here) gets an error envelope naming the header.
 
-Not ported yet: metrics and Prometheus, traces and spans, events, profiling, debug subjects, cluster adverts and drain,
-supervision, KV export/import, deadline propagation.
+Not ported yet: cluster adverts, the directed ``lmstudio.worker.<id>.*``
+subjects beyond chat_model and health, drain and the excluded-workers
+bounce, KV export/import, and the efficiency families.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import hashlib
 import json
 import logging
+import math
+import os
+import tempfile
 import time
 
 from ..config import WorkerConfig
+from ..obs import EVENTS, PromRenderer, Trace, new_trace_id, parse_span_context
 from ..transport.client import Msg, NatsClient, connect
-from ..transport.envelope import envelope_error, envelope_ok
+from ..transport.envelope import deadline_remaining_s, envelope_error, envelope_ok
 from ..transport.protocol import (
+    ATTEMPT_HEADER,
+    DEADLINE_HEADER,
     KV_PREFILL_HEADER,
     PRIORITY_HEADER,
     STREAM_CANCEL_SUFFIX,
+    TENANT_HEADER,
+    TRACE_HEADER,
+    TRACEPARENT_HEADER,
     WORKER_HEADER,
 )
 from .api import EngineError, ModelNotFound, Registry
@@ -37,7 +60,60 @@ log = logging.getLogger(__name__)
 
 # headers of features this worker does not serve; a chat carrying one is
 # answered with an error naming it
-UNSUPPORTED_HEADERS = (PRIORITY_HEADER, KV_PREFILL_HEADER)
+UNSUPPORTED_HEADERS = (KV_PREFILL_HEADER,)
+
+
+def _zip_dir(path: str) -> bytes:
+    """Zip a directory tree (relative paths) into an in-memory archive; runs
+    in a thread from on_profile."""
+    import io
+    import zipfile
+
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        for root, _dirs, files in os.walk(path):
+            for f in sorted(files):
+                full = os.path.join(root, f)
+                zf.write(full, os.path.relpath(full, path))
+    return buf.getvalue()
+
+
+def _profiler_activities() -> list:
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    cuda = torch.cuda.is_available()
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+
+
+def _init_profiler() -> None:
+    """An empty profile, to initialize the profiler's tracing library on
+    the thread that calls it. The library accepts its first initialization
+    only on the thread that registered it (the one that imported torch);
+    a first capture from another thread records no kernel."""
+    from torch.profiler import profile
+
+    with profile(activities=_profiler_activities()):
+        pass
+
+
+def _capture_profile(trace_dir: str, seconds: float, name: str) -> str:
+    """Run ``torch.profiler`` for ``seconds`` (CPU ranges, and on the card
+    every kernel any thread launches: CUPTI traces the whole process) and
+    export a Chrome trace into ``trace_dir``. Starts and stops in this one
+    thread, off the event loop (after ``_init_profiler`` has run once on
+    the importing thread)."""
+    import torch
+    from torch.profiler import profile
+
+    cuda = torch.cuda.is_available()
+    with profile(activities=_profiler_activities()) as prof:
+        time.sleep(seconds)
+        if cuda:
+            torch.cuda.synchronize()  # what was queued in the window lands in it
+    path = os.path.join(trace_dir, f"{name}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 class Worker:
@@ -51,7 +127,18 @@ class Worker:
         self._requests_total = 0
         self._tokens_total = 0
         self._streams_cancelled = 0
+        self._profiling = False
+        self._profiler_ready = False
+        self._supervisor_task: asyncio.Task | None = None
         self._t0 = time.monotonic()
+        # chat requests slower than this end to end land in the event ring
+        # and a flight dump (0 disables)
+        self._slow_request_ms = float(os.environ.get("OBS_SLOW_REQUEST_MS", "5000").strip() or 0)
+        # spans emitted in one event-loop tick go out as one publish on
+        # {prefix}.obs.spans; OBS_SPANS=0 turns emission off
+        self._span_buf: list[dict] = []
+        self._span_flush_task: asyncio.Task | None = None
+        self._spans_emitted_total = 0
 
     async def start(self) -> None:
         cfg = self.config
@@ -70,19 +157,74 @@ class Worker:
             cfg.subject("sync_model_from_bucket"): self.on_sync_model_from_bucket,
             cfg.subject("chat_model"): self.on_chat_model,
             cfg.subject("health"): self.on_health,
+            cfg.subject("metrics"): self.on_metrics,
+            cfg.subject("metrics.prom"): self.on_metrics_prom,
+            cfg.subject("events"): self.on_events,
+            cfg.subject("profile"): self.on_profile,
         }
+        if cfg.debug_subjects:
+            # slot tables and forced disk writes: only when asked for
+            subs[cfg.subject("debug.snapshot")] = self.on_debug_snapshot
+            subs[cfg.subject("debug.dump")] = self.on_debug_dump
+        counters = getattr(self.registry, "recorder_counters", None)
+        if counters is not None:
+            # worker counters on every engine's recorder frames
+            counters["reconnects"] = lambda: getattr(self.nc, "reconnects", 0)
+            counters["requests_total"] = lambda: self._requests_total
         for subject, handler in subs.items():
             await self.nc.subscribe(subject, queue=cfg.queue_group, cb=self._guarded(handler))
         wid_prefix = f"{cfg.subject_prefix}.worker.{self.worker_id}"
         for op, handler in (("chat_model", self.on_chat_model), ("health", self.on_health)):
             await self.nc.subscribe(f"{wid_prefix}.{op}", cb=self._guarded(handler))
         await self.nc.flush()
+        if cfg.supervise_interval_s > 0:
+            self._supervisor_task = asyncio.ensure_future(self._supervise())
         log.info("worker %s serving %s.* (queue=%s)", self.worker_id,
                  cfg.subject_prefix, cfg.queue_group)
 
     async def drain(self) -> None:
+        if self._supervisor_task is not None:
+            self._supervisor_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await self._supervisor_task
+            self._supervisor_task = None
         if self.nc is not None:
             await self.nc.drain()
+
+    async def _supervise(self) -> None:
+        """Engine watchdog: every ``supervise_interval_s`` check each loaded
+        batcher's owner thread, crashed (its requests were already failed
+        retryably) or hung (heartbeat stale while not idle: an idle owner
+        blocks on its inbox and stops stamping), and hand it to the
+        registry's restart path. The watchdog itself never dies: every
+        engine's action is guarded."""
+        cfg = self.config
+        hb_timeout = cfg.engine_heartbeat_timeout_s
+        restart = getattr(self.registry, "restart_engine", None)
+        try:
+            while True:
+                await asyncio.sleep(cfg.supervise_interval_s)
+                for mid, eng in list(self.registry.loaded_engines().items()):
+                    b = getattr(eng, "batcher", None)
+                    if b is None or not hasattr(b, "alive"):
+                        continue  # engines without an owner loop
+                    try:
+                        dead = not b.alive
+                        hung = (not dead and hb_timeout > 0 and not b.idle
+                                and b.heartbeat_age_s() > hb_timeout)
+                        if not dead and not hung:
+                            continue
+                        why = "crashed" if dead else (
+                            f"hung (heartbeat {b.heartbeat_age_s():.1f}s stale)")
+                        log.warning("supervisor: engine %s %s", mid, why)
+                        EVENTS.emit("engine_supervisor", model=mid, state=why)
+                        if restart is not None:
+                            outcome = await restart(mid, reason=why)
+                            log.info("supervisor: engine %s -> %s", mid, outcome)
+                    except Exception:  # noqa: BLE001 — the watchdog must survive
+                        log.exception("supervisor action for %s failed", mid)
+        except asyncio.CancelledError:
+            return
 
     def _guarded(self, handler):
         """An exception escaping a handler still gets an error envelope."""
@@ -107,8 +249,10 @@ class Worker:
     async def _respond_ok(self, msg: Msg, data=None) -> None:
         await self._respond_json(msg, envelope_ok(data))
 
-    async def _respond_error(self, msg: Msg, error: str, data=None, headers=None) -> None:
-        await self._respond_json(msg, envelope_error(error, data), headers=headers)
+    async def _respond_error(self, msg: Msg, error: str, data=None, headers=None,
+                             trace_id=None) -> None:
+        await self._respond_json(msg, envelope_error(error, data, trace_id=trace_id),
+                                 headers=headers)
 
     async def on_list_models(self, msg: Msg) -> None:
         """list_models -> ``data.models`` + ``data.http_status``."""
@@ -213,22 +357,35 @@ class Worker:
 
     async def on_chat_model(self, msg: Msg) -> None:
         """chat_model: the OpenAI-style body goes to the engine verbatim;
-        success wraps {http_status, response}."""
+        success wraps {http_status, response}. The trace (the client's
+        ``X-Trace-Id``, or a new id) is stamped by the batcher at its stage
+        transitions; the final envelope carries ``trace_id`` and the
+        response ``stats.trace`` the waterfall."""
         self._requests_total += 1
         hdrs = msg.headers or {}
+        try:
+            attempt = int(hdrs[ATTEMPT_HEADER]) if ATTEMPT_HEADER in hdrs else None
+        except (TypeError, ValueError):
+            attempt = None
+        parent = parse_span_context(hdrs.get(TRACEPARENT_HEADER))
+        trace = Trace(hdrs.get(TRACE_HEADER) or new_trace_id(), attempt=attempt,
+                      parent_span_id=parent[1] if parent else "")
+        trace.mark("recv")
         if not msg.payload:
-            await self._respond_error(msg, "empty payload in ChatModel")
+            await self._respond_error(msg, "empty payload in ChatModel", trace_id=trace.trace_id)
             return
         try:
             payload = json.loads(msg.payload)
             if not isinstance(payload, dict):
                 raise ValueError("payload must be a JSON object")
         except ValueError as e:
-            await self._respond_error(msg, f"invalid JSON in ChatModel: {e}")
+            await self._respond_error(msg, f"invalid JSON in ChatModel: {e}",
+                                      trace_id=trace.trace_id)
             return
         model_id = (payload.get("model") or "").strip()
         if not model_id:
-            await self._respond_error(msg, "'model' is required in ChatModel")
+            await self._respond_error(msg, "'model' is required in ChatModel",
+                                      trace_id=trace.trace_id)
             return
         if payload.get("stream") and not msg.reply:
             return  # fire-and-forget stream request: nowhere to send tokens
@@ -237,42 +394,107 @@ class Worker:
             if hdrs.get(h):
                 await self._error_terminal(
                     msg, f"error in chat: unsupported header {h!r}: not served by "
-                    f"this worker", {"model": model_id}, streaming)
+                    f"this worker", {"model": model_id}, streaming, trace)
                 return
+        payload["_trace"] = trace  # engines pop it
+        # tenant identity and priority class from the bus headers; callers
+        # that set neither serve as the anonymous standard tenant
+        if hdrs.get(TENANT_HEADER):
+            payload["_tenant"] = str(hdrs[TENANT_HEADER])
+        if hdrs.get(PRIORITY_HEADER):
+            payload["_priority"] = str(hdrs[PRIORITY_HEADER])
+        if self.config.deadline_propagation:
+            # the client's budget (X-Deadline-Ms, wall ms) as a monotonic
+            # deadline capped by the per-op timeout; an expired budget still
+            # flows through and is shed retryably at submit
+            remaining = deadline_remaining_s(hdrs.get(DEADLINE_HEADER))
+            if remaining is not None:
+                payload["_deadline"] = time.monotonic() + min(remaining,
+                                                              self.config.chat_timeout_s)
         try:
             async with asyncio.timeout(self.config.chat_timeout_s):
                 engine = await self.registry.get_engine(model_id)
                 if streaming:
-                    await self._chat_streaming(msg, engine, payload)
+                    await self._chat_streaming(msg, engine, payload, trace)
                 else:
                     response = await engine.chat(payload)
                     usage = response.get("usage") or {}
                     self._tokens_total += usage.get("completion_tokens", 0)
+                    trace.mark("publish")
+                    self._finish_trace(trace, model_id, response)
                     await self._respond_json(
-                        msg, envelope_ok({"http_status": 200, "response": response}))
+                        msg, envelope_ok({"http_status": 200, "response": response},
+                                         trace_id=trace.trace_id))
         except asyncio.TimeoutError:
             await self._error_terminal(
-                msg, "error in chat: deadline exceeded", {"model": model_id}, streaming)
+                msg, "error in chat: deadline exceeded", {"model": model_id}, streaming, trace)
         except ModelNotFound as e:
             await self._error_terminal(
-                msg, f"model not found: {e}", {"model": model_id}, streaming)
+                msg, f"model not found: {e}", {"model": model_id}, streaming, trace)
         except EngineError as e:
             await self._error_terminal(
-                msg, f"error in chat: {e}", {"model": model_id}, streaming)
+                msg, f"error in chat: {e}", {"model": model_id}, streaming, trace)
         except Exception as e:  # noqa: BLE001 — a mid-stream crash still ends the stream
             log.exception("chat handler failed for %s", model_id)
             await self._error_terminal(
-                msg, f"internal error: {e}", {"model": model_id}, streaming)
+                msg, f"internal error: {e}", {"model": model_id}, streaming, trace)
 
-    async def _error_terminal(self, msg: Msg, error: str, data, streaming: bool) -> None:
+    def _finish_trace(self, trace: Trace, model_id: str, response) -> None:
+        """Put the stage waterfall into the response's stats block, emit the
+        serve span, and record a slow request in the event ring and a
+        flight dump."""
+        report = trace.report()
+        if isinstance(response, dict):
+            response.setdefault("stats", {})["trace"] = report
+        total_ms = report["spans_ms"].get("total_ms", 0.0)
+        self._emit_span(trace.to_span("worker.serve", self.worker_id,
+                                      attrs={"model": model_id, "outcome": "ok",
+                                             "role": "monolithic"}))
+        if self._slow_request_ms and total_ms > self._slow_request_ms:
+            EVENTS.emit("slow_request", model=model_id, trace_id=trace.trace_id,
+                        total_ms=total_ms, spans_ms=report["spans_ms"])
+            eng = self.registry.loaded_engines().get(model_id)
+            recorder = getattr(getattr(eng, "batcher", None), "recorder", None)
+            if recorder is not None:
+                recorder.dump("slow_request", trace=report,
+                              extra={"model": model_id, "total_ms": round(total_ms, 1)})
+
+    async def _error_terminal(self, msg: Msg, error: str, data, streaming: bool,
+                              trace: Trace | None = None) -> None:
         """Error reply that, mid-stream, still carries ``Nats-Stream-Done``."""
         headers = {"Nats-Stream-Done": "1"} if streaming else None
-        await self._respond_error(msg, error, data, headers=headers)
+        await self._respond_error(msg, error, data, headers=headers,
+                                  trace_id=trace.trace_id if trace is not None else None)
+        if trace is not None:
+            self._emit_span(trace.to_span("worker.serve", self.worker_id,
+                                          attrs={"outcome": "error", "error": error[:160]}))
 
-    async def _chat_streaming(self, msg: Msg, engine, payload: dict) -> None:
+    def _emit_span(self, span: dict) -> None:
+        """Buffer one span for a fire-and-forget batch publish on
+        ``{prefix}.obs.spans`` (spans of one event-loop tick share it)."""
+        if self.nc is None or not self.config.obs_spans:
+            return
+        self._span_buf.append(span)
+        self._spans_emitted_total += 1
+        if self._span_flush_task is None or self._span_flush_task.done():
+            self._span_flush_task = asyncio.ensure_future(self._flush_spans())
+
+    async def _flush_spans(self) -> None:
+        await asyncio.sleep(0)  # let same-tick spans join this batch
+        batch, self._span_buf = self._span_buf, []
+        if not batch or self.nc is None:
+            return
+        try:
+            await self.nc.publish(self.config.subject("obs.spans"),
+                                  json.dumps({"spans": batch}, separators=(",", ":")).encode())
+        except (ConnectionError, ValueError):
+            pass  # spans are diagnostics: lost on a reconnect, by design
+
+    async def _chat_streaming(self, msg: Msg, engine, payload: dict, trace: Trace) -> None:
         assert self.nc is not None
         final: dict | None = None
         seq = 0
+        model_id = payload.get("model", "")
         # consumer-gone watcher: request_stream publishes to <inbox>.cancel
         # when its consumer abandons the stream; the engine stream is then
         # closed, which frees the batcher slot
@@ -315,19 +537,26 @@ class Worker:
                     await gen.aclose()
         if cancelled:
             self._streams_cancelled += 1
+            trace.mark("publish")
+            self._emit_span(trace.to_span("worker.serve", self.worker_id,
+                                          attrs={"model": model_id, "outcome": "cancelled"}))
             return
         if final is None:
             raise EngineError("engine stream ended without a chat.completion aggregate")
         usage = final.get("usage") or {}
         self._tokens_total += usage.get("completion_tokens", 0)
+        trace.mark("publish")
+        self._finish_trace(trace, model_id, final)
         await self.nc.publish(
             msg.reply,
-            envelope_ok({"http_status": 200, "response": final}),
+            envelope_ok({"http_status": 200, "response": final}, trace_id=trace.trace_id),
             headers={"Nats-Stream-Done": "1", "X-Seq": str(seq),
                      WORKER_HEADER: self.worker_id},
         )
 
     async def on_health(self, msg: Msg) -> None:
+        """health: counters, the registry's stats, each engine's liveness
+        (``engines``) and the poisoned models (``poisoned``)."""
         data = {
             "status": "ok",
             "worker_id": self.worker_id,
@@ -344,4 +573,291 @@ class Worker:
             engines = health_fn()
             if engines:
                 data["engines"] = engines
+        poisoned_fn = getattr(self.registry, "poisoned_models", None)
+        if poisoned_fn is not None:
+            poisoned = poisoned_fn()
+            if poisoned:
+                data["poisoned"] = sorted(poisoned)
+                # why each is refused (the crash count, or the CUDA error
+                # that killed the context): the names alone replace the
+                # registry's reasons under "poisoned"
+                data["poisoned_reasons"] = poisoned
         await self._respond_ok(msg, data)
+
+    async def on_metrics(self, msg: Msg) -> None:
+        """metrics: worker totals, the registry's stats, each engine's
+        batcher stats and the devices (from ``torch.cuda``: index,
+        ``"platform": "gpu"``, the card's name)."""
+        import torch
+
+        engines = {}
+        for mid, eng in self.registry.loaded_engines().items():
+            batcher = getattr(eng, "batcher", None)
+            if batcher is not None and hasattr(batcher, "stats"):
+                engines[mid] = batcher.stats.snapshot()
+        if torch.cuda.is_available():
+            devices = [{"id": i, "platform": "gpu", "kind": torch.cuda.get_device_name(i)}
+                       for i in range(torch.cuda.device_count())]
+        else:
+            devices = [{"id": 0, "platform": "cpu", "kind": "cpu"}]
+        await self._respond_ok(msg, {
+            "uptime_s": round(time.monotonic() - self._t0, 3),
+            "requests_total": self._requests_total,
+            "tokens_total": self._tokens_total,
+            "queue_group": self.config.queue_group,
+            "registry": self.registry.stats(),
+            "engines": engines,
+            "devices": devices,
+        })
+
+    def render_prometheus(self) -> str:
+        """Worker totals, registry gauges and each engine's batcher
+        counters and histograms as Prometheus text, under the reference's
+        family names, labels and help strings. Families of features the
+        port does not have yet (drain and bounces, KV transfer and tiers,
+        the mesh, the HBM and efficiency ledgers, XLA's compile cache and
+        recompiles, the legacy ring) are left out."""
+        r = PromRenderer(default_labels={"worker_id": self.worker_id})
+        r.gauge("lmstudio_uptime_seconds", round(time.monotonic() - self._t0, 3))
+        r.counter("lmstudio_spans_emitted_total", self._spans_emitted_total,
+                  help="trace spans published on the obs.spans subject")
+        r.counter("lmstudio_requests_total", self._requests_total,
+                  help="NATS requests handled by this worker")
+        r.counter("lmstudio_tokens_total", self._tokens_total,
+                  help="completion tokens generated")
+        r.counter("lmstudio_streams_cancelled_total", self._streams_cancelled,
+                  help="streaming chats aborted because the consumer vanished")
+        reg = self.registry.stats()
+        for key in ("models_cached", "models_loaded", "engine_requests",
+                    "hbm_committed_bytes"):
+            v = reg.get(key)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                r.gauge(f"lmstudio_registry_{key}", v)
+        r.gauge("lmstudio_events_emitted_total", EVENTS.emitted)
+        r.counter("lmstudio_reconnects_total", getattr(self.nc, "reconnects", 0),
+                  help="NATS connection re-establishments by this worker")
+        r.counter("lmstudio_engine_restarts_total",
+                  getattr(self.registry, "engine_restarts_total", 0),
+                  help="supervisor-driven engine restarts")
+        engines = self.registry.loaded_engines()
+        inflight_failed = getattr(self.registry, "inflight_failed_retryable", 0)
+        for eng in engines.values():
+            stats = getattr(getattr(eng, "batcher", None), "stats", None)
+            # live batchers' counts; crashed ones were taken into the
+            # registry's total at restart, so none is counted twice
+            inflight_failed += getattr(stats, "inflight_failed_retryable", 0)
+        r.counter("lmstudio_inflight_failed_retryable_total", inflight_failed,
+                  help="in-flight requests failed with a retryable envelope "
+                       "by an engine crash")
+        poisoned_fn = getattr(self.registry, "poisoned_models", None)
+        if poisoned_fn is not None:
+            r.gauge("lmstudio_engines_poisoned", len(poisoned_fn()))
+        restart_hist = getattr(self.registry, "restart_latency_ms", None)
+        if restart_hist is not None:
+            r.histogram("lmstudio_engine_restart_ms", restart_hist.snapshot())
+        for mid, eng in engines.items():
+            rb = getattr(eng, "batcher", None)
+            stats = getattr(rb, "stats", None)
+            if stats is None or not hasattr(stats, "histograms"):
+                continue
+            labels = {"model": mid}
+            for name, v in stats.counters().items():
+                r.counter(f"lmstudio_batcher_{name}_total", v, labels=labels)
+            r.gauge("lmstudio_batcher_peak_active_slots", stats.peak_active, labels=labels)
+            causes = stats.shed_cause_counts()
+            for cause, v in causes.items():
+                r.counter("lmstudio_batcher_shed_by_cause_total", v,
+                          labels={**labels, "cause": cause})
+            # per-tenant serving counters under a capped ``tenant`` label:
+            # the top-K tenants by volume keep their rows, the rest roll up
+            # into tenant="other"
+            tstats = getattr(rb, "tenant_stats", None)
+            if tstats is not None:
+                for tenant, row in sorted(tstats.snapshot(self.config.qos_tenant_topk).items()):
+                    tl = {**labels, "tenant": tenant}
+                    for key, fam in (
+                        ("requests", "lmstudio_tenant_requests_total"),
+                        ("served", "lmstudio_tenant_served_total"),
+                        ("shed", "lmstudio_tenant_shed_total"),
+                        ("preempted", "lmstudio_tenant_preempted_total"),
+                        ("tokens", "lmstudio_tenant_tokens_total"),
+                    ):
+                        r.counter(fam, row.get(key, 0), labels=tl)
+                    r.counter("lmstudio_tenant_queue_age_ms_total",
+                              round(row.get("queue_age_ms_sum", 0.0), 3), labels=tl,
+                              help="summed enqueue->admit wait ms of served "
+                                   "requests, by tenant (the fairness "
+                                   "signal: divide by served for the mean)")
+            # deadline and brownout families: always present, zero when quiet
+            r.counter("lmstudio_deadline_shed_total", causes.get("deadline", 0), labels=labels,
+                      help="requests shed because the client deadline "
+                           "expired or became infeasible before prefill")
+            r.counter("lmstudio_deadline_aborted_total",
+                      stats.cancel_causes.get("deadline", 0), labels=labels,
+                      help="mid-decode slots aborted past the client deadline")
+            r.gauge("lmstudio_brownout_level", getattr(rb, "brownout_level", 0), labels=labels,
+                    help="0=normal 1=brownout 2=shed-only")
+            for name, v in stats.spec_counters().items():
+                r.counter(f"lmstudio_spec_{name}_total", v, labels=labels)
+            for name, h in stats.histograms().items():
+                r.histogram(f"lmstudio_{name}", h.snapshot(), labels=labels)
+            # per-program host dispatch time, one labeled histogram family
+            for name, h in sorted(stats.program_histograms().items()):
+                r.histogram("lmstudio_program_ms", h.snapshot(),
+                            labels={**labels, "program": name})
+            for name, h in sorted(stats.program_token_histograms().items()):
+                r.histogram("lmstudio_program_tokens", h.snapshot(),
+                            labels={**labels, "program": name})
+            pool_stats_fn = getattr(rb, "pool_stats", None)
+            pool = pool_stats_fn() if pool_stats_fn is not None else None
+            if pool is not None:
+                for name in ("blocks_total", "blocks_free", "blocks_shared"):
+                    r.gauge(f"lmstudio_kv_pool_{name}", pool[name], labels=labels)
+                r.counter("lmstudio_kv_pool_cow_copies_total", pool["cow_copies"],
+                          labels=labels,
+                          help="copy-on-write block duplications (a shared "
+                               "block written by a live slot)")
+            pcache = getattr(rb, "prefix_cache", None)
+            if pcache is not None:
+                for name, v in pcache.counters().items():
+                    r.counter(f"lmstudio_prefix_cache_{name}_total", v, labels=labels)
+                r.gauge("lmstudio_prefix_cache_blocks", pcache.blocks, labels=labels)
+                r.gauge("lmstudio_prefix_cache_bytes", pcache.bytes, labels=labels)
+                r.histogram("lmstudio_prefix_hit_tokens", pcache.hit_tokens_hist.snapshot(),
+                            labels=labels)
+        return r.render()
+
+    async def on_metrics_prom(self, msg: Msg) -> None:
+        """metrics.prom: the Prometheus text itself, not an envelope."""
+        await self._respond_json(msg, self.render_prometheus().encode())
+
+    @staticmethod
+    def _optional_object(payload: bytes) -> dict:
+        req = json.loads(payload) if payload and payload.strip() else {}
+        if not isinstance(req, dict):
+            raise ValueError("payload must be a JSON object")
+        return req
+
+    async def on_events(self, msg: Msg) -> None:
+        """events: the event ring (sheds, cancels, brownout transitions,
+        engine crash/restart/poison, loads and unloads, slow requests).
+        Payload (optional) ``{kind?, limit?}`` (default 100, newest)."""
+        if not msg.reply:
+            return  # a broadcast on <prefix>.events: nothing to answer
+        try:
+            req = self._optional_object(msg.payload)
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in Events: {e}")
+            return
+        try:
+            limit = int(req.get("limit", 100))
+        except (TypeError, ValueError):
+            await self._respond_error(msg, "'limit' must be an integer")
+            return
+        await self._respond_ok(msg, {
+            "events": EVENTS.snapshot(kind=req.get("kind"), limit=limit),
+            "emitted_total": EVENTS.emitted,
+            "dropped": EVENTS.dropped,
+            "capacity": EVENTS.capacity,
+        })
+
+    async def on_profile(self, msg: Msg) -> None:
+        """profile: capture a ``torch.profiler`` trace for ``seconds``
+        (default 2, at most 60) into a worker-chosen directory (a client
+        path would be a directory-write primitive), one capture at a time,
+        and reply with its path; the zipped trace also goes to the
+        ``profiles`` bucket when the broker has the object store."""
+        try:
+            req = json.loads(msg.payload) if msg.payload.strip() else {}
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in Profile: {e}")
+            return
+        seconds = float(req.get("seconds", 2.0))
+        if not math.isfinite(seconds):
+            await self._respond_error(msg, "'seconds' must be finite")
+            return
+        seconds = max(0.0, min(seconds, 60.0))
+        if self._profiling:
+            await self._respond_error(msg, "a profile capture is already running")
+            return
+        self._profiling = True
+        trace_dir = tempfile.mkdtemp(prefix="torch_trace_")
+        try:
+            if not self._profiler_ready:
+                # once a process, here: the event loop runs on the thread
+                # that imported torch (the profiler's first initialization
+                # must); it blocks the loop for the library's start-up
+                _init_profiler()
+                self._profiler_ready = True
+            trace_file = await asyncio.to_thread(_capture_profile, trace_dir, seconds,
+                                                 self.worker_id)
+        finally:
+            self._profiling = False
+        reply: dict = {"trace_dir": trace_dir, "trace_file": trace_file, "seconds": seconds}
+        try:
+            blob = await asyncio.to_thread(_zip_dir, trace_dir)
+            digest = hashlib.sha256(blob).hexdigest()
+            from ..transport.jetstream import ObjectStore
+
+            assert self.nc is not None
+            # a short API timeout: a broker without the object store never
+            # answers, and the reply must not wait the window out
+            store = ObjectStore(self.nc, timeout=5.0)
+            bucket = "profiles"
+            obj = f"{self.worker_id}-{digest[:16]}.zip"
+            await store.ensure_bucket(bucket)
+            await store.put(bucket, obj, blob)
+            reply.update(bucket=bucket, object=obj, sha256=digest, bytes=len(blob))
+        except Exception as e:  # noqa: BLE001 — the upload is an extra
+            log.warning("profile upload failed (%s: %s); trace stays local at %s",
+                        type(e).__name__, e, trace_dir)
+        await self._respond_ok(msg, reply)
+
+    async def on_debug_snapshot(self, msg: Msg) -> None:
+        """debug.snapshot: each loaded engine's batcher internals (slot
+        tables with block refcounts, pool, prefix cache, brownout, the
+        recorder's tail). Payload (optional) ``{model?}``."""
+        try:
+            req = self._optional_object(msg.payload)
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in DebugSnapshot: {e}")
+            return
+        want = (req.get("model") or "").strip() or None
+        engines = {}
+        for mid, eng in self.registry.loaded_engines().items():
+            if want is not None and mid != want:
+                continue
+            snap_fn = getattr(getattr(eng, "batcher", None), "debug_snapshot", None)
+            if snap_fn is not None:
+                engines[mid] = snap_fn()
+        if want is not None and not engines:
+            await self._respond_error(msg, f"model not loaded: {want}")
+            return
+        await self._respond_ok(msg, {"worker_id": self.worker_id, "role": "",
+                                     "engines": engines})
+
+    async def on_debug_dump(self, msg: Msg) -> None:
+        """debug.dump: force a flight-recorder dump of every loaded engine
+        (or ``{model?}``) into the worker's OBS_DUMP_DIR and reply with the
+        paths."""
+        try:
+            req = self._optional_object(msg.payload)
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in DebugDump: {e}")
+            return
+        want = (req.get("model") or "").strip() or None
+        paths = {}
+        for mid, eng in self.registry.loaded_engines().items():
+            if want is not None and mid != want:
+                continue
+            recorder = getattr(getattr(eng, "batcher", None), "recorder", None)
+            if recorder is not None:
+                path = recorder.dump("debug_request", force=True, extra={"model": mid})
+                if path:
+                    paths[mid] = path
+        if not paths:
+            await self._respond_error(
+                msg, "no dump written (recorder disabled, OBS_DUMP_DIR unset, "
+                "or no engine loaded)")
+            return
+        await self._respond_ok(msg, {"dumps": paths})

@@ -19,7 +19,12 @@ block sizes 8 to 128, a 4096-key slot, slots with fewer live tiles than
 splits, all-null tables and, for K1q, key rows with scales spread over
 decades; both also at the speculative verify's width (W = 7, a 28-row
 bundle of two m-tiles). The sampling cases hold ``_pick`` and
-``spec_accept_from_noise`` on the card to the CPU on shared noise.
+``spec_accept_from_noise`` on the card to the CPU on shared noise. The
+overload cases, on a 2-layer bf16 model written here: the brownout
+headroom signal makes no ``mem_get_info`` call over a served chat's
+owner-loop passes; an engine whose owner loop crashed gives its memory
+back at the restart (within 1%) and serves the same greedy text; the
+profile subject's capture names ``paged_decode_mma_kernel``.
 """
 
 import math
@@ -549,3 +554,139 @@ def test_spec_accept_from_noise_on_the_card_equals_cpu(gen, v):
         want = sampling.spec_accept_from_noise(*(x.cpu() for x in (
             logits, drafts, dlen, u, gumbel, temp, top_k, top_p)))
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+# -- overload and supervision on the card ------------------------------------
+
+# a small bf16 model at head_dim 128 (so decode takes K1's tensor-core body)
+_SMALL = dict(vocab=512, d_model=256, n_heads=2, n_kv_heads=1, head_dim=128, d_ff=512,
+              rope_theta=10000.0, rms_eps=1e-5, context=1024, n_layers=2)
+_SMALL_MID = "small/bf16"
+
+
+def _small_registry(tmp_path, **kw):
+    """A TorchRegistry on the card over a 2-layer bf16 GGUF written here
+    (chip_smoke.write_gguf, random weights from seed 3)."""
+    import chip_smoke
+    from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+    from nats_llm_studio_tpu_torch.store import ModelStore
+
+    d = tmp_path / "models" / _SMALL_MID
+    d.mkdir(parents=True)
+    chip_smoke.write_gguf(torch, d / "m.gguf", _SMALL["n_layers"], 3, widths=_SMALL)
+    return TorchRegistry(ModelStore(tmp_path / "models"), device="cuda", max_seq_len=1024,
+                         max_batch_slots=4, prefix_cache_blocks=0, spec_decode_k=0, **kw)
+
+
+async def _chat(eng, n=24, **extra):
+    return await eng.chat({"model": _SMALL_MID, "temperature": 0, "max_tokens": n,
+                           "messages": [{"role": "user", "content": "count the waves"}],
+                           **extra})
+
+
+def test_headroom_signal_makes_no_cuda_call_per_tick(gen, tmp_path, monkeypatch):
+    """The brownout signal comes from the admission ledger: over a served
+    chat's owner-loop passes (and a thousand direct reads) no
+    ``torch.cuda.mem_get_info`` call is made; the card's budget was read
+    once, when the registry was built."""
+    import asyncio
+
+    registry = _small_registry(tmp_path, obs_recorder_interval_ms=1.0)
+    calls = []
+    real = torch.cuda.mem_get_info
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: calls.append(a) or real(*a))
+
+    async def run():
+        eng = await registry.get_engine(_SMALL_MID)
+        await _chat(eng, n=64)
+        frac = [registry._hbm_headroom_frac() for _ in range(1000)]
+        ticks = eng.batcher.recorder.frames_sampled
+        await registry.close()
+        return frac, ticks
+
+    frac, ticks = asyncio.run(run())
+    assert calls == [] and ticks > 0
+    assert 0.0 < frac[0] < 1.0 and len(set(frac)) == 1
+
+
+def test_crashed_batcher_memory_is_returned_on_the_card(gen, tmp_path):
+    """A crash that escapes the owner loop, then the restart: the unload
+    frees the crashed batcher's params and pool (its frames were dropped,
+    so nothing pins them), and the allocated bytes after the restart are
+    within 1% of those before the crash; the same greedy text follows."""
+    import asyncio
+
+    class Crash(BaseException):
+        pass
+
+    registry = _small_registry(tmp_path, restart_backoff_s=0.01)
+
+    async def run():
+        eng = await registry.get_engine(_SMALL_MID)
+        first = await _chat(eng)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        b = eng.batcher
+        prog = b._decode_pos_pallas
+
+        def faulty(*a):
+            b._decode_pos_pallas = prog
+            raise Crash("injected")
+
+        b._decode_pos_pallas = faulty
+        with pytest.raises(Exception, match="engine crashed"):
+            await _chat(eng)
+        assert await registry.restart_engine(_SMALL_MID, "crashed") == "restarted"
+        del eng, b, prog, faulty
+        import gc
+
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        again = await _chat(await registry.get_engine(_SMALL_MID))
+        await registry.close()
+        return first, again, before, after
+
+    first, again, before, after = asyncio.run(run())
+    assert abs(after - before) <= 0.01 * before, (before, after)
+    assert again["choices"][0]["message"] == first["choices"][0]["message"]
+
+
+def test_profile_trace_names_the_paged_decode_kernel(gen, tmp_path):
+    """The worker's profile subject (torch.profiler initialized once on the
+    event loop's thread, the capture in a worker thread while the owner
+    thread launches) exports a Chrome trace that names K1's tensor-core
+    kernel."""
+    import asyncio
+    import json
+
+    from nats_llm_studio_tpu_torch.config import WorkerConfig
+    from nats_llm_studio_tpu_torch.serve.worker import Worker
+
+    class Msg:  # what on_profile reads of a NATS message, and its reply
+        subject, reply, headers = "lmstudio.profile", "inbox", {}
+        payload = b'{"seconds": 1.5}'
+
+        async def respond(self, payload, headers=None):
+            self.answer = json.loads(payload)
+
+    registry = _small_registry(tmp_path)
+    worker = Worker(WorkerConfig(), registry)
+
+    async def run():
+        eng = await registry.get_engine(_SMALL_MID)
+        await _chat(eng, n=8)  # warm: kernels loaded, first launches done
+        answers = []
+        for _ in range(2):  # the first capture in the process, and a later one
+            msg = Msg()
+            cap = asyncio.ensure_future(worker.on_profile(msg))
+            await asyncio.sleep(0.3)
+            await _chat(eng, n=400)
+            await cap
+            answers.append(msg.answer)
+        await registry.close()
+        return answers
+
+    for answer in asyncio.run(run()):
+        assert answer["ok"], answer
+        assert "paged_decode_mma_kernel" in open(answer["data"]["trace_file"]).read()
