@@ -84,11 +84,39 @@ verifies (k = 6 prompt-lookup drafts at 1-4 live slots):
              brownout events, gauge and no verify at level >= 1), the
              heartbeat over a ~4000-token chunked prefill, profile naming
              paged_decode_mma_kernel, debug.snapshot and debug.dump, the
-             loop's cost with the recorder on and off, a crash injected into
+             loop's cost with the recorder and the efficiency plane on and
+             off, a crash injected into
              a decode program (restart, the same greedy text, memory within
              1%), and a 2-layer model poisoned by two crashes and reset by
              delete_model + pull_model; K1, K2 and K3 must launch, K1q and K4
              must not.
+6b. cluster — bf16 KV, 8 slots, SPEC_DECODE=0, two port workers on one
+             broker: A in this process and B a ``python -m
+             nats_llm_studio_tpu_torch serve`` subprocess over the same models
+             dir, each with its own TPU_HBM_BUDGET_BYTES (36 GB: two workers
+             share this card only in the smoke), adverts every 0.5 s; the
+             port's RouterProcess with the fleet aggregator embedded and the
+             port's gateway on a local port (cluster_phase): both adverts
+             within two intervals (slots 8, the model, not draining,
+             headroom in (0, 1]); A, B, the gateway (unary and SSE) and
+             route.chat_model give the same greedy text; a repeated prompt
+             is steered to the worker whose heads hold it; A bounces a chat
+             whose X-Excluded-Workers names it and the router's RetryPolicy
+             serves it on B; the merged exposition carries both workers'
+             lmstudio_mfu / lmstudio_mbu; prefill MFU and decode MBU on A (raw
+             rates) in (0, 1.05]; admin.drain (deadline 1 s) with three
+             streams live on A cuts at least one, each cut stream ends in
+             the retryable draining envelope and its retry is served by B
+             with B's undrained text, A's next
+             advert says draining and its memory_allocated is back at its
+             value before the load within 1% of the engine; A's device-time
+             ledger sums to dispatch_ms_total within 10% and its served
+             tokens equal the tokens delivered; K1, K2 and K3 launched, K1q
+             and K4 not; no hbm_drift event in this process through the
+             serve, spec, prefix, overload and cluster phases, nor in B.
+             Recorded: the advert spacing, TTFT through the gateway and
+             direct, the drain's seconds and cut streams, MFU/MBU, and the
+             analytic bytes of a decode step over decode_profile's device ms.
 7. lifecycle — bf16 KV, an embedded broker with the object-store module and
              a worker whose ModelStore reaches the bucket: (a) a 2-layer GGUF
              at the same widths is published with ModelStore.publish_model
@@ -110,8 +138,11 @@ verifies (k = 6 prompt-lookup drafts at 1-4 live slots):
              bytes, after which a chat to it is "model not found" and
              list_models omits it; the 32-layer model leaves by delete_model.
 
-The second-to-last lines are the kernels JSON and the card's name and power
-limit; the last line is {"ok": true, "device": {...}}.
+Kernel bounds use the card's peaks from the port's table
+(obs/roofline.py resolve_chip_peaks of torch.cuda.get_device_name), the
+same the efficiency plane's MFU/MBU use. The second-to-last lines are the
+kernels JSON and the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -127,11 +158,14 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+# (peak dense bf16 FLOP/s, peak HBM bytes/s) of the card, from the port's
+# table (obs/roofline.py resolve_chip_peaks), which the efficiency plane's
+# MFU/MBU read too; main() sets it before the kernel phase
+PEAKS: tuple[float, float] | None = None
 # the staged file's name: a file:// pull files it under downloads/<stem>
 STAGED = "llama3-8b-random.gguf"
 MID = "downloads/llama3-8b-random"
@@ -178,8 +212,9 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    peak_flops, peak_bytes = PEAKS
+    t_bytes = bytes_moved / peak_bytes * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1596,14 +1631,15 @@ def arm_crash(b) -> None:
         setattr(b, n, faulty)
 
 
-async def stream_env(h: Served, body: dict, headers: dict | None = None,
+async def stream_env(h, body: dict, headers: dict | None = None,
                      first: asyncio.Event | None = None,
-                     stop: asyncio.Event | None = None) -> dict:
-    """One streamed chat to its terminal envelope: {ok, error, text,
-    t_first, t_end, chunks} (monotonic times); a set ``stop`` closes the
-    stream after the next chunk (the worker then cancels the request)."""
+                     stop: asyncio.Event | None = None,
+                     subject: str = "lmstudio.chat_model") -> dict:
+    """One streamed chat (on ``h.nc``) to its terminal envelope: {ok, error,
+    text, t_first, t_end, chunks} (monotonic times); a set ``stop`` closes
+    the stream after the next chunk (the worker then cancels the request)."""
     out = {"ok": False, "error": None, "text": "", "t_first": None, "chunks": 0}
-    agen = h.nc.request_stream("lmstudio.chat_model", json.dumps({**body, "stream": True}).encode(),
+    agen = h.nc.request_stream(subject, json.dumps({**body, "stream": True}).encode(),
                                timeout=300.0, headers=headers)
     try:
         async for msg in agen:
@@ -1721,7 +1757,7 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
     every line of metrics.prom parses, events hold the brownout and
     engine_supervisor transitions, a chat's stats.trace holds its stages in
     order. The loop's cost: wall ms per decode step at 8 slots with the
-    recorder on and off."""
+    recorder on and off, and with the efficiency plane on and off."""
     import gc
     import re
 
@@ -1902,8 +1938,9 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
             f"levels {names}; a drafting stream from level {lvl}: {len(verify_levels)} "
             f"verifies, all at level 0")
 
-        # 4. the loop's cost at 8 slots, recorder on and off (on, off, off, on)
-        async def loop_cost(on: bool, tokens: int) -> dict:
+        # 4. the loop's cost at 8 slots, recorder on and off (on, off, off,
+        # on), then the efficiency plane off (twice) and on
+        async def loop_cost(on: bool, tokens: int, eff: bool = True) -> dict:
             """Wall ms a decode step of 8 streams, from their first chunks
             to their ends (the admits left out). The kernels a step are
             decode_profile's (serve_path, the same registry settings):
@@ -1911,18 +1948,23 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
             kernels in some orders on the card, so the loop is not
             profiled here."""
             b.recorder.enabled = on
+            b._efficiency = eff
             tasks, _ = await live_streams(h, 8, tokens, "count the waves")
             steps0, t0 = b.stats.steps, time.perf_counter()
             await asyncio.gather(*tasks)
             steps = b.stats.steps - steps0
-            return {"recorder": on, "steps": steps,
+            return {"recorder": on, "efficiency": eff, "steps": steps,
                     "wall_ms_per_step": (time.perf_counter() - t0) * 1e3 / steps}
 
-        cost = [await loop_cost(on, 40) for on in (True, False, False, True)]
+        cost = [await loop_cost(on, 40, eff) for on, eff in (
+            (True, True), (False, True), (False, True), (True, True), (True, False),
+            (True, False), (True, True))]
         b.recorder.enabled = True
+        b._efficiency = True
         out["loop_cost"] = cost
         for c in cost:
-            log(f"overload: 8 streams, recorder {'on ' if c['recorder'] else 'off'}: "
+            log(f"overload: 8 streams, recorder {'on ' if c['recorder'] else 'off'}, "
+                f"efficiency plane {'on ' if c['efficiency'] else 'off'}: "
                 f"{c['wall_ms_per_step']:.2f} ms wall a decode step ({c['steps']} steps)")
 
         # 5. a ~4000-token prompt prefilled in chunks beside a live stream:
@@ -2047,6 +2089,358 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
     if device == "cuda":
         torch.cuda.empty_cache()
     log(f"overload: phase ok in {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 6b: cluster membership and the efficiency plane ------------------------
+
+CLUSTER_BUDGET = 36_000_000_000  # each worker's TPU_HBM_BUDGET_BYTES on the shared card
+ADVERT_S = 0.5  # CLUSTER_ADVERT_INTERVAL_S of both workers
+DRAIN_STREAMS = 3
+DRAIN_TOKENS = 128
+
+
+async def http_chat(port: int, body: dict) -> tuple[int, bytes, float | None]:
+    """POST /v1/chat/completions to the gateway: (status, body, seconds to
+    the first SSE data line, None when unary). The gateway closes the
+    connection after the response."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    writer.write(f"POST /v1/chat/completions HTTP/1.1\r\nHost: smoke\r\n"
+                 f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n"
+                 f"Connection: close\r\n\r\n".encode() + data)
+    await writer.drain()
+    raw, t_first = b"", None
+    while chunk := await reader.read(65536):
+        raw += chunk
+        if t_first is None and b"\r\n\r\ndata: " in raw:
+            t_first = time.perf_counter() - t0
+    writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), payload, t_first
+
+
+def sse_text(payload: bytes) -> str:
+    parts = []
+    for line in payload.decode().splitlines():
+        if line.startswith("data: ") and line != "data: [DONE]":
+            parts.append(json.loads(line[6:])["choices"][0].get("delta", {}).get("content") or "")
+    return "".join(parts)
+
+
+async def cluster_phase(torch, model_root: Path, work: Path, counters, prof: dict | None,
+                        device: str = "cuda") -> dict:
+    """Two port workers on one broker: A in this process, B a
+    ``python -m nats_llm_studio_tpu_torch serve`` subprocess over the same
+    models dir (each with its own TPU_HBM_BUDGET_BYTES; bf16 KV, 8 slots,
+    SPEC_DECODE=0 so a row's step is the same forward on either worker),
+    the port's RouterProcess with the fleet aggregator embedded and the
+    port's gateway on a local port. Gates: both adverts within two
+    intervals (slots 8, the model, not draining, headroom in (0, 1]); the
+    same greedy text from A, B, the gateway (unary and SSE) and
+    route.chat_model; a repeated prompt steered to the worker whose heads
+    hold it; the excluded-workers bounce, then the router's RetryPolicy
+    serves it on B; the merged exposition carries both workers' MFU/MBU;
+    prefill MFU and decode MBU (raw rates before the clamp) in (0, 1.05];
+    a drain with three streams live on A (deadline 1 s): at least one is
+    cut, every cut stream ends in the retryable draining envelope and its
+    retry is served by B with the text B gave it undrained (a stream done
+    before the deadline has that text), A's next advert says draining, and A's
+    memory_allocated comes back to its value before the load within 1% of
+    the engine; the device-time ledger's categories sum to
+    dispatch_ms_total within 10% and its served tokens equal the tokens
+    delivered; no hbm_drift on worker B (this process's are counted by
+    main); K1, K2 and K3 ran in A, K1q and K4 did not."""
+    import gc
+    import re
+    import signal
+
+    from nats_llm_studio_tpu_torch.config import WorkerConfig
+    from nats_llm_studio_tpu_torch.gateway import Gateway
+    from nats_llm_studio_tpu_torch.obs import Aggregator
+    from nats_llm_studio_tpu_torch.obs.roofline import ForwardCost, chip_peaks
+    from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+    from nats_llm_studio_tpu_torch.serve.router import RouterProcess, prompt_head_hash
+    from nats_llm_studio_tpu_torch.serve.worker import Worker
+    from nats_llm_studio_tpu_torch.store import ModelStore
+    from nats_llm_studio_tpu_torch.transport import EmbeddedBroker, RetryPolicy, connect
+    from nats_llm_studio_tpu_torch.transport import protocol as p
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            raise AssertionError(f"cluster: {msg}")
+
+    def text_of(env: dict) -> str:
+        gate(bool(env.get("ok")), f"chat failed: {env}")
+        return env["data"]["response"]["choices"][0]["message"]["content"]
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    on_a = "lmstudio.worker.w-a.chat_model"
+    saved = os.environ.get("TPU_HBM_BUDGET_BYTES")
+    os.environ["TPU_HBM_BUDGET_BYTES"] = str(CLUSTER_BUDGET)
+    broker = await EmbeddedBroker().start()
+    registry = TorchRegistry(ModelStore(model_root), device=device, max_seq_len=4096,
+                             max_batch_slots=8, kv_quant="none", spec_decode_k=0)
+    wa = Worker(WorkerConfig(nats_url=broker.url, worker_id="w-a",
+                             cluster_advert_interval_s=ADVERT_S), registry)
+    log_b = open(work / "worker-b.log", "wb")
+    env_b = {**os.environ, "NATS_URL": broker.url, "LMSTUDIO_MODELS_DIR": str(model_root),
+             "WORKER_ID": "w-b", "CLUSTER_ADVERT_INTERVAL_S": str(ADVERT_S),
+             "SPEC_DECODE": "0", "MAX_SEQ_LEN": "4096", "MAX_BATCH_SLOTS": "8",
+             "TPU_KV_QUANT": "none", "PYTHONPATH": str(ROOT)}
+    proc_b = subprocess.Popen([sys.executable, "-m", "nats_llm_studio_tpu_torch", "serve",
+                               "--device", device], cwd=ROOT, env=env_b, stdout=log_b,
+                              stderr=subprocess.STDOUT)
+    nc = router = agg = gw = None
+    try:
+        base = allocated(torch)
+        await wa.start()
+        nc = await connect(broker.url)
+        router = RouterProcess(nc, retry=RetryPolicy(max_attempts=3, backoff_s=0.05))
+        agg = Aggregator(nc, scrape_interval_s=0.5)
+        gw = Gateway(nc, port=0)
+        for x in (router, agg, gw):
+            await x.start()
+
+        async def req(subject, body, headers=None, timeout=300.0, retry=None):
+            msg = await nc.request(subject, json.dumps(body).encode(), timeout=timeout,
+                                   headers=headers, retry=retry)
+            return json.loads(msg.payload), msg
+
+        client = types.SimpleNamespace(nc=nc)  # what stream_env reads
+
+        # B comes up: its health answers once its connection is made
+        t_end = time.monotonic() + 180.0
+        while True:
+            gate(proc_b.poll() is None, f"worker B exited ({proc_b.returncode}); "
+                 f"see {work / 'worker-b.log'}")
+            try:
+                await req("lmstudio.worker.w-b.health", {}, timeout=1.0)
+                break
+            except asyncio.TimeoutError:
+                gate(time.monotonic() < t_end, "worker B did not come up")
+        out["b_up_s"] = time.perf_counter() - t_phase
+
+        # the same greedy text from each worker (each loads on this chat)
+        chat = chat_body("Tell me about the harbour and its ships.", 32)
+        for f in counters:
+            f.launches = 0
+        t_a = text_of((await req(on_a, chat))[0])
+        loaded = allocated(torch)
+        t0 = time.perf_counter()
+        t_b = text_of((await req("lmstudio.worker.w-b.chat_model", chat))[0])
+        out["b_load_and_chat_s"] = time.perf_counter() - t0
+        gate(t_a == t_b, f"A and B give different greedy texts: {t_a!r} vs {t_b!r}")
+        log(f"cluster: A and B loaded ({(loaded - base) / 1e9:.2f} GB in A), the same "
+            f"greedy text; B up in {out['b_up_s']:.1f} s, its load and chat "
+            f"{out['b_load_and_chat_s']:.1f} s")
+
+        # adverts: both within two intervals, then their spacing
+        arrivals: dict[str, list] = {"w-a": [], "w-b": []}
+        adverts: dict[str, dict] = {}
+
+        async def on_advert(msg):
+            d = json.loads(msg.payload)
+            if d.get("worker_id") in arrivals:
+                arrivals[d["worker_id"]].append(time.monotonic())
+                adverts[d["worker_id"]] = d
+
+        sub = await nc.subscribe("lmstudio.cluster.adverts", cb=on_advert)
+        t_sub = time.monotonic()
+        await asyncio.sleep(6 * ADVERT_S)
+        await sub.unsubscribe()
+        for wid, ts in arrivals.items():
+            gate(bool(ts) and ts[0] - t_sub <= 2 * ADVERT_S, f"{wid}: no advert within "
+                 f"two intervals ({[round(t - t_sub, 3) for t in ts]})")
+            ad = adverts[wid]
+            gate(ad["slots"] == 8 and ad["models"] == [MID] and ad["draining"] is False
+                 and 0.0 < ad["hbm_headroom"] <= 1.0, f"{wid} advert: {ad}")
+        gaps = [b - a for ts in arrivals.values() for a, b in zip(ts, ts[1:])]
+        out["advert"] = {"interval_s": ADVERT_S, "headroom": {w: a["hbm_headroom"]
+                                                              for w, a in adverts.items()},
+                         "jitter_max_s": max(abs(g - ADVERT_S) for g in gaps),
+                         "gap_min_s": min(gaps), "gap_max_s": max(gaps)}
+        log(f"cluster: adverts {json.dumps(out['advert'])}")
+
+        # routing: gateway (unary, SSE), route.chat_model, TTFT against direct
+        status, body, _ = await http_chat(gw.port, chat)
+        gate(status == 200, f"gateway unary: {status} {body[:300]!r}")
+        gate(json.loads(body)["choices"][0]["message"]["content"] == t_a,
+             "the gateway's unary text differs")
+        status, body, ttft_gw = await http_chat(gw.port, {**chat, "stream": True})
+        gate(status == 200 and sse_text(body) == t_a, "the gateway's SSE text differs")
+        t0 = time.perf_counter()
+        ttft_direct = None
+        async for _ in nc.request_stream("lmstudio.chat_model",
+                                         json.dumps({**chat, "stream": True}).encode(),
+                                         timeout=300.0):
+            if ttft_direct is None:
+                ttft_direct = time.perf_counter() - t0
+        gate(text_of((await req("lmstudio.route.chat_model", chat))[0]) == t_a,
+             "route.chat_model's text differs")
+        out["ttft_s"] = {"gateway_sse": ttft_gw, "direct_stream": ttft_direct}
+        log(f"cluster: gateway unary and SSE and route.chat_model give the direct text; "
+            f"TTFT through the gateway {ttft_gw * 1e3:.1f} ms, direct "
+            f"{ttft_direct * 1e3:.1f} ms")
+
+        # locality: a prompt B served is steered back to B
+        local = chat_body("Only the second worker has heard this question about tides.", 8)
+        await req("lmstudio.worker.w-b.chat_model", local)
+        head = prompt_head_hash(MID, local["messages"])
+        await wait_for(lambda: head in router.router._members["w-b"].heads, "B's heads")
+        msg = await router.router.request_chat(local, timeout=300.0)
+        gate((msg.headers or {}).get(p.WORKER_HEADER) == "w-b"
+             and router.router.stats.locality_total >= 1, "the repeat was not steered to B")
+
+        # the excluded-workers bounce, then the router's retry on B
+        env, msg = await req(on_a, chat,
+                             {p.EXCLUDED_WORKERS_HEADER: "w-a"})
+        gate(not env["ok"] and env.get("retryable") and env["data"].get("excluded_bounce"),
+             f"bounce: {env}")
+        msg = await router.router.request_chat(
+            chat, headers={p.EXCLUDED_WORKERS_HEADER: "w-a"}, timeout=300.0,
+            retry=RetryPolicy(max_attempts=3, backoff_s=0.05))
+        gate((msg.headers or {}).get(p.WORKER_HEADER) == "w-b"
+             and text_of(json.loads(msg.payload)) == t_a, "the bounced chat's retry")
+        log("cluster: a repeat steered to the worker whose heads hold it; A bounced a chat "
+            "excluding it and the router's retry was served by B with the same text")
+
+        # efficiency on A: a chunked prefill beside a stream, then 8 streams
+        b = registry.loaded_engines()[MID].batcher
+        pf, pb = chip_peaks(b.device)
+        first = asyncio.Event()
+        live = asyncio.ensure_future(stream_env(client, chat_body("Count slowly to ninety.", 96),
+                                                first=first, subject=on_a))
+        await asyncio.wait_for(first.wait(), 300.0)  # chunked beside it: K3
+        long_text = ("The harbour log lists every ship, its cargo and the tide. " * 70)[:3500]
+        await req(on_a, chat_body(long_text, 4))
+        fl, by = b.stats.util_prefill.rates()
+        await live
+        await asyncio.gather(*[stream_env(client, chat_body(f"Story {i} of the sea.", 128),
+                                          subject=on_a) for i in range(8)])
+        dfl, dby = b.stats.util_decode.rates()
+        out["efficiency"] = {"prefill_mfu_raw": fl / pf, "prefill_mbu_raw": by / pb,
+                             "decode_mfu_raw": dfl / pf, "decode_mbu_raw": dby / pb,
+                             "utilization": b.stats.utilization(), "peaks": [pf, pb]}
+        if prof and prof.get("device_ms_per_step"):
+            step_bytes = ForwardCost(b.cfg)(8, 1, [prof["ctx"]] * 8, 8)[1]
+            out["efficiency"]["decode_step_bytes"] = step_bytes
+            out["efficiency"]["decode_step_hbm_share_by_device_time"] = (
+                step_bytes / (prof["device_ms_per_step"] / 1e3) / pb)
+        log(f"cluster: efficiency on A {json.dumps(out['efficiency'])}")
+        if device == "cuda":
+            for k in ("prefill_mfu_raw", "decode_mbu_raw"):
+                v = out["efficiency"][k]
+                gate(0.0 < v <= 1.05, f"{k} {v} outside (0, 1.05]")
+
+        # the aggregator: both workers scraped, their roofline gauges merged
+        t_end = time.monotonic() + 60.0
+        while True:
+            texts = dict(agg._last_texts)
+            if all(w in texts and "lmstudio_mfu{" in texts[w] and "lmstudio_mbu{" in texts[w]
+                   for w in ("w-a", "w-b")):
+                break
+            gate(time.monotonic() < t_end, f"the aggregator scraped {sorted(texts)}")
+            await asyncio.sleep(0.2)
+        merged = (await nc.request("lmstudio.cluster.metrics.prom", b"", timeout=30)
+                  ).payload.decode()
+        gate(re.search(r"^lmstudio_cluster_workers 2$", merged, re.M) is not None
+             and "lmstudio_mfu{" in merged and "lmstudio_mbu{" in merged,
+             "the merged exposition lacks the cluster's roofline gauges")
+        drift_b = re.search(r"^lmstudio_hbm_drift_events_total\{[^}]*\} (\S+)$",
+                            texts["w-b"], re.M)
+        gate(drift_b is not None and float(drift_b.group(1)) == 0.0,
+             f"worker B's hbm_drift events: {drift_b and drift_b.group(0)}")
+        log("cluster: the aggregator scraped both workers; the merged exposition carries "
+            "lmstudio_mfu and lmstudio_mbu; worker B fired no hbm_drift")
+
+        # the drain: texts B gives undrained, then streams cut on A
+        bodies = [chat_body(f"Drain story {i}: the night the harbour lights failed.",
+                            DRAIN_TOKENS) for i in range(DRAIN_STREAMS)]
+        want = [text_of((await req("lmstudio.worker.w-b.chat_model", bd))[0]) for bd in bodies]
+        firsts = [asyncio.Event() for _ in bodies]
+        cut = [asyncio.ensure_future(stream_env(client, bd, first=f, subject=on_a))
+               for bd, f in zip(bodies, firsts)]
+        await asyncio.wait_for(asyncio.gather(*(f.wait() for f in firsts)), 300.0)
+        t0 = time.perf_counter()
+        env, _ = await req("lmstudio.admin.drain", {"worker_id": "w-a", "deadline_s": 1})
+        drain_s = time.perf_counter() - t0
+        gate(env["ok"] and env["data"]["stopped_engines"] == [MID], f"drain: {env}")
+        ends = await asyncio.gather(*cut)
+        got = []
+        for bd, e in zip(bodies, ends):
+            if e["ok"]:  # done before the deadline: not cut
+                got.append(e["text"])
+                continue
+            gate(e.get("retryable") and "worker draining" in (e["error"] or ""),
+                 f"a cut stream ended with {e}")
+            renv, msg = await req("lmstudio.chat_model", bd,
+                                  retry=RetryPolicy(max_attempts=4, backoff_s=0.05))
+            gate((msg.headers or {}).get(p.WORKER_HEADER) == "w-b", "a retry missed B")
+            got.append(text_of(renv))
+        n_cut = sum(not e["ok"] for e in ends)
+        gate(n_cut >= 1, "the drain cut no stream")
+        gate(got == want, "a stream's text (retried on B if cut) differs from B's undrained "
+             "text")
+        await wait_for(lambda: router.router._members["w-a"].draining, "A's draining advert")
+        gc.collect()
+        drained = allocated(torch)
+        out["drain"] = {"seconds": drain_s, "streams": len(ends), "cut_streams": n_cut,
+                        "finished_in_time": env["data"]["finished_in_time"],
+                        "chunks_before_cut": [e["chunks"] for e in ends],
+                        "allocated_before_load": base, "allocated_loaded": loaded,
+                        "allocated_after_drain": drained}
+        log(f"cluster: drain {json.dumps(out['drain'])}")
+        if device == "cuda":
+            gate(abs(drained - base) <= 0.01 * (loaded - base),
+                 f"A's memory after the drain {drained} vs {base} before the load")
+
+        # the device-time ledger on A
+        dt = b.stats.device_time_snapshot()
+        total = b.stats.dispatch_ms_total
+        out["ledger"] = {"device_ms": dt["ms"], "device_tokens": dt["tokens"],
+                         "dispatch_ms_total": total, "tokens_delivered": b.stats.tokens,
+                         "goodput_tokens_per_device_s": b.stats.goodput_tokens_per_device_s()}
+        log(f"cluster: device-time ledger on A {json.dumps(out['ledger'])}")
+        gate(abs(sum(dt["ms"].values()) - total) <= 0.10 * total,
+             "the ledger's categories do not sum to dispatch_ms_total within 10%")
+        gate(dt["tokens"]["served"] == b.stats.tokens,
+             "the ledger's served tokens differ from the tokens delivered")
+        out["launches"] = {f.__name__: f.launches for f in counters}
+        log(f"cluster (kv none): kernel launches {out['launches']}")
+        if device == "cuda":
+            for name in EXPECTED["none"][0]:
+                gate(out["launches"][name] > 0, f"{name} was not launched")
+            for name in EXPECTED["none"][1]:
+                gate(out["launches"][name] == 0, f"{name} was launched under bf16 KV")
+        out["seconds"] = time.perf_counter() - t_phase
+    finally:
+        for x in (gw, agg, router):
+            if x is not None:
+                await x.stop()
+        if nc is not None:
+            await nc.close()
+        await wa.drain()
+        await registry.close()
+        proc_b.send_signal(signal.SIGTERM)
+        try:
+            proc_b.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc_b.kill()
+            proc_b.wait()
+        log_b.close()
+        await broker.stop()
+        if saved is None:
+            os.environ.pop("TPU_HBM_BUDGET_BYTES", None)
+        else:
+            os.environ["TPU_HBM_BUDGET_BYTES"] = saved
+    del registry, b
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"cluster: phase ok in {out['seconds']:.1f} s")
     return out
 
 
@@ -2239,13 +2633,25 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
         batcher = h.registry.loaded_engines()[MID].batcher
         g0 = batcher.stats.chunked_group_admits
         wave = [f"Ledger {i}: " + long_text[:3960] for i in range(4)]
+        # when each chat reaches the batcher: a group forms from arrivals
+        # within the admit top-up window (50 ms) of the first
+        enq, enqueue = [], batcher._enqueue
+
+        def timed_enqueue(*a, **kw):
+            enq.append(time.monotonic())
+            return enqueue(*a, **kw)
+
+        batcher._enqueue = timed_enqueue
         rs = await asyncio.gather(*[h.chat(MID, t, 4) for t in wave])
+        batcher._enqueue = enqueue
         for r in rs:
             ok(r, "group chat")
+        out["group_arrivals_ms"] = [round((t - enq[0]) * 1e3, 2) for t in enq]
         out["group_admits"] = batcher.stats.chunked_group_admits - g0
         out["group_prompt_tokens"] = [r["data"]["response"]["usage"]["prompt_tokens"] for r in rs]
         out["group_peak_bytes"] = (torch.cuda.max_memory_allocated(torch) - base) if cuda else 0
         log(f"lifecycle: four concurrent chats of {out['group_prompt_tokens']} tokens, "
+            f"arriving at the batcher at {out['group_arrivals_ms']} ms, "
             f"{out['group_admits']} admitted by one chunked group; peak over the load and "
             f"every chat {out['group_peak_bytes']} bytes (estimate total {big['total']})")
         if out["group_admits"] < 4:
@@ -2346,6 +2752,25 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    global PEAKS
+    from nats_llm_studio_tpu_torch.obs import events
+    from nats_llm_studio_tpu_torch.obs.roofline import _CPU_PEAKS, resolve_chip_peaks
+
+    name = torch.cuda.get_device_name(0)
+    PEAKS = resolve_chip_peaks(name)
+    if PEAKS == _CPU_PEAKS or ("H100 80GB HBM3" in name and PEAKS != (989e12, 3.35e12)):
+        raise AssertionError(f"peaks of {name!r}: {PEAKS}")
+    log(f"peaks: {name} -> {PEAKS[0]:.4g} FLOP/s bf16, {PEAKS[1]:.4g} B/s (obs/roofline.py)")
+    # every hbm_drift the HBM ledgers of this process fire, by phase
+    drifts: list = []
+    emit = events.EVENTS.emit
+
+    def counting_emit(kind, **fields):
+        if kind == "hbm_drift":
+            drifts.append(fields)
+        return emit(kind, **fields)
+
+    events.EVENTS.emit = counting_emit
 
     t0 = time.perf_counter()
     rep = _build.build_all(verbose=True)
@@ -2385,6 +2810,12 @@ def main() -> int:
     for name in EXPECTED["none"][1]:
         if overload["launches"][name] != 0:
             raise AssertionError(f"overload: {name} was launched under the bf16 KV cache")
+    cluster = asyncio.run(cluster_phase(torch, model_root, work, counters,
+                                        paths["none"]["prof"]))
+    if drifts:
+        raise AssertionError(f"hbm_drift fired in the serve, overload or cluster phases: "
+                             f"{drifts}")
+    log("hbm ledger: no hbm_drift in the serve, spec, prefix, overload and cluster phases")
     for f in counters:
         f.launches = 0
     lifecycle.update(asyncio.run(lifecycle_phase(torch, model_root, work, args.seed)))
@@ -2428,13 +2859,14 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src[wrapper][0],
             "replaces": src[wrapper][1], "design": src[wrapper][2], "shape": r["shape"],
-            # the wrapper's launches over both serve phases, the overload and
-            # the lifecycle phases (K2 serves both KV modes), at whatever
+            # the wrapper's launches over both serve phases, the overload, the
+            # cluster and the lifecycle phases (K2 serves both KV modes), at whatever
             # shapes they ran: a
             # second row of one wrapper (@T4096, @KW4096, @W7, ...) reports
             # the same counter, named by launches_of
             "launches": sum(p["launches"][wrapper] for p in paths.values())
-            + overload["launches"][wrapper] + lifecycle["launches"][wrapper],
+            + overload["launches"][wrapper] + cluster["launches"][wrapper]
+            + lifecycle["launches"][wrapper],
             "launches_of": wrapper,
             "max_abs_err": r["max_abs_err"], "max_row_rel_err": r["max_row_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2456,7 +2888,9 @@ def main() -> int:
             "ext": p["ext"],
         }
     summary["overload"] = overload
+    summary["cluster"] = cluster
     summary["lifecycle"] = lifecycle
+    summary["hbm_drift_events"] = {"before_lifecycle": 0, "lifecycle": len(drifts)}
     log(json.dumps(summary))
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -1,4 +1,4 @@
-"""``python -m nats_llm_studio_tpu_torch serve|broker|publish``
+"""``python -m nats_llm_studio_tpu_torch serve|broker|route|obs|gateway|publish``
 
 Mirror of ``nats_llm_studio_tpu/main.py`` for the port:
 
@@ -12,6 +12,18 @@ Mirror of ``nats_llm_studio_tpu/main.py`` for the port:
   the command fails unless ``--device cpu`` is given.
 * ``broker [--port N] [--store-dir DIR]``: the embedded NATS broker with
   the object-store module alone.
+* ``route [--max-attempts N]``: the cluster router (``serve/router.py
+  RouterProcess``): it follows the workers' adverts and forwards
+  ``lmstudio.route.chat_model`` to the best live worker; with
+  ``OBS_AGGREGATOR=1`` the fleet aggregator runs in the same process.
+* ``obs``: the fleet aggregator alone (``obs/aggregator.py``): the merged
+  cluster exposition on ``lmstudio.cluster.metrics.prom``, assembled traces
+  on ``lmstudio.debug.trace.<id>`` and ``slo_burn`` events.
+* ``gateway [--host H] [--port N] [--max-attempts N]``: the OpenAI-compatible
+  HTTP/SSE gateway (``gateway/server.py``) over the router.
+
+The autoscaler is not ported: ``OBS_AUTOSCALE=1`` makes ``route`` and
+``obs`` refuse to start.
 * ``publish GGUF MODEL_ID``: import a GGUF into the local cache and upload
   it to the bucket, for workers to ``pull_model`` or
   ``sync_model_from_bucket``.
@@ -99,6 +111,89 @@ async def _run_broker(args: argparse.Namespace) -> None:
     await broker.stop()
 
 
+def _refuse_autoscale(cfg: WorkerConfig) -> None:
+    if cfg.obs_autoscale:
+        raise SystemExit("OBS_AUTOSCALE=1: the autoscaler (serve/autoscaler.py of "
+                         "nats_llm_studio_tpu) is not ported to this package yet")
+
+
+def _aggregator(nc, cfg: WorkerConfig):
+    from .obs import Aggregator
+
+    return Aggregator(
+        nc, prefix=cfg.subject_prefix, scrape_interval_s=cfg.obs_scrape_interval_s,
+        stale_after_s=cfg.router_stale_after_s, slo_ttft_p95_ms=cfg.slo_ttft_p95_ms,
+        slo_window_s=cfg.slo_window_s, slo_served_ratio=cfg.slo_served_ratio,
+        slo_shed_ratio=cfg.slo_shed_ratio,
+    )
+
+
+async def _run_route(args: argparse.Namespace) -> None:
+    from .serve.router import RouterProcess
+    from .transport import RetryPolicy, connect
+
+    cfg = WorkerConfig()
+    _refuse_autoscale(cfg)
+    nc = await connect(cfg.nats_url, name="torch-router")
+    proc = RouterProcess(
+        nc, prefix=cfg.subject_prefix, stale_after_s=cfg.router_stale_after_s,
+        prefix_head_chars=cfg.router_prefix_head_chars, chat_timeout_s=cfg.chat_timeout_s,
+        retry=RetryPolicy(max_attempts=args.max_attempts, retry_on_timeout=True),
+    )
+    await proc.start()
+    agg = None
+    if cfg.obs_aggregator:
+        # OBS_AGGREGATOR=1: the fleet collector shares the router's process
+        # and connection
+        agg = _aggregator(nc, cfg)
+        await agg.start()
+    log.info("router on %s (prefix %s%s)", cfg.nats_url, cfg.subject_prefix,
+             ", embedded aggregator" if agg is not None else "")
+    await _wait_for_signal()
+    if agg is not None:
+        await agg.stop()
+    await proc.stop()
+    await nc.close()
+
+
+async def _run_obs(args: argparse.Namespace) -> None:
+    from .transport import connect
+
+    cfg = WorkerConfig()
+    _refuse_autoscale(cfg)
+    nc = await connect(cfg.nats_url, name="torch-obs")
+    agg = _aggregator(nc, cfg)
+    await agg.start()
+    log.info("aggregator on %s (prefix %s, scrape %.1fs)", cfg.nats_url,
+             cfg.subject_prefix, cfg.obs_scrape_interval_s)
+    await _wait_for_signal()
+    await agg.stop()
+    await nc.close()
+
+
+async def _run_gateway(args: argparse.Namespace) -> None:
+    from .gateway import Gateway
+    from .transport import RetryPolicy, connect
+
+    cfg = WorkerConfig()
+    nc = await connect(cfg.nats_url, name="torch-gateway")
+    gw = Gateway(
+        nc, prefix=cfg.subject_prefix, host=args.host or cfg.gateway_host,
+        port=cfg.gateway_port if args.port is None else args.port,
+        max_conn=cfg.gateway_max_conn, chat_timeout_s=cfg.chat_timeout_s,
+        retry=RetryPolicy(max_attempts=args.max_attempts, retry_on_timeout=True),
+        stale_after_s=cfg.router_stale_after_s,
+        prefix_head_chars=cfg.router_prefix_head_chars,
+        api_keys=cfg.api_keys, tenant_topk=cfg.qos_tenant_topk,
+    )
+    await gw.start()
+    log.info("gateway on http://%s:%d (bus %s, prefix %s)", gw.host, gw.port,
+             cfg.nats_url, cfg.subject_prefix)
+    await _wait_for_signal()
+    await gw.stop()
+    await nc.close()
+
+
 async def _run_publish(args: argparse.Namespace) -> None:
     from .transport import connect
 
@@ -126,13 +221,21 @@ def main(argv: list[str] | None = None) -> int:
     b = sub.add_parser("broker", help="run the embedded NATS broker + object store")
     b.add_argument("--port", type=int, default=4222)
     b.add_argument("--store-dir", default="./nats_data")
+    r = sub.add_parser("route", help="run the cluster router")
+    r.add_argument("--max-attempts", type=int, default=3)
+    sub.add_parser("obs", help="run the fleet metrics/trace aggregator")
+    g = sub.add_parser("gateway", help="run the OpenAI-compatible HTTP gateway")
+    g.add_argument("--host", default=None)
+    g.add_argument("--port", type=int, default=None)
+    g.add_argument("--max-attempts", type=int, default=3)
     p = sub.add_parser("publish", help="import a GGUF and upload it to the bucket")
     p.add_argument("gguf")
     p.add_argument("model_id")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    run = {"serve": _run_serve, "broker": _run_broker, "publish": _run_publish}[args.cmd]
+    run = {"serve": _run_serve, "broker": _run_broker, "route": _run_route, "obs": _run_obs,
+           "gateway": _run_gateway, "publish": _run_publish}[args.cmd]
     asyncio.run(run(args))
     return 0
 

@@ -151,6 +151,77 @@ class WorkerConfig:
     qos_tenant_topk: int = field(
         default_factory=lambda: int(_env("QOS_TENANT_TOPK", "8"))
     )
+    # -- cluster membership + failover routing (serve/router.py) -------------
+    # period between lmstudio.cluster.adverts publishes; 0 disables the
+    # advert loop (single-worker deployments lose nothing)
+    cluster_advert_interval_s: float = field(
+        default_factory=lambda: float(_env("CLUSTER_ADVERT_INTERVAL_S", "1.0"))
+    )
+    # graceful drain (lmstudio.admin.drain): in-flight decode gets this long
+    # to finish after the queue subs are dropped; the remainder is failed
+    # with the retryable draining envelope so peers absorb it
+    drain_deadline_s: float = field(
+        default_factory=lambda: float(_env("DRAIN_DEADLINE_S", "30"))
+    )
+    # router: an advert older than this marks the worker dead (dropped from
+    # steering). Must comfortably exceed the advert interval.
+    router_stale_after_s: float = field(
+        default_factory=lambda: float(_env("ROUTER_STALE_AFTER_S", "5.0"))
+    )
+    # router: prompt-head chars hashed for prefix-cache locality steering
+    # (0 disables locality; load-only steering remains)
+    router_prefix_head_chars: int = field(
+        default_factory=lambda: int(_env("ROUTER_PREFIX_HEAD_CHARS", "256"))
+    )
+    # phase role: "" (monolithic) is the only role the port serves; the
+    # prefill and decode roles need KV export/import between workers
+    worker_role: str = field(default_factory=lambda: _env("WORKER_ROLE", "").strip().lower())
+    # -- OpenAI-compatible HTTP/SSE gateway (gateway/server.py) ---------------
+    # bind address for ``python -m nats_llm_studio_tpu_torch gateway``;
+    # loopback by default
+    gateway_host: str = field(default_factory=lambda: _env("GATEWAY_HOST", "127.0.0.1"))
+    gateway_port: int = field(default_factory=lambda: int(_env("GATEWAY_PORT", "8080")))
+    # concurrent HTTP connections admitted before 503
+    gateway_max_conn: int = field(
+        default_factory=lambda: int(_env("GATEWAY_MAX_CONN", "256"))
+    )
+    # API-key table: comma-separated ``key:tenant:class[:weight[:rps
+    # [:monthly_tokens]]]`` entries; empty disables auth (everyone is the
+    # anonymous standard tenant)
+    api_keys: str = field(default_factory=lambda: _env("API_KEYS", ""))
+    # -- cluster observability plane (obs/aggregator.py) ---------------------
+    # fleet aggregator scrape cadence over each live worker's directed
+    # metrics.prom subject
+    obs_scrape_interval_s: float = field(
+        default_factory=lambda: float(_env("OBS_SCRAPE_INTERVAL_S", "2.0"))
+    )
+    # embed the fleet aggregator inside ``route``; the standalone ``obs``
+    # command always runs one
+    obs_aggregator: bool = field(
+        default_factory=lambda: _env("OBS_AGGREGATOR", "0").strip().lower()
+        in ("1", "true", "on")
+    )
+    # the autoscaler (serve/autoscaler.py in the JAX package) is not ported:
+    # OBS_AUTOSCALE=1 makes ``route`` and ``obs`` refuse to start
+    obs_autoscale: bool = field(
+        default_factory=lambda: _env("OBS_AUTOSCALE", "0").strip().lower()
+        in ("1", "true", "on")
+    )
+    # SLO objectives the aggregator evaluates over fast/slow burn windows:
+    # cluster TTFT p95 (ms), the slow window (s), the least served-or-
+    # retryable ratio and the largest shed ratio
+    slo_ttft_p95_ms: float = field(
+        default_factory=lambda: float(_env("SLO_TTFT_P95_MS", "2000"))
+    )
+    slo_window_s: float = field(
+        default_factory=lambda: float(_env("SLO_WINDOW_S", "60"))
+    )
+    slo_served_ratio: float = field(
+        default_factory=lambda: float(_env("SLO_SERVED_RATIO", "0.99"))
+    )
+    slo_shed_ratio: float = field(
+        default_factory=lambda: float(_env("SLO_SHED_RATIO", "0.05"))
+    )
 
     def __post_init__(self) -> None:
         if self.admit_queue_limit < 0:  # unset: scale with the slot count
@@ -159,6 +230,12 @@ class WorkerConfig:
             from .utils import next_nuid
 
             self.worker_id = f"w-{next_nuid()[-8:].lower()}"
+        if self.worker_role:
+            raise ValueError(
+                f"WORKER_ROLE={self.worker_role!r}: disaggregated prefill/decode "
+                f"roles need KV export and import between workers, which this "
+                f"package does not serve yet; leave WORKER_ROLE unset"
+            )
 
     # timeout ladder — mirrors the reference's per-op deadlines
     list_timeout_s: float = 30.0

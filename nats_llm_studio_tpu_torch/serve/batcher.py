@@ -77,9 +77,22 @@ the row caches), so the registry's restart gives the memory back. The
 flight recorder samples host-side frames; ``debug_snapshot`` reads the
 slot view the loop publishes.
 
+The efficiency plane (``obs/roofline.py``), as the reference's: every
+dispatch's flops and bytes come from the analytic ``ForwardCost`` of its
+shapes (no timing, no kernel choice), summed per program and into rolling
+MFU/MBU windows per class; its host ms is shared over the owner thread's
+charge context (the requests the dispatch serves) and resolved, when a
+request leaves, into a device-time ledger category (``served``,
+``shed_after_prefill``, ``cancelled``, ``deadline_abort``, ``failed``); a
+verify's rejected-draft share moves to ``spec_rejected`` at its readback,
+and dispatches outside any context go to ``other``. ``EFFICIENCY=0`` turns
+it off. The time is the host time of the call, as in the reference: eager
+launches return when queued, so a prefill chunk that queues ahead of the
+device reads low.
+
 Not ported yet: KV tiers (prefix demotion and promotion), slot suspend
 and parking (and with them QoS preemption and brownout's suspend lever),
-the device-time ledger and the legacy contiguous-KV layout.
+and the legacy contiguous-KV layout.
 """
 
 from __future__ import annotations
@@ -110,6 +123,16 @@ from ..models.llama import (
 )
 from ..obs import LogHistogram, Trace
 from ..obs import emit as obs_emit
+from ..obs.roofline import (
+    SPEC_PROGRAMS,
+    WASTE_CATEGORIES,
+    ForwardCost,
+    RollingUtilization,
+    chip_peaks,
+    classify_program,
+    efficiency_enabled,
+    program_base,
+)
 from ..ops.kvcache import (
     KVQ,
     is_quantized,
@@ -182,7 +205,12 @@ def _drop_frames(err: BaseException) -> None:
 
 
 class BatcherStopped(RuntimeError):
-    """Submit raced a shutdown; the request was never queued."""
+    """Submit raced a shutdown (the request was never queued), or a drain
+    ended the request."""
+
+
+# what a drained batcher fails its requests with (retryable by its text)
+DRAIN_ERROR = "worker draining, retry on another worker"
 
 
 class BatcherOverloaded(RuntimeError):
@@ -231,6 +259,13 @@ class _Request:
     tenant: str = ANON_TENANT
     priority: str = DEFAULT_PRIORITY
     weight: float = 0.0
+    # -- device-time ledger accrual (obs/roofline.py): dispatch ms charged
+    # while this request was in the owner's charge context, resolved into
+    # an outcome category when it leaves (_ledger_finalize); dev_spec_ms is
+    # the last verify's share, read back to move its rejected drafts
+    dev_prefill_ms: float = 0.0
+    dev_decode_ms: float = 0.0
+    dev_spec_ms: float = 0.0
 
     @property
     def rank(self) -> int:
@@ -288,9 +323,27 @@ class BatcherStats:
     program_ms: dict = field(default_factory=dict)  # name -> LogHistogram
     program_tokens: dict = field(default_factory=dict)  # name -> LogHistogram
     program_calls: dict = field(default_factory=dict)
+    # -- compute-efficiency plane (obs/roofline.py) -----------------------
+    # cumulative per-program flops / bytes from the analytic count; keys
+    # materialize on the first costed dispatch of each program
+    program_flops: dict = field(default_factory=dict)  # name -> float
+    program_bytes: dict = field(default_factory=dict)  # name -> float
+    # device-time ledger: outcome category -> accumulated dispatch ms, and
+    # tokens delivered (tokens accrue only under "served")
+    device_ms: dict = field(default_factory=dict)
+    device_tokens: dict = field(default_factory=dict)
+    # exact sum of every dispatch's ms: the ledger's categories must sum to
+    # it (within the accrual of requests still in flight)
+    dispatch_ms_total: float = 0.0
+    # rolling flops/bytes windows per program class -> MFU/MBU gauges,
+    # against the peaks of the batcher's device
+    util_prefill: RollingUtilization = field(default_factory=RollingUtilization)
+    util_decode: RollingUtilization = field(default_factory=RollingUtilization)
+    peaks: tuple | None = None
     _lock: threading.Lock = field(default_factory=threading.Lock)
 
     def record_program(self, name: str, ms: float) -> None:
+        self.dispatch_ms_total += ms  # owner-thread single writer
         h = self.program_ms.get(name)
         if h is None:
             with self._lock:
@@ -316,6 +369,63 @@ class BatcherStats:
     def program_token_histograms(self) -> dict[str, LogHistogram]:
         with self._lock:
             return dict(self.program_tokens)
+
+    def record_dispatch_cost(self, name: str, cost: tuple | None) -> None:
+        """Fold one dispatch's (flops, bytes) into the per-program totals and
+        the rolling roofline windows. ``cost`` is None for a program the
+        analytic count does not cover (no forward in it): not costed."""
+        if not cost:
+            return
+        fl, by = cost
+        with self._lock:
+            self.program_flops[name] = self.program_flops.get(name, 0.0) + fl
+            self.program_bytes[name] = self.program_bytes.get(name, 0.0) + by
+        cls = classify_program(name)
+        if cls == "prefill":
+            self.util_prefill.add(fl, by)
+        elif cls == "decode":
+            self.util_decode.add(fl, by)
+
+    def attribute_device_time(self, category: str, ms: float, tokens: int = 0) -> None:
+        """Ledger entry: ``ms`` of dispatch time resolved to an outcome
+        ``category`` (roofline.WASTE_CATEGORIES, plus "failed" for crash
+        paths). Tokens count only toward goodput ("served")."""
+        with self._lock:
+            self.device_ms[category] = self.device_ms.get(category, 0.0) + ms
+            if tokens:
+                self.device_tokens[category] = self.device_tokens.get(category, 0) + tokens
+
+    def device_time_snapshot(self) -> dict:
+        """{"ms": {category: ms}, "tokens": {category: n}}: the standard
+        categories are always present (zero-filled), so the exposition and
+        the cluster rollup see stable families."""
+        with self._lock:
+            ms = {c: 0.0 for c in WASTE_CATEGORIES}
+            ms.update(self.device_ms)
+            tok = {c: 0 for c in WASTE_CATEGORIES}
+            tok.update(self.device_tokens)
+        return {"ms": ms, "tokens": tok}
+
+    def goodput_tokens_per_device_s(self) -> float:
+        """Served tokens per second of all attributed dispatch time: waste
+        in any category drags it below the raw decode rate."""
+        with self._lock:
+            total_ms = sum(self.device_ms.values())
+            served = self.device_tokens.get("served", 0)
+        return served / (total_ms / 1e3) if total_ms > 0 else 0.0
+
+    def cost_counters(self) -> tuple[dict, dict]:
+        """(program_flops, program_bytes) copies for the exposition."""
+        with self._lock:
+            return dict(self.program_flops), dict(self.program_bytes)
+
+    def utilization(self, peaks: tuple | None = None) -> dict:
+        """Rolling MFU/MBU per program class against the device's peaks."""
+        peaks = peaks or self.peaks or chip_peaks()
+        pf_mfu, pf_mbu = self.util_prefill.utilization(peaks)
+        dc_mfu, dc_mbu = self.util_decode.utilization(peaks)
+        return {"prefill": {"mfu": pf_mfu, "mbu": pf_mbu},
+                "decode": {"mfu": dc_mfu, "mbu": dc_mbu}}
 
     def record_admit_delay(self, ms: float) -> None:
         """Queue delay (enqueue -> admit dispatch), ms."""
@@ -422,6 +532,10 @@ class BatcherStats:
             "decode_step_p95_ms": round(dec.percentile(0.95), 1),
             "program_calls": dict(self.program_calls),
             "program_ms": {k: round(h.snapshot().total, 3) for k, h in programs.items()},
+            "goodput_tokens_per_device_s": round(self.goodput_tokens_per_device_s(), 2),
+            "device_ms": {
+                k: round(v, 1) for k, v in self.device_time_snapshot()["ms"].items()
+            },
         }
 
 
@@ -503,7 +617,15 @@ class ContinuousBatcher:
         self._pool = BlockPool(usable + 1, T)
         # the pool pair [NB, L, Hkv, T, D], written in place by every program
         self._kv = self._new_kv_pool()
-        self.stats = BatcherStats()
+        self.stats = BatcherStats(peaks=chip_peaks(self.device))
+        # the efficiency plane: analytic dispatch costs and the device-time
+        # ledger, whose charge context (the requests the current dispatch
+        # serves) only the owner thread sets
+        self._efficiency = efficiency_enabled()
+        self._forward_cost = ForwardCost(cfg)
+        self._charge_ctx: tuple | None = None
+        # the next dispatch's shapes for its analytic cost (see _timed)
+        self._shape: tuple | None = None
         self.spec_cfg: SpecConfig | None = (
             SpecConfig(k=spec_decode_k, max_active=max(1, spec_max_active))
             if spec_decode_k > 0 else None)
@@ -581,6 +703,8 @@ class ContinuousBatcher:
         # text, its frames dropped)
         self.heartbeat = time.monotonic()
         self.crashed: BaseException | None = None
+        # what stop() ends requests with: None = "shutdown"
+        self._stop_error: str | None = None
 
     # -- programs ----------------------------------------------------------
 
@@ -739,17 +863,69 @@ class ContinuousBatcher:
 
     def _timed(self, name: str, fn):
         """Record every dispatch's host time under the program ``name``
-        (the call sites record the tokens it moved, ``record_tokens``)."""
+        (the call sites record the tokens it moved, ``record_tokens``).
+
+        With the efficiency plane on, a forward-bearing call site stages its
+        shapes in ``self._shape`` just before the call, as ``(rows, tokens,
+        ctx, logit_rows[, steps])``, which ``ForwardCost`` turns into
+        (flops, bytes) for the roofline counters; the call's arguments stay
+        the program's own, so a wrapper around a program sees them as they
+        were. The dispatch's ms is shared over the owner thread's charge
+        context (prefill programs into ``dev_prefill_ms``, the others into
+        ``dev_decode_ms``, a verify's share also into ``dev_spec_ms``), or
+        booked to ``other`` when the context is empty. The time is the host
+        time of the call: no sync, no event."""
         stats = self.stats
+        count = self._forward_cost
+        is_prefill = classify_program(name) == "prefill"
+        is_spec = program_base(name) in SPEC_PROGRAMS
 
         def run(*args, **kwargs):
+            shape, self._shape = self._shape, None
             t0 = time.monotonic()
             out = fn(*args, **kwargs)
-            stats.record_program(name, (time.monotonic() - t0) * 1e3)
+            ms = (time.monotonic() - t0) * 1e3
+            stats.record_program(name, ms)
+            if self._efficiency:
+                stats.record_dispatch_cost(name, count(*shape) if shape else None)
+                ctx = self._charge_ctx
+                if ctx:
+                    share = ms / len(ctx)
+                    for r in ctx:
+                        if is_prefill:
+                            r.dev_prefill_ms += share
+                        else:
+                            r.dev_decode_ms += share
+                            if is_spec:
+                                r.dev_spec_ms = share
+                else:
+                    stats.attribute_device_time("other", ms)
             return out
 
         run.__name__ = f"timed_{name}"
         return run
+
+    def _ledger_finalize(self, req, category: str) -> None:
+        """Resolve a request's accrued dispatch time into an outcome
+        ``category`` (roofline.WASTE_CATEGORIES, or "failed" for crash
+        paths); a served request's tokens count toward goodput."""
+        if not self._efficiency:
+            return
+        pre, dec = req.dev_prefill_ms, req.dev_decode_ms
+        if pre <= 0.0 and dec <= 0.0:
+            return
+        req.dev_prefill_ms = req.dev_decode_ms = req.dev_spec_ms = 0.0
+        if category == "served":
+            self.stats.attribute_device_time("served", pre + dec, req.generated)
+        else:
+            self.stats.attribute_device_time(category, pre + dec)
+
+    def _charged(self, reqs) -> tuple | None:
+        """Make ``reqs`` the charge context; returns the previous one, for
+        the caller to put back (decode bursts run inside chunked admits)."""
+        prev = self._charge_ctx
+        self._charge_ctx = tuple(reqs)
+        return prev
 
     # -- block ownership (owner thread) --------------------------------------
 
@@ -841,6 +1017,7 @@ class ContinuousBatcher:
             nonlocal n
             n += 1
             self.stats.inflight_failed_retryable += 1
+            self._ledger_finalize(req, "failed")
             req.emit("err", err)
 
         for req in self._waitlist:
@@ -978,14 +1155,20 @@ class ContinuousBatcher:
         """True while the owner thread runs and has not crashed."""
         return self.crashed is None and self._thread is not None and self._thread.is_alive()
 
-    def stop(self) -> None:
-        """End the owner thread and every request ("shutdown"), then drop
-        the device tensors (params, the K/V pool and the prefix cache's
-        logits rows), so their memory goes back to the allocator even while
-        something still holds this batcher or its engine."""
+    def stop(self, error: str | None = None) -> None:
+        """End the owner thread and every request, then drop the device
+        tensors (params, the K/V pool and the prefix cache's logits rows),
+        so their memory goes back to the allocator even while something
+        still holds this batcher or its engine. Requests end with
+        "shutdown"; with ``error`` (the worker's drain passes
+        ``DRAIN_ERROR``) every live, queued and waiting request fails with a
+        ``BatcherStopped`` of that text instead, streams that already have
+        tokens included, so the client retries it on a peer as the
+        reference's drain does."""
         with self._submit_lock:
             running = self._started and not self._stopping
             self._stopping = True
+            self._stop_error = error
             if running:
                 self._inbox.put(None)
         if self._thread is not None:
@@ -1296,12 +1479,14 @@ class ContinuousBatcher:
                         st.index.append(int(t))
                     reason = self._deliver(req, int(t))
                     if reason is not None:
+                        self._ledger_finalize(req, "served")
                         self._tenant_served(req)
                         finish_slot(slot)  # free BEFORE the end event
                         req.emit("end", reason)
                         return
             except Exception:  # noqa: BLE001 — dead client
                 log.exception("delivery failed; dropping slot %d", slot)
+                self._ledger_finalize(req, "cancelled")
                 finish_slot(slot)
 
         def deliver_ext(req: _Request, slot: int, t: int, lp: float, top_ids, top_lps) -> None:
@@ -1328,11 +1513,13 @@ class ContinuousBatcher:
                 if reason is None and dead:
                     reason = "stop"
                 if reason is not None:
+                    self._ledger_finalize(req, "served")
                     self._tenant_served(req)
                     finish_slot(slot)  # free BEFORE the end event
                     req.emit("end", reason)
             except Exception:  # noqa: BLE001 — dead client
                 log.exception("delivery failed; dropping slot %d", slot)
+                self._ledger_finalize(req, "cancelled")
                 finish_slot(slot)
 
         def gone(slot: int, req: _Request, where: str = "decode") -> bool:
@@ -1342,6 +1529,8 @@ class ContinuousBatcher:
             if self._slots[slot] is not req:
                 return True
             if req.cancelled:
+                self._ledger_finalize(req, "deadline_abort" if req.deadline_hit
+                                      else "cancelled")
                 finish_slot(slot)
                 self.stats.record_cancel("deadline" if req.deadline_hit else where)
                 return True
@@ -1375,6 +1564,16 @@ class ContinuousBatcher:
                     host_pos[slot] += n_emit
                     if dlen > 0:
                         self.stats.record_spec(dlen, n_emit - 1)
+                        if self._efficiency and req.dev_spec_ms > 0.0:
+                            # the rejected drafts' share of this verify moves
+                            # out of the request's accrual now: it can never
+                            # serve a token, whatever the request's outcome
+                            waste = min(req.dev_spec_ms * (dlen + 1 - n_emit) / (dlen + 1),
+                                        req.dev_decode_ms)
+                            if waste > 0.0:
+                                req.dev_decode_ms -= waste
+                                self.stats.attribute_device_time("spec_rejected", waste)
+                            req.dev_spec_ms = 0.0
                     if not gone(slot, req):
                         deliver_all(req, slot, ids[slot, :n_emit].tolist())
             elif rec[0] == "ext":
@@ -1422,6 +1621,7 @@ class ContinuousBatcher:
                 except _queue.Empty:
                     return
                 if 0 <= req.slot < B and self._slots[req.slot] is req:
+                    self._ledger_finalize(req, "cancelled")
                     finish_slot(req.slot)
                     self.stats.record_cancel("active")
                 elif req in waitlist:
@@ -1439,6 +1639,7 @@ class ContinuousBatcher:
                     ensure_private(i, host_pos[i], host_pos[i] + width)
                 except _PoolExhausted as e:
                     r = self._slots[i]
+                    self._ledger_finalize(r, "shed_after_prefill")
                     finish_slot(i)
                     r.emit("err", e)
             return active()
@@ -1455,13 +1656,21 @@ class ContinuousBatcher:
             mask, every other row bans nothing. One step at a time, because
             the next mask is a host-side DFA walk over this step's token;
             the caller drains before and after."""
-            nonlocal tok_dev
             act = active()
             if not act:
                 return
-            act = grow_for(act, 1)
-            if not act:
-                return
+            # charge the step (and its CoW copies) to the live requests
+            prev = self._charged(self._slots[i] for i in act)
+            try:
+                act = grow_for(act, 1)
+                self._charge_ctx = tuple(self._slots[i] for i in act)
+                if act:
+                    ext_dispatch(act)
+            finally:
+                self._charge_ctx = prev
+
+        def ext_dispatch(act: list[int]) -> None:
+            nonlocal tok_dev
             mask = None
             if any(self._slots[i].constrain is not None for i in act):
                 m = np.ones((B, cfg.vocab_size), dtype=bool)
@@ -1474,6 +1683,7 @@ class ContinuousBatcher:
                 mask = torch.from_numpy(m).to(dev)
             refresh_tables()
             pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
+            self._shape = (B, 1, host_pos, B)
             toks, lps, tids, tlps = self._decode_pos_pallas_ext(
                 tok_dev, KP, VP, tbl_dev, pos, list(host_seed), list(host_steps),
                 *sampling_lists(), mask,
@@ -1515,15 +1725,20 @@ class ContinuousBatcher:
             # the verify writes k+1 rows a slot; the rows past the accepted
             # ones are stale by position, but may land in a block the prefix
             # cache still shares, so the whole range is privatized
-            if grow_for(act, k + 1) != act:
-                return False  # a row was shed: the plain burst re-scans
-            refresh_tables()
-            pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
-            out, nacc, tok_dev = self._spec_verify_pallas(
-                tok_dev, KP, VP, tbl_dev, pos,
-                torch.tensor(drafts, dtype=torch.int32, device=dev), dlens,
-                list(host_seed), list(host_steps), *sampling_lists(),
-            )
+            prev = self._charged(self._slots[i] for i in act)
+            try:
+                if grow_for(act, k + 1) != act:
+                    return False  # a row was shed: the plain burst re-scans
+                refresh_tables()
+                pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
+                self._shape = (B, k + 1, host_pos, B * (k + 1))
+                out, nacc, tok_dev = self._spec_verify_pallas(
+                    tok_dev, KP, VP, tbl_dev, pos,
+                    torch.tensor(drafts, dtype=torch.int32, device=dev), dlens,
+                    list(host_seed), list(host_steps), *sampling_lists(),
+                )
+            finally:
+                self._charge_ctx = prev
             self.stats.record_tokens("spec_verify_pallas", len(act) * (k + 1))
             self.stats.steps += 1
             self.stats.spec_verifies += 1
@@ -1545,15 +1760,23 @@ class ContinuousBatcher:
             burst = (self.brownout.effective_burst(self.decode_burst)
                      if self.brownout is not None else self.decode_burst)
             n = burst if headroom >= burst else 1
-            act = grow_for(act, n)
-            if not act:
-                return
-            refresh_tables()
-            pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
-            toks, tok_dev = self._decode_pos_pallas(
-                tok_dev, KP, VP, tbl_dev, pos, list(host_seed), list(host_steps),
-                *sampling_lists(), n,
-            )
+            # charge the burst (and its CoW copies) to the live requests; put
+            # the previous context back, since bursts run inside chunked admits
+            prev = self._charged(self._slots[i] for i in act)
+            try:
+                act = grow_for(act, n)
+                if not act:
+                    return
+                self._charge_ctx = tuple(self._slots[i] for i in act)
+                refresh_tables()
+                pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
+                self._shape = (B, 1, host_pos, B, n)
+                toks, tok_dev = self._decode_pos_pallas(
+                    tok_dev, KP, VP, tbl_dev, pos, list(host_seed), list(host_steps),
+                    *sampling_lists(), n,
+                )
+            finally:
+                self._charge_ctx = prev
             self.stats.record_tokens("decode_pos_pallas", len(act) * n)
             self.stats.steps += n
             self.stats.tokens_per_step.record(float(len(act)))
@@ -1593,6 +1816,7 @@ class ContinuousBatcher:
             for start in range(start0, n, C):
                 chunk = req.prompt_ids[start : start + C]
                 chunk = chunk + [0] * (C - len(chunk))
+                self._shape = (1, C, (start,), 1)
                 logits = self._prefill1(
                     torch.tensor([chunk], dtype=torch.int32, device=dev), k1, v1,
                     start, min(n - 1 - start, C - 1), self._win_bucket(start + C),
@@ -1616,6 +1840,7 @@ class ContinuousBatcher:
                 tokens = torch.tensor([req.prompt_ids + [0] * (bucket - n)],
                                       dtype=torch.int32, device=dev)
                 self.stats.record_tokens("admit_fused_paged", n)
+                self._shape = (1, bucket, (0,), 1)
                 return self._admit_fused_paged(
                     KP, VP, tokens, n, torch.tensor(bids, dtype=torch.int32), seed, samp,
                 )
@@ -1660,6 +1885,7 @@ class ContinuousBatcher:
                     wb = self._win_bucket(n)
                     tokens = torch.tensor([req.prompt_ids + [0] * (wb - n)],
                                           dtype=torch.int32, device=dev)
+                    self._shape = (1, wb, (0,), 1)
                     logits = self._prefill_full(tokens, k1, v1, n)
                     self.stats.record_tokens("prefill_full", n)
                     # only the prompt-end row exists here
@@ -1736,11 +1962,18 @@ class ContinuousBatcher:
             seed = sp.seed if sp.seed is not None else random.getrandbits(31)
             samp = (float(sp.temperature), int(sp.top_k), float(sp.top_p))
             self._slots[slot] = _RESERVED  # not idle while the admit runs
+            # every dispatch until the finish (the interleaved decode bursts
+            # re-scope their own) charges this request
+            prev = self._charged((req,))
             try:
                 first = admit_paged(req, slot, n, seed, samp)
-            except BaseException:
+            except BaseException as e:
                 release_slots([slot])
+                self._ledger_finalize(req, "shed_after_prefill"
+                                      if isinstance(e, _PoolExhausted) else "failed")
                 raise
+            finally:
+                self._charge_ctx = prev
             install([(slot, req)], first, [seed], [n])
 
         def group_fits(ns: list[int]) -> bool:
@@ -1775,6 +2008,7 @@ class ContinuousBatcher:
                 return False
             start_admit(reqs)
             slots: list[int] = []
+            prev = self._charged(reqs)
             try:
                 for _ in reqs:
                     s = self._slots.index(None)
@@ -1793,6 +2027,7 @@ class ContinuousBatcher:
                 tokens = torch.tensor(
                     [reqs[i].prompt_ids + [0] * (bucket - ns[i]) for i in idx],
                     dtype=torch.int32, device=dev)
+                self._shape = (len(idx), bucket, (0,) * len(idx), len(idx))
                 firsts = self._admit_many_fused_paged(
                     KP, VP, tokens, [ns[i] for i in idx], bid_rows,
                     [seeds[i] for i in idx], samps,
@@ -1801,6 +2036,8 @@ class ContinuousBatcher:
             except BaseException:
                 release_slots(slots)
                 raise
+            finally:
+                self._charge_ctx = prev
             self.stats.grouped_admits += len(reqs)
             install(list(zip(slots, reqs)), firsts, seeds, ns)
             return True
@@ -1822,6 +2059,7 @@ class ContinuousBatcher:
             m = len(reqs)
             start_admit(reqs)
             slots: list[int] = []
+            prev = self._charged(reqs)
             try:
                 for _ in reqs:
                     s = self._slots.index(None)
@@ -1843,6 +2081,7 @@ class ContinuousBatcher:
                         chunk = reqs[i].prompt_ids[start : start + C]
                         rows.append(chunk + [0] * (C - len(chunk)))
                     last_pos = [min(max(ns[i] - 1 - start, 0), C - 1) for i in idx]
+                    self._shape = (mpad, C, (start,) * mpad, mpad)
                     logits = self._prefill_chunk_group(
                         torch.tensor(rows, dtype=torch.int32, device=dev), km, vm,
                         start, last_pos, self._win_bucket(start + C),
@@ -1874,6 +2113,8 @@ class ContinuousBatcher:
             except BaseException:
                 release_slots(slots)
                 raise
+            finally:
+                self._charge_ctx = prev
             self.stats.chunked_group_admits += m
             install(list(zip(slots, reqs)), firsts, seeds, ns)
 
@@ -1888,9 +2129,11 @@ class ContinuousBatcher:
             if cuda_context_lost(cause):
                 raise cause
             inflight.clear()
+            self._charge_ctx = None  # drop any context the failed call left
             err = RuntimeError("batcher cache reset after a failed device dispatch")
             for i, r in enumerate(self._slots):
                 if isinstance(r, _Request):
+                    self._ledger_finalize(r, "failed")
                     r.emit("err", err)
                 self._slots[i] = None
                 spec_slots[i] = None
@@ -1923,6 +2166,8 @@ class ContinuousBatcher:
             for r in reqs:
                 if isinstance(e, _PoolExhausted):
                     self.tenant_stats.record_shed(r.tenant)
+                self._ledger_finalize(r, "shed_after_prefill"
+                                      if isinstance(e, _PoolExhausted) else "failed")
                 r.emit("err", e)
 
         def admit_waiters() -> None:
@@ -2234,15 +2479,26 @@ class ContinuousBatcher:
         return None
 
     def _drain_all(self, reason: str, waitlist: list[_Request] = ()) -> None:
+        err = self._stop_error
         self._wl_len = 0
         self._slot_view = {}
+
+        def end(req: _Request) -> None:
+            if err is None:
+                req.emit("end", reason)
+            else:
+                req.emit("err", BatcherStopped(err))
+
         for req in waitlist:
-            req.emit("end", reason)
+            end(req)
         if isinstance(waitlist, list):
             waitlist.clear()
         for i, req in enumerate(self._slots):
             if isinstance(req, _Request):
-                req.emit("end", reason)
+                # what streamed before the shutdown was served; the ledger
+                # keeps its tokens so goodput stays honest across drains
+                self._ledger_finalize(req, "served")
+                end(req)
             self._slots[i] = None
         while True:
             try:
@@ -2250,4 +2506,4 @@ class ContinuousBatcher:
             except _queue.Empty:
                 return
             if req is not None:
-                req.emit("end", reason)
+                end(req)

@@ -3,9 +3,12 @@
 Copy of ``nats_llm_studio_tpu/serve/qos.py`` trimmed to what the batcher
 and the worker use: the priority classes (``class_rank``,
 ``class_weight``, ``normalize_priority``, ``format_priority_header`` /
-``parse_priority_header``), ``DrrScheduler``, ``cap_tenant_rows`` and
-``TenantStats``. The gateway's ``ApiKeySpec``, ``parse_api_keys``,
-``TokenBucket`` and ``TenantUsage`` are not ported.
+``parse_priority_header``), ``DrrScheduler``, ``cap_tenant_rows``,
+``TenantStats`` and the gateway's ``ApiKeySpec``, ``parse_api_keys``,
+``TokenBucket`` and ``TenantUsage``.
+
+* ``parse_api_keys`` / ``TokenBucket`` / ``TenantUsage`` — the gateway's
+  API-key table, per-key rate limit and per-tenant monthly token quota.
 
 * ``DrrScheduler`` — deficit round-robin over per-tenant queues,
   weighted by priority class. The batcher owner loop reorders its
@@ -20,6 +23,7 @@ and the worker use: the priority classes (``class_rank``,
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
 
 # Priority classes, weakest first. Rank order is the SHED order: brownout
@@ -75,6 +79,147 @@ def parse_priority_header(value) -> tuple[str, float]:
     except ValueError:
         weight = 0.0
     return normalize_priority(p), weight
+
+
+@dataclass(frozen=True)
+class ApiKeySpec:
+    """One parsed ``API_KEYS`` entry."""
+
+    key: str
+    tenant: str
+    priority: str = DEFAULT_PRIORITY
+    weight: float = 0.0  # 0 = derive from class
+    rps: float = 0.0  # requests/s token-bucket rate; 0 = unlimited
+    monthly_tokens: int = 0  # monthly completion-token quota; 0 = unlimited
+
+
+def parse_api_keys(spec: str) -> dict[str, ApiKeySpec]:
+    """Parse the ``API_KEYS`` spec: comma-separated
+    ``key:tenant:class[:weight[:rps[:monthly_tokens]]]`` entries, e.g.
+    ``sk-a:acme:premium:0:50:1000000,sk-b:hobby:batch``.
+
+    Malformed entries raise (a half-configured auth table silently
+    admitting everyone is worse than failing the gateway at boot).
+    """
+    keys: dict[str, ApiKeySpec] = {}
+    for raw in (spec or "").split(","):
+        raw = raw.strip()
+        if not raw:
+            continue
+        parts = [p.strip() for p in raw.split(":")]
+        if len(parts) < 2 or not parts[0] or not parts[1]:
+            raise ValueError(
+                f"API_KEYS entry {raw!r}: want key:tenant:class"
+                f"[:weight[:rps[:monthly_tokens]]]"
+            )
+        priority = parts[2].lower() if len(parts) > 2 and parts[2] else DEFAULT_PRIORITY
+        if priority not in _RANK:
+            raise ValueError(
+                f"API_KEYS entry {raw!r}: class {priority!r} not in "
+                f"{'/'.join(PRIORITY_CLASSES)}"
+            )
+        try:
+            weight = float(parts[3]) if len(parts) > 3 and parts[3] else 0.0
+            rps = float(parts[4]) if len(parts) > 4 and parts[4] else 0.0
+            quota = int(parts[5]) if len(parts) > 5 and parts[5] else 0
+        except ValueError:
+            raise ValueError(
+                f"API_KEYS entry {raw!r}: weight/rps/monthly_tokens must be numeric"
+            ) from None
+        if parts[0] in keys:
+            raise ValueError(f"API_KEYS: duplicate key {parts[0]!r}")
+        keys[parts[0]] = ApiKeySpec(
+            key=parts[0], tenant=parts[1], priority=priority,
+            weight=max(0.0, weight), rps=max(0.0, rps),
+            monthly_tokens=max(0, quota),
+        )
+    return keys
+
+
+class TokenBucket:
+    """Classic token bucket over the monotonic clock. ``rate`` tokens/s
+    refill up to a burst of ``max(1, 2 s of rate)``; one ``take()`` per
+    request. Thread-safe (the gateway serves connections concurrently)."""
+
+    def __init__(self, rate: float, burst: float | None = None):
+        self.rate = max(0.0, float(rate))
+        self.burst = float(burst) if burst else max(1.0, self.rate * 2.0)
+        self._level = self.burst
+        self._t = time.monotonic()
+        self._lock = threading.Lock()
+
+    def take(self, n: float = 1.0) -> bool:
+        """True = admitted. A zero-rate bucket admits everything."""
+        if self.rate <= 0:
+            return True
+        with self._lock:
+            now = time.monotonic()
+            self._level = min(self.burst, self._level + (now - self._t) * self.rate)
+            self._t = now
+            if self._level >= n:
+                self._level -= n
+                return True
+            return False
+
+    def retry_after_s(self, n: float = 1.0) -> float:
+        """Seconds until ``n`` tokens will be available (429 Retry-After)."""
+        if self.rate <= 0:
+            return 0.0
+        with self._lock:
+            deficit = n - self._level
+        return max(0.0, deficit / self.rate)
+
+
+class TenantUsage:
+    """Per-tenant monthly completion-token accounting. The month key is
+    wall-clock UTC ``YYYY-MM`` — crossing the boundary implicitly resets
+    every counter (old months are dropped, this is accounting not
+    billing-grade bookkeeping). Thread-safe."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._month = ""
+        self._tokens: dict[str, int] = {}
+        self._requests: dict[str, int] = {}
+
+    @staticmethod
+    def _now_month() -> str:
+        return time.strftime("%Y-%m", time.gmtime())
+
+    def _roll(self) -> None:
+        m = self._now_month()
+        if m != self._month:
+            self._month = m
+            self._tokens = {}
+            self._requests = {}
+
+    def charge(self, tenant: str, tokens: int) -> int:
+        """Add ``tokens`` to the tenant's month; returns the new total."""
+        with self._lock:
+            self._roll()
+            self._requests[tenant] = self._requests.get(tenant, 0) + 1
+            t = self._tokens.get(tenant, 0) + max(0, int(tokens))
+            self._tokens[tenant] = t
+            return t
+
+    def tokens_used(self, tenant: str) -> int:
+        with self._lock:
+            self._roll()
+            return self._tokens.get(tenant, 0)
+
+    def over_quota(self, tenant: str, monthly_tokens: int) -> bool:
+        if monthly_tokens <= 0:
+            return False
+        return self.tokens_used(tenant) >= monthly_tokens
+
+    def snapshot(self) -> dict[str, dict[str, int]]:
+        with self._lock:
+            self._roll()
+            return {
+                t: {"tokens": self._tokens.get(t, 0),
+                    "requests": self._requests.get(t, 0)}
+                for t in set(self._tokens) | set(self._requests)
+            }
 
 
 class DrrScheduler:

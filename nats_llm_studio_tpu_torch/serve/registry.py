@@ -38,9 +38,18 @@ hung engine and reloads it after a capped backoff; more than
 leaves the context unusable, poison the model until ``delete`` or ``pull``
 resets it. On the card ``_load`` builds the kernels before the batcher
 starts, so the first prefill never stalls the owner loop on ``nvcc``.
+``set_draining`` (the worker's drain) stops ``restart_engine`` from
+reviving an engine the drain is stopping.
 
-Not ported yet: the mesh gate and precompile at pull time, the drain flag,
-the HBM ledger, KV tiers and QoS preemption.
+The HBM ledger (``obs/roofline.py HbmLedger``), ticked by every flight
+recorder frame: the weights and pool, the prefix cache's logits rows (from
+the estimate ``_admit_hbm`` commits) and ``HBM_WORKSPACE_SLACK_BYTES``
+against ``torch.cuda.memory_stats``; an ``hbm_drift`` event when the
+unexplained bytes keep growing. Inert on the CPU. ``EFFICIENCY=0`` turns it
+off.
+
+Not ported yet: the mesh gate and precompile at pull time, KV tiers and QoS
+preemption.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from ..parallel.memory import estimate_load_bytes
 from ..store.manager import ModelStore, StoreError
 from ..obs import FlightRecorder, LogHistogram
 from ..obs import emit as obs_emit
+from ..obs.roofline import HbmLedger, _default_bytes_in_use, efficiency_enabled
 from ..utils.nuid import next_nuid
 from .api import ChatEngine, EngineError, ModelNotFound, Registry
 from . import constrain as constrain_mod
@@ -550,6 +560,9 @@ class TorchRegistry(Registry):
         # cache gives back (_shrink_prefix_caches). Its blocks live in the
         # pool, which stays allocated, so they are not credited
         self._prefix_bytes: dict[str, int] = {}
+        # the resident part of each committed estimate (params + pool): what
+        # a loaded engine holds between dispatches, priced by the HBM ledger
+        self._hbm_resident: dict[str, int] = {}
         self._last_used: dict[str, float] = {}
         self.evict_grace_s = 1.0
         # overload bounds handed to every batcher (0 = off); the serve
@@ -591,6 +604,29 @@ class TorchRegistry(Registry):
         self.recorder_counters: dict[str, Any] = {
             "engine_restarts": lambda: self.engine_restarts_total,
         }
+        # HBM ledger: the admission ledger's priced components against the
+        # allocator's bytes on every recorder tick. HBM_WORKSPACE_SLACK_BYTES
+        # prices what the estimate leaves to transients; the ledger's
+        # baseline absorbs whatever constant slack stays unpriced
+        try:
+            slack = int(os.environ.get("HBM_WORKSPACE_SLACK_BYTES", "0") or 0)
+        except ValueError:
+            slack = 0
+        self.hbm_ledger = HbmLedger(
+            {
+                "engines": lambda: sum(self._hbm_resident.values()),
+                "prefix_cache": lambda: sum(self._prefix_bytes.values()),
+                "workspace_slack": lambda: slack,
+            },
+            bytes_in_use_fn=lambda: _default_bytes_in_use(self.device),
+            emit_fn=obs_emit,
+        )
+        # the tick rides each recorder frame; EFFICIENCY=0 kills the plane
+        if efficiency_enabled():
+            self.recorder_counters["hbm_drift_bytes"] = self.hbm_ledger.tick
+        # the drain flag (serve/worker.py begin_drain -> set_draining): while
+        # set, restart_engine refuses to relaunch engines
+        self.draining = False
 
     # -- Registry ------------------------------------------------------------
 
@@ -635,8 +671,7 @@ class TorchRegistry(Registry):
 
     async def delete(self, model_id: str) -> str:
         eng = self._engines.pop(model_id, None)
-        self._hbm_committed.pop(model_id, None)
-        self._prefix_bytes.pop(model_id, None)
+        self._uncommit(model_id)
         self._last_used.pop(model_id, None)
         # operator reset path for a poisoned engine
         self._poisoned.pop(model_id, None)
@@ -687,8 +722,7 @@ class TorchRegistry(Registry):
             except BaseException:
                 # a failed load must not leave phantom committed bytes that
                 # refuse every later load
-                self._hbm_committed.pop(cm.model_id, None)
-                self._prefix_bytes.pop(cm.model_id, None)
+                self._uncommit(cm.model_id)
                 raise
             self._engines[cm.model_id] = eng
             self._last_used[cm.model_id] = time.monotonic()
@@ -712,10 +746,9 @@ class TorchRegistry(Registry):
         budget = self.budget_bytes()
         if budget is None:
             return
-        need = await asyncio.to_thread(self._estimate_load_bytes, paths)
-        pbytes = await asyncio.to_thread(self._estimate_prefix_bytes, paths)
-        self._hbm_committed.pop(model_id, None)  # reloading: don't double count
-        self._prefix_bytes.pop(model_id, None)
+        est = await asyncio.to_thread(self._estimate, paths)
+        need, pbytes = est["total"], est["prefix"]
+        self._uncommit(model_id)  # reloading: don't double count
         while sum(self._hbm_committed.values()) + need > budget:
             if self._shrink_prefix_caches(exclude=model_id):
                 continue
@@ -737,14 +770,20 @@ class TorchRegistry(Registry):
                     f"budget, and no loaded engine is idle to evict"
                 )
             log.info("evicting idle engine %s to fit %s", victim, model_id)
-            self._hbm_committed.pop(victim, None)
-            self._prefix_bytes.pop(victim, None)
+            self._uncommit(victim)
             eng = self._engines.pop(victim)
             self._last_used.pop(victim, None)
             await eng.unload()
         self._hbm_committed[model_id] = need
+        self._hbm_resident[model_id] = est["params"] + est["kv_pool"]
         if pbytes:
             self._prefix_bytes[model_id] = pbytes
+
+    def _uncommit(self, model_id: str) -> None:
+        """Drop a model's entries from the admission ledger."""
+        self._hbm_committed.pop(model_id, None)
+        self._prefix_bytes.pop(model_id, None)
+        self._hbm_resident.pop(model_id, None)
 
     def _shrink_prefix_caches(self, exclude: str | None = None) -> bool:
         """Reclaim device memory by dropping the least recently used
@@ -896,13 +935,14 @@ class TorchRegistry(Registry):
         context unusable: refuse until reset) or "gone" (already unloaded by
         a concurrent delete or eviction). A reload failure propagates as
         EngineError after the teardown."""
+        if self.draining:
+            return "draining"
         t0 = time.monotonic()
         async with self._load_lock:
             eng = self._engines.pop(model_id, None)
             if eng is None:
                 return "gone"
-            self._hbm_committed.pop(model_id, None)
-            self._prefix_bytes.pop(model_id, None)
+            self._uncommit(model_id)
             self._last_used.pop(model_id, None)
             b = eng.batcher
             # the total outlives this batcher object
@@ -934,6 +974,10 @@ class TorchRegistry(Registry):
                           self.restart_backoff_max_s)
         # backoff and reload outside the load lock: get_engine takes it
         await asyncio.sleep(backoff)
+        if self.draining:
+            # the drain began during the backoff: a worker being taken out
+            # of service must not get its engine back
+            return "draining"
         await self.get_engine(model_id)
         self.engine_restarts_total += 1
         latency_ms = (time.monotonic() - t0) * 1e3
@@ -967,6 +1011,12 @@ class TorchRegistry(Registry):
             }
         return out
 
+    def set_draining(self, flag: bool = True) -> None:
+        """Raise (or clear) the drain flag: while set, ``restart_engine``
+        refuses to relaunch engines, so a supervisor restart racing a drain
+        cannot revive the worker's engine."""
+        self.draining = bool(flag)
+
     def poisoned_models(self) -> dict[str, str]:
         return dict(self._poisoned)
 
@@ -980,6 +1030,7 @@ class TorchRegistry(Registry):
             "engine_requests": self._requests,
             "backend": self.device.type,
             "hbm_committed_bytes": sum(self._hbm_committed.values()),
+            "hbm_ledger": self.hbm_ledger.last_sample(),
         }
         if self.engine_restarts_total:
             out["engine_restarts"] = self.engine_restarts_total
@@ -999,4 +1050,5 @@ class TorchRegistry(Registry):
         self._engines.clear()
         self._hbm_committed.clear()
         self._prefix_bytes.clear()
+        self._hbm_resident.clear()
         self._last_used.clear()

@@ -1,7 +1,8 @@
 """NATS worker for the port: list_models, pull_model, delete_model,
 sync_model_from_bucket, chat_model (unary and streamed), health, metrics,
 metrics.prom, events, profile, and with ``DEBUG_SUBJECTS=1`` debug.snapshot
-and debug.dump.
+and debug.dump; the cluster's directed ``lmstudio.worker.<id>.*`` subjects
+(chat_model, health, metrics.prom, kv_export) and ``admin.drain``.
 
 Port of ``nats_llm_studio_tpu/serve/worker.py``: the same subjects,
 queue group, ``{ok, error?, data?}`` envelopes, validation strings and
@@ -22,9 +23,24 @@ a worker-chosen directory, exported as a Chrome trace and zipped into the
 ``profiles`` bucket. A chat carrying ``X-KV-Prefill-Worker`` (disaggregated
 prefill, not served here) gets an error envelope naming the header.
 
-Not ported yet: cluster adverts, the directed ``lmstudio.worker.<id>.*``
-subjects beyond chat_model and health, drain and the excluded-workers
-bounce, KV export/import, and the efficiency families.
+Cluster membership, as the reference's: every ``CLUSTER_ADVERT_INTERVAL_S``
+an advert on ``lmstudio.cluster.adverts`` (``build_advert``: load, slots,
+brownout, the admission ledger's headroom, models, the draining flag and
+the head hashes of recent prompts) feeds the router (``serve/router.py``)
+and the fleet aggregator (``obs/aggregator.py``), which steer and scrape
+through the directed subjects. ``kv_export`` answers ``no_export`` (this
+worker exports no KV), so a peer falls back to a local prefill.
+``admin.drain`` (``begin_drain``) drops the queue subscriptions, advertises
+``draining``, waits for in-flight work up to the deadline and stops the
+batchers, which end what is left with the retryable "worker draining"
+envelope; a chat that names this worker in ``X-Excluded-Workers``, or that
+reaches it while it drains, is bounced retryably. ``metrics.prom`` carries
+the efficiency plane (MFU/MBU, program flops and bytes, the device-time
+ledger, the HBM ledger) unless ``EFFICIENCY=0``.
+
+Not ported yet: the drain's suspend-harvest and warm handoff
+(``handoff_to``), KV export/import (``kv_import``, ``kv_handoff``) and the
+disaggregated roles.
 """
 
 from __future__ import annotations
@@ -41,11 +57,13 @@ import time
 
 from ..config import WorkerConfig
 from ..obs import EVENTS, PromRenderer, Trace, new_trace_id, parse_span_context
+from ..obs.roofline import efficiency_enabled
 from ..transport.client import Msg, NatsClient, connect
 from ..transport.envelope import deadline_remaining_s, envelope_error, envelope_ok
 from ..transport.protocol import (
     ATTEMPT_HEADER,
     DEADLINE_HEADER,
+    EXCLUDED_WORKERS_HEADER,
     KV_PREFILL_HEADER,
     PRIORITY_HEADER,
     STREAM_CANCEL_SUFFIX,
@@ -53,8 +71,11 @@ from ..transport.protocol import (
     TRACE_HEADER,
     TRACEPARENT_HEADER,
     WORKER_HEADER,
+    parse_worker_list,
 )
 from .api import EngineError, ModelNotFound, Registry
+from .batcher import DRAIN_ERROR
+from .router import ADVERT_SUBJECT, RecentHeads, prompt_head_hash
 
 log = logging.getLogger(__name__)
 
@@ -139,6 +160,14 @@ class Worker:
         self._span_buf: list[dict] = []
         self._span_flush_task: asyncio.Task | None = None
         self._spans_emitted_total = 0
+        # -- cluster state (serve/router.py) ---------------------------------
+        self.draining = False
+        self._queue_subs: list = []  # dropped on drain; directed subs stay
+        self._advert_task: asyncio.Task | None = None
+        self._advert_seq = 0
+        self._recent_heads = RecentHeads()
+        self._excluded_bounce_total = 0  # X-Excluded-Workers self-matches
+        self._drain_bounce_total = 0  # chats bounced while draining
 
     async def start(self) -> None:
         cfg = self.config
@@ -171,25 +200,189 @@ class Worker:
             # worker counters on every engine's recorder frames
             counters["reconnects"] = lambda: getattr(self.nc, "reconnects", 0)
             counters["requests_total"] = lambda: self._requests_total
+            counters["excluded_bounces"] = lambda: self._excluded_bounce_total
+            counters["drain_bounces"] = lambda: self._drain_bounce_total
         for subject, handler in subs.items():
-            await self.nc.subscribe(subject, queue=cfg.queue_group, cb=self._guarded(handler))
+            sub = await self.nc.subscribe(subject, queue=cfg.queue_group,
+                                          cb=self._guarded(handler))
+            self._queue_subs.append(sub)
+        # directed per-worker subjects (plain subscriptions, not the queue
+        # group): the router steers at .chat_model, the aggregator scrapes
+        # .metrics.prom; they stay up through a drain
         wid_prefix = f"{cfg.subject_prefix}.worker.{self.worker_id}"
-        for op, handler in (("chat_model", self.on_chat_model), ("health", self.on_health)):
+        for op, handler in (("chat_model", self.on_chat_model), ("health", self.on_health),
+                            ("metrics.prom", self.on_metrics_prom),
+                            ("kv_export", self.on_kv_export)):
             await self.nc.subscribe(f"{wid_prefix}.{op}", cb=self._guarded(handler))
+        # drain control: a broadcast subject, each worker matches the payload
+        await self.nc.subscribe(cfg.subject("admin.drain"),
+                                cb=self._guarded(self.on_admin_drain))
         await self.nc.flush()
         if cfg.supervise_interval_s > 0:
             self._supervisor_task = asyncio.ensure_future(self._supervise())
+        if cfg.cluster_advert_interval_s > 0:
+            self._advert_task = asyncio.ensure_future(self._advert_loop())
         log.info("worker %s serving %s.* (queue=%s)", self.worker_id,
                  cfg.subject_prefix, cfg.queue_group)
 
     async def drain(self) -> None:
-        if self._supervisor_task is not None:
-            self._supervisor_task.cancel()
-            with contextlib.suppress(asyncio.CancelledError):
-                await self._supervisor_task
-            self._supervisor_task = None
+        for task in (self._supervisor_task, self._advert_task):
+            if task is not None:
+                task.cancel()
+                with contextlib.suppress(asyncio.CancelledError):
+                    await task
+        self._supervisor_task = self._advert_task = None
         if self.nc is not None:
             await self.nc.drain()
+
+    # -- cluster adverts and graceful drain ---------------------------------
+
+    def build_advert(self) -> dict:
+        """The compact membership advert ``{prefix}.cluster.adverts``
+        carries: identity, load (queue depth summed over engines, the worst
+        brownout level, the headroom of the admission budget), capacity
+        (``slots`` summed over engines), loaded models, the draining flag
+        and the head hashes of recently served prompts (the router's
+        prefix-locality signal). Host state only: no CUDA call. The port
+        has no mesh, no KV tiers and no roles, so ``mesh`` is {},
+        ``kv_tier_depth`` 0 and ``role`` ""."""
+        depth = slots = brownout = 0
+        for eng in self.registry.loaded_engines().values():
+            b = getattr(eng, "batcher", None)
+            if b is None:
+                continue
+            depth += int(getattr(b, "queue_depth", 0) or 0)
+            slots += int(getattr(b, "max_slots", 0) or 0)
+            brownout = max(brownout, int(getattr(b, "brownout_level", 0) or 0))
+        headroom_fn = getattr(self.registry, "_hbm_headroom_frac", None)
+        try:
+            headroom = float(headroom_fn()) if headroom_fn is not None else 1.0
+        except Exception:  # noqa: BLE001 — an advert must never crash the loop
+            headroom = 1.0
+        return {
+            "worker_id": self.worker_id,
+            "role": "",
+            "queue_depth": depth,
+            "slots": slots,
+            "brownout": brownout,
+            "hbm_headroom": round(headroom, 4),
+            "mesh": {},
+            "models": sorted(self.registry.loaded_engines()),
+            "kv_tier_depth": 0,
+            "draining": self.draining,
+            "heads": self._recent_heads.snapshot(),
+            "seq": self._advert_seq,
+        }
+
+    async def _publish_advert(self) -> None:
+        if self.nc is None:
+            return
+        self._advert_seq += 1
+        try:
+            await self.nc.publish(
+                self.config.subject(ADVERT_SUBJECT),
+                json.dumps(self.build_advert(), separators=(",", ":")).encode(),
+            )
+        except (ConnectionError, ValueError):
+            pass  # reconnect in flight; the next tick advertises again
+
+    async def _advert_loop(self) -> None:
+        try:
+            while True:
+                await self._publish_advert()
+                await asyncio.sleep(self.config.cluster_advert_interval_s)
+        except asyncio.CancelledError:
+            return
+
+    async def on_admin_drain(self, msg: Msg) -> None:
+        """admin.drain {worker_id, deadline_s?, handoff_to?}: puts the named
+        worker (or every worker, with ``"*"``) into draining mode. A
+        broadcast subject: every worker hears it, only addressees act and
+        reply."""
+        try:
+            req = self._request_object(msg.payload)
+        except ValueError as e:
+            await self._respond_error(msg, f"invalid JSON in Drain: {e}")
+            return
+        target = (req.get("worker_id") or "").strip()
+        if not target:
+            await self._respond_error(msg, "'worker_id' is required ('*' drains every worker)")
+            return
+        if target not in ("*", self.worker_id):
+            return  # addressed to a peer; its reply is the reply
+        try:
+            deadline_s = float(req.get("deadline_s", self.config.drain_deadline_s))
+        except (TypeError, ValueError):
+            await self._respond_error(msg, "'deadline_s' must be a number")
+            return
+        handoff_to = (req.get("handoff_to") or "").strip() or None
+        result = await self.begin_drain(deadline_s, handoff_to=handoff_to)
+        await self._respond_ok(msg, result)
+
+    async def begin_drain(self, deadline_s: float | None = None,
+                          handoff_to: str | None = None) -> dict:
+        """Graceful removal from service: drop the queue subscriptions (the
+        broker routes around this worker at once), advertise the draining
+        flag, let in-flight work finish up to the deadline, then stop the
+        batchers, which end the remainder with the retryable "worker
+        draining, retry on another worker" envelope so the client's
+        RetryPolicy lands it on a peer. The directed subjects stay up: a
+        draining worker still answers health and bounces chats. The warm
+        handoff of hot prefixes (``handoff_to``) needs KV export, which
+        this worker does not have: such a drain runs without it and says
+        so (``handoff: {"ran": false}``)."""
+        if deadline_s is None:
+            deadline_s = self.config.drain_deadline_s
+        if self.draining:
+            return {"worker_id": self.worker_id, "draining": True,
+                    "already_draining": True}
+        self.draining = True
+        # no engine restart for the whole teardown: a supervisor restart
+        # sleeping out its backoff must not revive an engine being stopped
+        set_drain = getattr(self.registry, "set_draining", None)
+        if set_drain is not None:
+            set_drain(True)
+        EVENTS.emit("worker_drain", worker_id=self.worker_id,
+                    deadline_s=deadline_s, handoff_to=handoff_to or "")
+        log.info("worker %s draining (deadline %.1fs)", self.worker_id, deadline_s)
+        for sub in self._queue_subs:
+            await sub.unsubscribe()
+        self._queue_subs.clear()
+        await self._publish_advert()  # peers and routers see draining now
+        deadline = time.monotonic() + max(0.0, deadline_s)
+        finished_in_time = True
+        while True:
+            busy = [mid for mid, eng in self.registry.loaded_engines().items()
+                    if getattr(getattr(eng, "batcher", None), "alive", False)
+                    and not getattr(eng.batcher, "idle", True)]
+            if not busy:
+                break
+            if time.monotonic() >= deadline:
+                finished_in_time = False
+                log.warning("worker %s drain deadline: %s still busy; failing the "
+                            "remainder retryably", self.worker_id, busy)
+                break
+            await asyncio.sleep(0.05)
+        stopped = []
+        for mid, eng in list(self.registry.loaded_engines().items()):
+            b = getattr(eng, "batcher", None)
+            if b is not None and getattr(b, "alive", False) and hasattr(b, "stop"):
+                # stop() fails in-flight requests with the draining error
+                # and joins the owner thread: keep the event loop breathing
+                await asyncio.to_thread(b.stop, DRAIN_ERROR)
+                stopped.append(mid)
+        await self._publish_advert()
+        result = {
+            "worker_id": self.worker_id,
+            "draining": True,
+            "finished_in_time": finished_in_time,
+            "stopped_engines": stopped,
+            "deadline_s": deadline_s,
+        }
+        if handoff_to and handoff_to != self.worker_id:
+            result["handoff"] = {"to": handoff_to, "ran": False,
+                                 "reason": "this worker exports no KV"}
+        return result
 
     async def _supervise(self) -> None:
         """Engine watchdog: every ``supervise_interval_s`` check each loaded
@@ -204,6 +397,8 @@ class Worker:
         try:
             while True:
                 await asyncio.sleep(cfg.supervise_interval_s)
+                if self.draining:
+                    continue  # the drain stops batchers on purpose
                 for mid, eng in list(self.registry.loaded_engines().items()):
                     b = getattr(eng, "batcher", None)
                     if b is None or not hasattr(b, "alive"):
@@ -371,6 +566,29 @@ class Worker:
         trace = Trace(hdrs.get(TRACE_HEADER) or new_trace_id(), attempt=attempt,
                       parent_span_id=parent[1] if parent else "")
         trace.mark("recv")
+        if self.worker_id in parse_worker_list(hdrs.get(EXCLUDED_WORKERS_HEADER)):
+            # a queue-group redelivery landed the retry back on the worker
+            # that just shed or failed it: bounce retryably so the next hop
+            # (with this worker in the header) reaches a peer
+            self._excluded_bounce_total += 1
+            await self._respond_error(
+                msg, "worker excluded by this request's retry history, "
+                "retry on another worker",
+                # a one-shot deflection: the client drops this worker from
+                # the exclusion list after it, so a single-worker group can
+                # still serve the next attempt
+                {"worker_id": self.worker_id, "excluded_bounce": True},
+                trace_id=trace.trace_id)
+            self._emit_span(trace.to_span("worker.serve", self.worker_id,
+                                          attrs={"outcome": "excluded_bounce"}))
+            return
+        if self.draining:
+            self._drain_bounce_total += 1
+            await self._respond_error(msg, "worker draining, retry on another worker",
+                                      {"worker_id": self.worker_id}, trace_id=trace.trace_id)
+            self._emit_span(trace.to_span("worker.serve", self.worker_id,
+                                          attrs={"outcome": "drain_bounce"}))
+            return
         if not msg.payload:
             await self._respond_error(msg, "empty payload in ChatModel", trace_id=trace.trace_id)
             return
@@ -390,6 +608,11 @@ class Worker:
         if payload.get("stream") and not msg.reply:
             return  # fire-and-forget stream request: nowhere to send tokens
         streaming = bool(payload.get("stream"))
+        if self.config.router_prefix_head_chars > 0:
+            # this prompt's head: the advert's ``heads`` set is the router's
+            # prefix-cache locality signal (the same hash on both sides)
+            self._recent_heads.add(prompt_head_hash(
+                model_id, payload.get("messages"), self.config.router_prefix_head_chars))
         for h in UNSUPPORTED_HEADERS:
             if hdrs.get(h):
                 await self._error_terminal(
@@ -554,12 +777,33 @@ class Worker:
                      WORKER_HEADER: self.worker_id},
         )
 
+    async def on_kv_export(self, msg: Msg) -> None:
+        """kv_export (directed only): this worker exports no KV, so it gives
+        the reply of a reference engine that cannot export, ``{no_export:
+        true}`` as the stream's terminal message: a peer that asks (a stale
+        role map) prefills locally instead of waiting out its timeout."""
+        self._requests_total += 1
+        if not msg.reply:
+            return  # nowhere to answer
+        try:
+            payload = self._request_object(msg.payload)
+        except ValueError as e:
+            await self._error_terminal(msg, f"invalid JSON in KvExport: {e}", None, True)
+            return
+        if not (payload.get("model") or "").strip():
+            await self._error_terminal(msg, "'model' is required in KvExport", None, True)
+            return
+        await self._respond_json(msg, envelope_ok({"no_export": True}),
+                                 headers={"Nats-Stream-Done": "1"})
+
     async def on_health(self, msg: Msg) -> None:
         """health: counters, the registry's stats, each engine's liveness
         (``engines``) and the poisoned models (``poisoned``)."""
         data = {
-            "status": "ok",
+            "status": "draining" if self.draining else "ok",
             "worker_id": self.worker_id,
+            "role": "",
+            "draining": self.draining,
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "requests_total": self._requests_total,
             "tokens_total": self._tokens_total,
@@ -614,11 +858,18 @@ class Worker:
         """Worker totals, registry gauges and each engine's batcher
         counters and histograms as Prometheus text, under the reference's
         family names, labels and help strings. Families of features the
-        port does not have yet (drain and bounces, KV transfer and tiers,
-        the mesh, the HBM and efficiency ledgers, XLA's compile cache and
-        recompiles, the legacy ring) are left out."""
+        port does not have yet (KV transfer and tiers, the mesh, XLA's
+        compile cache and recompiles, the legacy ring) are left out."""
+        eff = efficiency_enabled()
         r = PromRenderer(default_labels={"worker_id": self.worker_id})
         r.gauge("lmstudio_uptime_seconds", round(time.monotonic() - self._t0, 3))
+        r.gauge("lmstudio_draining", 1 if self.draining else 0,
+                help="1 while this worker is in graceful drain")
+        r.counter("lmstudio_excluded_bounce_total", self._excluded_bounce_total,
+                  help="chat requests bounced retryably because this worker "
+                       "appeared in their X-Excluded-Workers header")
+        r.counter("lmstudio_drain_bounce_total", self._drain_bounce_total,
+                  help="chat requests bounced retryably while draining")
         r.counter("lmstudio_spans_emitted_total", self._spans_emitted_total,
                   help="trace spans published on the obs.spans subject")
         r.counter("lmstudio_requests_total", self._requests_total,
@@ -633,6 +884,25 @@ class Worker:
             v = reg.get(key)
             if isinstance(v, (int, float)) and not isinstance(v, bool):
                 r.gauge(f"lmstudio_registry_{key}", v)
+        # the HBM ledger (ticked by the flight recorder): priced components
+        # against the allocator's bytes (zeros on the CPU)
+        hbm = reg.get("hbm_ledger")
+        if eff and isinstance(hbm, dict) and hbm:
+            r.gauge("lmstudio_hbm_bytes_in_use", hbm.get("bytes_in_use", 0),
+                    help="allocator bytes_in_use at the last ledger tick "
+                         "(0 on backends without memory_stats)")
+            r.gauge("lmstudio_hbm_priced_bytes", hbm.get("priced_bytes", 0),
+                    help="sum of priced HBM components (weights+pool, "
+                         "prefix cache, workspace slack)")
+            r.gauge("lmstudio_hbm_unexplained_bytes", hbm.get("unexplained_bytes", 0),
+                    help="bytes_in_use minus priced components")
+            r.gauge("lmstudio_hbm_drift_bytes", hbm.get("drift_bytes", 0),
+                    help="unexplained-bytes growth above the ledger baseline")
+        ledger = getattr(self.registry, "hbm_ledger", None)
+        if eff and ledger is not None:
+            r.counter("lmstudio_hbm_drift_events_total", getattr(ledger, "drift_events", 0),
+                      help="hbm_drift events fired (unexplained bytes grew "
+                           "monotonically past the threshold)")
         r.gauge("lmstudio_events_emitted_total", EVENTS.emitted)
         r.counter("lmstudio_reconnects_total", getattr(self.nc, "reconnects", 0),
                   help="NATS connection re-establishments by this worker")
@@ -708,6 +978,45 @@ class Worker:
             for name, h in sorted(stats.program_token_histograms().items()):
                 r.histogram("lmstudio_program_tokens", h.snapshot(),
                             labels={**labels, "program": name})
+            if eff and hasattr(stats, "cost_counters"):
+                # the efficiency plane (obs/roofline.py): per-program
+                # analytic flops and bytes, rolling MFU/MBU by class, and the
+                # device-time ledger
+                flops, bytes_ = stats.cost_counters()
+                for name, v in sorted(flops.items()):
+                    r.counter("lmstudio_program_flops_total", v,
+                              labels={**labels, "program": name},
+                              help="flops dispatched, by program (analytic "
+                                   "count from the dispatch's shapes)")
+                for name, v in sorted(bytes_.items()):
+                    r.counter("lmstudio_program_bytes_total", v,
+                              labels={**labels, "program": name},
+                              help="bytes accessed, by program (analytic "
+                                   "count from the dispatch's shapes)")
+                util = stats.utilization()
+                for cls in ("prefill", "decode"):
+                    cl = {**labels, "class": cls}
+                    r.gauge("lmstudio_mfu", round(util[cls]["mfu"], 6), labels=cl,
+                            help="achieved / peak FLOP rate over a rolling "
+                                 "window, by program class")
+                    r.gauge("lmstudio_mbu", round(util[cls]["mbu"], 6), labels=cl,
+                            help="achieved / peak HBM bandwidth over a "
+                                 "rolling window, by program class")
+                dt = stats.device_time_snapshot()
+                for cat in sorted(dt["ms"]):
+                    cl = {**labels, "category": cat}
+                    r.counter("lmstudio_device_ms_total", round(dt["ms"][cat], 3), labels=cl,
+                              help="device-dispatch milliseconds attributed "
+                                   "to a request outcome category")
+                    r.counter("lmstudio_device_tokens_total", dt["tokens"].get(cat, 0),
+                              labels=cl,
+                              help="tokens delivered, by outcome category "
+                                   "of the device time that produced them")
+                r.gauge("lmstudio_goodput_tokens_per_device_s",
+                        round(stats.goodput_tokens_per_device_s(), 3), labels=labels,
+                        help="served tokens per device-second across ALL "
+                             "attributed device time (waste included in "
+                             "the denominator)")
             pool_stats_fn = getattr(rb, "pool_stats", None)
             pool = pool_stats_fn() if pool_stats_fn is not None else None
             if pool is not None:

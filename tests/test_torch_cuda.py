@@ -24,7 +24,12 @@ overload cases, on a 2-layer bf16 model written here: the brownout
 headroom signal makes no ``mem_get_info`` call over a served chat's
 owner-loop passes; an engine whose owner loop crashed gives its memory
 back at the restart (within 1%) and serves the same greedy text; the
-profile subject's capture names ``paged_decode_mma_kernel``.
+profile subject's capture names ``paged_decode_mma_kernel``. The
+efficiency cases: the card's name finds its row of the H100 peak table;
+the HBM ledger over ``torch.cuda.memory_stats`` stays quiet over freed
+allocations and fires once on held ones; with an engine serving, adverts
+make no CUDA call, the registry's ledger prices the engine and stays
+quiet, and each program's flops are the analytic count of its shapes.
 """
 
 import math
@@ -690,3 +695,100 @@ def test_profile_trace_names_the_paged_decode_kernel(gen, tmp_path):
     for answer in asyncio.run(run()):
         assert answer["ok"], answer
         assert "paged_decode_mma_kernel" in open(answer["data"]["trace_file"]).read()
+
+
+# -- the efficiency plane and cluster membership on the card ---------------------
+
+
+def test_chip_peaks_of_the_card_in_use(gen, monkeypatch):
+    """The card's name finds its row of the H100 table (the SXM part on the
+    H100 80GB HBM3), and ``chip_peaks`` of the device reads that row."""
+    from nats_llm_studio_tpu_torch.obs import roofline
+
+    monkeypatch.delenv("TPU_PEAK_FLOPS", raising=False)
+    monkeypatch.delenv("TPU_HBM_GBPS", raising=False)
+    name = torch.cuda.get_device_name(0)
+    peaks = roofline.resolve_chip_peaks(name)
+    assert peaks != roofline._CPU_PEAKS, name
+    if "H100 80GB HBM3" in name:
+        assert peaks == (989e12, 3.35e12)
+    assert roofline.chip_peaks(torch.device("cuda", 0)) == peaks
+
+
+def test_hbm_ledger_over_memory_stats_during_a_burst(gen):
+    """Allocations freed within a tick leave the ledger quiet; tensors that
+    stay and grow for three ticks fire one ``hbm_drift``, after which the
+    footprint holds and the ledger is quiet again."""
+    from nats_llm_studio_tpu_torch.obs import roofline
+
+    dev = torch.device("cuda", 0)
+    events = []
+    led = roofline.HbmLedger(
+        {"base": lambda: 0}, bytes_in_use_fn=lambda: roofline._default_bytes_in_use(dev),
+        drift_threshold_bytes=32 << 20, sustain_ticks=3,
+        emit_fn=lambda kind, **f: events.append(kind))
+    for _ in range(8):
+        x = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        del x
+        led.tick()
+    assert events == [] and led.last_sample()["bytes_in_use"] > 0
+    held = []
+    for i in range(6):
+        if i < 3:
+            held.append(torch.empty(48 << 20, dtype=torch.uint8, device=dev))
+        led.tick()
+    assert events == ["hbm_drift"] and led.drift_events == 1
+
+
+def test_advert_and_ledger_make_no_cuda_call_per_read(gen, tmp_path, monkeypatch):
+    """With an engine loaded and a chat served: a thousand adverts read the
+    headroom from the admission ledger and make no CUDA call; the registry's
+    HBM ledger, ticked by the recorder over the chat, priced the engine and
+    stayed quiet; each program's analytic flops are the count of the shapes
+    it dispatched on the card."""
+    import asyncio
+
+    from nats_llm_studio_tpu_torch.config import WorkerConfig
+    from nats_llm_studio_tpu_torch.obs import roofline
+    from nats_llm_studio_tpu_torch.serve.worker import Worker
+
+    registry = _small_registry(tmp_path, obs_recorder_interval_ms=1.0)
+    worker = Worker(WorkerConfig(), registry)
+
+    async def run():
+        eng = await registry.get_engine(_SMALL_MID)
+        b = eng.batcher
+        shapes = []
+        for name in ("_admit_fused_paged", "_decode_pos_pallas"):
+            inner = getattr(b, name)
+
+            def spy(*a, _inner=inner, _name=name, **kw):
+                sh = b._shape
+                shapes.append((_name[1:], (*sh[:2], tuple(sh[2]), *sh[3:])))
+                return _inner(*a, **kw)
+
+            setattr(b, name, spy)
+        await _chat(eng, n=32)
+        flops, _ = b.stats.cost_counters()
+        calls = []
+        for fn in ("mem_get_info", "memory_stats", "memory_allocated", "memory_reserved",
+                   "synchronize", "get_device_name"):
+            real = getattr(torch.cuda, fn)
+            monkeypatch.setattr(torch.cuda, fn,
+                                lambda *a, _r=real, _n=fn, **k: calls.append(_n) or _r(*a, **k))
+        adverts = [worker.build_advert() for _ in range(1000)]
+        monkeypatch.undo()
+        sample = registry.hbm_ledger.last_sample()
+        await registry.close()
+        return adverts, calls, sample, flops, shapes, eng.cfg
+
+    adverts, calls, sample, flops, shapes, cfg = asyncio.run(run())
+    assert calls == []
+    assert 0.0 < adverts[0]["hbm_headroom"] <= 1.0 and adverts[0]["slots"] == 4
+    assert adverts[0]["models"] == [_SMALL_MID]
+    assert sample["bytes_in_use"] > 0 and sample["components"]["engines"] > 0
+    assert registry.hbm_ledger.drift_events == 0
+    fc, want = roofline.ForwardCost(cfg), {}
+    for name, sh in shapes:
+        want[name] = want.get(name, 0.0) + fc(*sh)[0]
+    assert {k: flops[k] for k in want} == pytest.approx(want, rel=1e-12)

@@ -53,8 +53,6 @@ from test_torch_serve import MID, _export
 # families the JAX worker renders for features the port does not have yet,
 # each with the ROADMAP item it waits for
 NOT_PORTED = {
-    # item 4b: drain and the excluded-workers bounce
-    "lmstudio_draining", "lmstudio_drain_bounce_total", "lmstudio_excluded_bounce_total",
     # item 5: disaggregated prefill (roles, KV transfer, warm handoff),
     # KV tiers, the legacy ring
     "lmstudio_worker_role", "lmstudio_kv_transfer_bytes_total",
@@ -71,13 +69,6 @@ NOT_PORTED = {
     "lmstudio_prefix_cache_demote_failures_total", "lmstudio_prefix_cache_demoted_blocks_total",
     # item 7: the serving mesh
     "lmstudio_mesh_tp", "lmstudio_mesh_dp", "lmstudio_mesh_ep", "lmstudio_mesh_sp",
-    # item 4b: the efficiency plane (roofline, device-time ledger, HBM ledger)
-    "lmstudio_mfu", "lmstudio_mbu", "lmstudio_program_flops_total",
-    "lmstudio_program_bytes_total", "lmstudio_device_ms_total",
-    "lmstudio_device_tokens_total", "lmstudio_goodput_tokens_per_device_s",
-    "lmstudio_hbm_bytes_in_use", "lmstudio_hbm_priced_bytes",
-    "lmstudio_hbm_unexplained_bytes", "lmstudio_hbm_drift_bytes",
-    "lmstudio_hbm_drift_events_total",
     # item 8: XLA's compile cache and recompiles, and its kernel choice
     # (the port has one decode kernel and no compile cache yet)
     "lmstudio_compile_cache_hits_total", "lmstudio_compile_cache_misses_total",
