@@ -73,6 +73,20 @@ verifies (k = 6 prompt-lookup drafts at 1-4 live slots):
              constrained chat (its text alone). Every envelope must be ok;
              bf16 KV must launch K1, K2 and K3 and not K1q or K4, int8 KV
              K1q, K2 and K4 and not K1 or K3.
+5b. tier   — once with each KV cache, SPEC_DECODE=0 (tier_phase): eight
+             greedy streams (~240-token prompts, 304 tokens each, ~272
+             blocks in all) staggered into an ample pool give each
+             stream's text; then a registry built with KV_POOL_BLOCKS=150
+             (about half) over the host KV tier: the same eight streams as
+             X-Priority: batch (growth parks streams to host memory, admits
+             suspend victims) and a ~1200-token premium chat whose admit
+             preempts batch streams (reason preempted); every text equal to
+             its ample-pool text; then a ~600-token chat hit, demoted by an
+             evictor and promoted back (the first hit's text, promoted
+             chunks > 0). Gates also: suspended > 0, resumed = suspended, no
+             kv_pool shed, the pool free at the end, the KV mode's kernels.
+             Recorded: suspend and resume ms a slot, the host tier's bytes,
+             the phase's seconds.
 6. overload — bf16 KV, 8 slots, the Worker over NATS with the supervisor
              (every 0.5 s) and the debug subjects, a registry with
              ADMIT_QUEUE_LIMIT 16, a 1 s brownout dwell, a DRR quantum of 16
@@ -1600,6 +1614,192 @@ def serve_path(torch, model_root: Path, kv_quant: str, seed: int, counters,
                 spec=dict(on=spec, off=spec_off), ext=ext)
 
 
+# -- phase 5b: swap-don't-shed ---------------------------------------------------
+
+TIER_STREAMS = 8
+# ~240-token prompts (each admitted in one dispatch, so the eight overlap
+# when staggered) and 304 tokens: ~544 tokens, 34 blocks a stream, 272 for
+# the eight
+TIER_TOKENS = 304
+TIER_POOL_BLOCKS = 150  # about half of what the eight streams need
+
+
+def tier_content(k: int, n: int = 700) -> str:
+    """``n`` bytes of user text (with the chat template, n + ~20 tokens),
+    distinct from its first characters: no two share a cached chunk."""
+    words = " ".join(f"wave {k}.{i} breaks on the reef" for i in range(n // 20 + 1))
+    return f"Voyage {k}: {words}"[:n]
+
+
+async def start_staggered(h: Served, contents: list, n: int, headers=None) -> list:
+    """Greedy streams, each sent once the one before has its first chunk,
+    so each admits alone beside the live ones: the same prefill in every
+    run it is compared with. Returns the tasks (stream_env results)."""
+    tasks = []
+    for c in contents:
+        first = asyncio.Event()
+        tasks.append(asyncio.ensure_future(stream_env(h, chat_body(c, n), headers=headers,
+                                                      first=first)))
+        await asyncio.wait_for(first.wait(), 300.0)
+    return tasks
+
+
+def tier_phase(torch, model_root: Path, kv_quant: str, counters,
+               device: str = "cuda") -> dict:
+    """Swap-don't-shed at full width, SPEC_DECODE=0 (a stream's text must not
+    depend on its neighbours). Eight streams (~240-token prompts, 304 tokens
+    each) staggered into an ample pool give each stream's text. Then, in a
+    registry built with KV_POOL_BLOCKS=150 (launch counters at 0 just
+    before, read just after): (A) the same eight streams, staggered alike,
+    as X-Priority: batch: their growth parks streams to host memory and
+    admits suspend victims; right after the last one's first chunk a
+    ~1200-token premium chat, whose admit preempts batch streams (reason
+    ``preempted``); (C) a ~600-token chat three times around an evictor:
+    its first hit's text, its chunks demoted to the host tier by the
+    evictor's insert, then promoted back (K3 or K4 continue from them)
+    with the same text. Gates: every stream's text equal to its ample-pool
+    text (the first differing position and its logit margin in the
+    error), a ``preempted`` suspend, suspended > 0 and resumed =
+    suspended, no kv_pool shed, promoted chunks > 0, the pool fully free at
+    the end, and the KV mode's kernels. Recorded: suspend and resume ms a
+    slot (the readback and the restore, host clock), the bytes a suspended
+    slot holds, the host tier's counters, the phase's seconds."""
+    import gc
+
+    from nats_llm_studio_tpu_torch.obs import events
+    from nats_llm_studio_tpu_torch.parallel.memory import kv_pool_block_bytes
+    from nats_llm_studio_tpu_torch.serve.registry import TorchRegistry
+    from nats_llm_studio_tpu_torch.store import ModelStore
+
+    t_phase = time.perf_counter()
+    contents = [tier_content(k, 220) for k in range(TIER_STREAMS)]
+    probe, evictor = tier_content(90, 600), tier_content(91, 1100)
+
+    def make_registry(pool_blocks: int = 0):
+        env = {"SPEC_DECODE": "0", "KV_POOL_BLOCKS": str(pool_blocks)}
+        os.environ.update(env)
+        try:
+            return TorchRegistry(ModelStore(model_root), device=device, max_seq_len=4096,
+                                 max_batch_slots=8, kv_quant=kv_quant)
+        finally:
+            for k in env:
+                os.environ.pop(k)
+
+    def release(registry) -> None:
+        asyncio.run(registry.close())
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    ample_ids: list = []
+    registry = make_registry()
+
+    async def ample_run():
+        async with Served(registry) as h:
+            record_ids((await registry.get_engine(MID)).batcher, ample_ids)
+            return await asyncio.gather(*await start_staggered(h, contents, TIER_TOKENS))
+
+    want = asyncio.run(ample_run())
+    release(registry)
+    if not all(r["ok"] for r in want):
+        raise AssertionError(f"tier (kv {kv_quant}): an ample-pool stream failed: "
+                             f"{[r['error'] for r in want]}")
+
+    registry = make_registry(TIER_POOL_BLOCKS)
+    tight_ids: list = []
+    out: dict = {}
+
+    async def tight_run():
+        async with Served(registry) as h:
+            eng = await registry.get_engine(MID)
+            b = eng.batcher
+            record_ids(b, tight_ids)
+            pool = b.pool_stats()
+            if pool["blocks_total"] != TIER_POOL_BLOCKS or b.kv_tiers is None or not b.kv_suspend:
+                raise AssertionError(f"tier: KV_POOL_BLOCKS / the host tier did not reach the "
+                                     f"batcher: {pool}, tiers {b.kv_tiers}")
+            for f in counters:
+                f.launches = 0
+            seq0 = events.EVENTS.emitted
+            t0 = time.perf_counter()
+            tasks = await start_staggered(h, contents, TIER_TOKENS, {"X-Priority": "batch"})
+            seq_p = events.EVENTS.emitted
+            prem = await stream_env(h, chat_body(tier_content(92, 1180), 16),
+                                    headers={"X-Priority": "premium"})
+            got = await asyncio.gather(*tasks)
+            await wait_for(lambda: b.idle, "the storm to drain")
+            out["storm_s"] = time.perf_counter() - t0
+            if not prem["ok"]:
+                raise AssertionError(f"tier (kv {kv_quant}): the premium chat failed: "
+                                     f"{prem['error']}")
+            for i, r in enumerate(got):
+                if not r["ok"]:
+                    raise AssertionError(f"tier (kv {kv_quant}): stream {i} failed: "
+                                         f"{r['error']}")
+                if r["text"] != want[i]["text"]:
+                    prompt, ids = ample_ids[i]
+                    mine = next(x for p, x in tight_ids if p == prompt)
+                    raise AssertionError(
+                        f"tier (kv {kv_quant}): stream {i}'s text departs from its "
+                        f"ample-pool text: {divergence(torch, eng, prompt, ids, mine)}")
+            out["after_storm"] = {**b.tier_stats(), "pool": b.pool_stats()}
+            # C: a first hit, its chunks demoted by an evictor, then promoted
+            texts, hits = [], []
+            for content in (probe, probe, evictor, probe):
+                h0, p0 = b.prefix_cache.hit_tokens, b.tier_stats()["promoted_chunks"]
+                r = await h.chat(content, 16)
+                texts.append(r["choices"][0]["message"]["content"])
+                hits.append((b.prefix_cache.hit_tokens - h0,
+                             b.tier_stats()["promoted_chunks"] - p0))
+            out["promote"] = {"hits": hits, "same_text": texts[3] == texts[1]}
+            if hits[1][0] <= 0 or hits[3][0] <= 0 or hits[3][1] <= 0:
+                raise AssertionError(f"tier (kv {kv_quant}): no hit or no promotion: "
+                                     f"(hit tokens, promoted chunks) {hits}")
+            if texts[3] != texts[1]:
+                raise AssertionError(f"tier (kv {kv_quant}): the promoted prefix's text "
+                                     f"departs from its first hit's: {texts[1]!r} vs "
+                                     f"{texts[3]!r}")
+            out["launches"] = {f.__name__: f.launches for f in counters}
+            b.drop_prefix_cache()  # the pool must be all free now
+            evs = [e for e in events.EVENTS.snapshot() if e["seq"] >= seq0
+                   and e["kind"] in ("slot_suspend", "slot_resume")]
+            preempted = [e for e in evs if e["seq"] >= seq_p and e["reason"] == "preempted"]
+            if not preempted:
+                raise AssertionError(f"tier (kv {kv_quant}): the premium admit preempted "
+                                     f"no batch stream")
+            return (b.tier_stats(), b.pool_stats(), b.stats.shed_cause_counts(), evs,
+                    kv_pool_block_bytes(b.cfg, b.kv_block_tokens))
+
+    st, pool, sheds, evs, block = asyncio.run(tight_run())
+    release(registry)
+    sus = [e for e in evs if e["kind"] == "slot_suspend"]
+    res = [e for e in evs if e["kind"] == "slot_resume"]
+    out.update(
+        suspended_total=st["suspended_total"], resumed_total=st["resumed_total"],
+        reasons={r: sum(e["reason"] == r for e in sus) for r in {e["reason"] for e in sus}},
+        suspend_ms=[e["ms"] for e in sus], resume_ms=[e["ms"] for e in res],
+        suspended_bytes=[e["blocks"] * block for e in sus],
+        host_tier={k: st[k] for k in ("host_bytes", "host_entries", "demoted_chunks",
+                                      "promoted_chunks", "demoted_blocks", "host_hits")},
+        sheds=sheds, pool=pool, seconds=time.perf_counter() - t_phase)
+    log(f"tier (kv {kv_quant}): {json.dumps(out)}")
+    if not (st["suspended_total"] > 0 and st["resumed_total"] == st["suspended_total"]):
+        raise AssertionError(f"tier (kv {kv_quant}): suspended {st['suspended_total']}, "
+                             f"resumed {st['resumed_total']}")
+    if sheds.get("kv_pool", 0):
+        raise AssertionError(f"tier (kv {kv_quant}): kv_pool sheds {sheds}")
+    if pool["blocks_free"] != pool["blocks_total"]:
+        raise AssertionError(f"tier (kv {kv_quant}): the pool is not free at the end: {pool}")
+    must, must_not = EXPECTED[kv_quant]
+    for name in must:
+        if device == "cuda" and out["launches"][name] <= 0:
+            raise AssertionError(f"tier (kv {kv_quant}): {name} was not launched")
+    for name in must_not:
+        if out["launches"][name] != 0:
+            raise AssertionError(f"tier (kv {kv_quant}): {name} was launched")
+    return out
+
+
 # -- phase 6: overload control and supervision -----------------------------------
 
 MIDP = "downloads/smoke-2layer"  # the overload phase's poison model (file:// pull)
@@ -1742,9 +1942,11 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
     first. Queue bounds and brownout (ADMIT_QUEUE_LIMIT 16, dwell 1 s): 8
     live streams and a burst of 24 chats, then 4 more once SHED_ONLY is
     reached: depth and fair-share sheds past the bound, brownout sheds, every chat gets a terminal
-    envelope (served + shed = sent), the events ring shows brownout ->
-    shed_only -> ... -> normal under a trickle, no verify runs at level >= 1,
-    and the lmstudio_brownout_level gauge follows the level. A ~4000-token
+    envelope (served + shed = sent), the SHED_ONLY edge parks live streams
+    (resumed once the level drops), the events ring shows brownout ->
+    shed_only -> ... -> normal under a trickle, a drafting stream sent once
+    the queued chats are answered starts at level >= 1 and no verify runs
+    at level >= 1, and the lmstudio_brownout_level gauge follows the level. A ~4000-token
     prompt prefilled in chunks beside a live stream (K3): the largest
     heartbeat age, and no hang declared; meanwhile profile (a Chrome trace
     naming paged_decode_mma_kernel), debug.snapshot (slot refcounts = the
@@ -1888,7 +2090,11 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
         gauges = []
         late: list = []
         t_end = time.monotonic() + 120.0
-        while not all(f.done() for f in burst + tasks + late):
+        # until the queued chats are answered (the live streams, half of
+        # them parked on the SHED_ONLY edge until the level drops, may still
+        # be decoding)
+        while not (all(f.done() for f in burst + late)
+                   and (late or all(t.done() for t in tasks))):
             lvl0 = b.brownout_level
             text = (await subject(h, "metrics.prom")).decode()
             m = re.search(r'^lmstudio_brownout_level\{[^}]*model="%s"[^}]*\} (\d+)$'
@@ -1900,6 +2106,12 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
                 sent += 4
             gate(time.monotonic() < t_end, "the storm did not drain")
             await asyncio.sleep(0.05)
+        # a premium stream that drafts (a run of one character, PERF.md
+        # §4) while the level steps down: paused verifies at level >= 1,
+        # verifies once it is back at 0 and the live streams have ended
+        lvl = b.brownout_level
+        s = await stream_env(h, chat_body("a" * 1500, 200), {"X-Priority": "premium"})
+        await asyncio.gather(*tasks)
         results = [f.result() for f in burst + late] + [t.result() for t in tasks]
         served = sum(1 for r in results if r.get("ok"))
         shed = [r["error"] for r in results if not r.get("ok")]
@@ -1913,11 +2125,6 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
              f"storm sheds: {causes}, late {[f.result() for f in late]}")
         gate(all(g[1] in (g[0], g[2]) for g in gauges) and max(g[1] for g in gauges) == 2,
              f"the brownout gauge left the level: {gauges}")
-        # a premium stream that drafts (a run of one character, PERF.md
-        # §4) while the level steps down: paused verifies at level >= 1,
-        # verifies once it is back at 0
-        lvl = b.brownout_level
-        s = await stream_env(h, chat_body("a" * 1500, 150), {"X-Priority": "premium"})
         gate(lvl >= 1 and s["ok"], f"the drafting stream at level {lvl}: {s['error']}")
         await settle(h, b)  # back to normal under a trickle
         evs = [e for e in (await subject(h, "events", {"kind": "brownout", "limit": 100})
@@ -1933,10 +2140,10 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
              f"verifies ran at levels {verify_levels}")
         out["brownout"] = {"sent": sent, "served": served, "shed": len(shed), "causes": causes,
                            "events": names, "verifies_at_level0": len(verify_levels),
-                           "gauge_samples": len(gauges)}
+                           "gauge_samples": len(gauges), "suspends": dict(b._suspend_stats)}
         log(f"overload: storm: sent {sent}, served {served}, shed {len(shed)} {causes}; "
             f"levels {names}; a drafting stream from level {lvl}: {len(verify_levels)} "
-            f"verifies, all at level 0")
+            f"verifies, all at level 0; suspends {out['brownout']['suspends']}")
 
         # 4. the loop's cost at 8 slots, recorder on and off (on, off, off,
         # on), then the efficiency plane off (twice) and on
@@ -2799,6 +3006,7 @@ def main() -> int:
                 fa.flash_attention_chunk, fa.flash_attention_chunk_kvq)
     paths = {kv: serve_path(torch, model_root, kv, args.seed, counters)
              for kv in ("none", "int8")}
+    tier = {kv: tier_phase(torch, model_root, kv, counters) for kv in ("none", "int8")}
     for f in counters:
         f.launches = 0
     overload = asyncio.run(overload_phase(torch, model_root, staged.parent, args.seed))
@@ -2813,9 +3021,10 @@ def main() -> int:
     cluster = asyncio.run(cluster_phase(torch, model_root, work, counters,
                                         paths["none"]["prof"]))
     if drifts:
-        raise AssertionError(f"hbm_drift fired in the serve, overload or cluster phases: "
-                             f"{drifts}")
-    log("hbm ledger: no hbm_drift in the serve, spec, prefix, overload and cluster phases")
+        raise AssertionError(f"hbm_drift fired in the serve, tier, overload or cluster "
+                             f"phases: {drifts}")
+    log("hbm ledger: no hbm_drift in the serve, spec, prefix, tier, overload and cluster "
+        "phases")
     for f in counters:
         f.launches = 0
     lifecycle.update(asyncio.run(lifecycle_phase(torch, model_root, work, args.seed)))
@@ -2859,12 +3068,13 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src[wrapper][0],
             "replaces": src[wrapper][1], "design": src[wrapper][2], "shape": r["shape"],
-            # the wrapper's launches over both serve phases, the overload, the
-            # cluster and the lifecycle phases (K2 serves both KV modes), at whatever
-            # shapes they ran: a
-            # second row of one wrapper (@T4096, @KW4096, @W7, ...) reports
-            # the same counter, named by launches_of
+            # the wrapper's launches over both serve and tier phases, the
+            # overload, the cluster and the lifecycle phases (K2 serves both
+            # KV modes), at whatever shapes they ran: a second row of one
+            # wrapper (@T4096, @KW4096, @W7, ...) reports the same counter,
+            # named by launches_of
             "launches": sum(p["launches"][wrapper] for p in paths.values())
+            + sum(t["launches"][wrapper] for t in tier.values())
             + overload["launches"][wrapper] + cluster["launches"][wrapper]
             + lifecycle["launches"][wrapper],
             "launches_of": wrapper,
@@ -2887,6 +3097,7 @@ def main() -> int:
             "spec": p["spec"],
             "ext": p["ext"],
         }
+    summary["tier"] = tier
     summary["overload"] = overload
     summary["cluster"] = cluster
     summary["lifecycle"] = lifecycle

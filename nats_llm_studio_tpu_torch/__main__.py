@@ -1,4 +1,4 @@
-"""``python -m nats_llm_studio_tpu_torch serve|broker|route|obs|gateway|publish``
+"""``python -m nats_llm_studio_tpu_torch serve|broker|route|obs|gateway|publish|chat``
 
 Mirror of ``nats_llm_studio_tpu/main.py`` for the port:
 
@@ -7,9 +7,12 @@ Mirror of ``nats_llm_studio_tpu/main.py`` for the port:
   ``LMSTUDIO_MODELS_DIR`` and reaches the ``MODEL_BUCKET`` Object Store
   bucket over NATS, optionally behind an in-process broker with the
   object-store module, with the KV cache that ``TPU_KV_QUANT`` ("none" or
-  "int8") names and the overload, supervision and recorder knobs of
-  ``config.WorkerConfig``. The device defaults to the card; with no card
-  the command fails unless ``--device cpu`` is given.
+  "int8") names, the pool and tier settings (``KV_BLOCK_TOKENS``,
+  ``KV_POOL_BLOCKS``, ``KV_HOST_POOL_BYTES``, ``KV_SUSPEND``,
+  ``QOS_PREEMPT``) and the overload, supervision and recorder knobs of
+  ``config.WorkerConfig``. ``CHAOS_SPEC`` / ``CHAOS_SEED`` install a fault
+  plan (``transport/faults.py``) first. The device defaults to the card;
+  with no card the command fails unless ``--device cpu`` is given.
 * ``broker [--port N] [--store-dir DIR]``: the embedded NATS broker with
   the object-store module alone.
 * ``route [--max-attempts N]``: the cluster router (``serve/router.py
@@ -27,12 +30,16 @@ The autoscaler is not ported: ``OBS_AUTOSCALE=1`` makes ``route`` and
 * ``publish GGUF MODEL_ID``: import a GGUF into the local cache and upload
   it to the bucket, for workers to ``pull_model`` or
   ``sync_model_from_bucket``.
+* ``chat MODEL_ID PROMPT [--max-tokens N] [--temperature T] [--stream]``:
+  one chat over ``lmstudio.chat_model``; prints the answer (streamed as it
+  arrives with ``--stream``).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import signal
 import sys
@@ -66,8 +73,13 @@ async def _run_serve(args: argparse.Namespace) -> None:
     from .serve.worker import Worker
     from .store import JetStreamStoreModule
     from .transport import EmbeddedBroker, connect
+    from .transport import faults
 
     cfg = WorkerConfig()
+    # the chaos harness, only when CHAOS_SPEC is set
+    plan = faults.plan_from_env()
+    if plan is not None:
+        faults.install(plan)
     broker = None
     if args.embedded_broker:
         broker = await EmbeddedBroker(port=args.port).start()
@@ -85,6 +97,9 @@ async def _run_serve(args: argparse.Namespace) -> None:
         brownout=cfg.brownout, obs_recorder=cfg.obs_recorder,
         obs_recorder_interval_ms=cfg.obs_recorder_interval_ms, obs_dump_dir=cfg.obs_dump_dir,
         worker_id=cfg.worker_id, qos_quantum_tokens=cfg.qos_quantum_tokens,
+        kv_block_tokens=cfg.kv_block_tokens, kv_pool_blocks=cfg.kv_pool_blocks,
+        kv_host_pool_bytes=cfg.kv_host_pool_bytes, kv_suspend=cfg.kv_suspend,
+        qos_preempt=cfg.qos_preempt,
     )
     worker = Worker(cfg, registry)
     await worker.start()
@@ -208,6 +223,45 @@ async def _run_publish(args: argparse.Namespace) -> None:
         await nc.close()
 
 
+async def _run_chat(args: argparse.Namespace) -> int:
+    from .transport import connect
+
+    cfg = WorkerConfig()
+    nc = await connect(cfg.nats_url)
+    body = json.dumps({
+        "model": args.model_id,
+        "messages": [{"role": "user", "content": args.prompt}],
+        "max_tokens": args.max_tokens,
+        "temperature": args.temperature,
+        "stream": args.stream,
+    }).encode()
+    subject = cfg.subject("chat_model")
+    rc = 0
+    try:
+        if args.stream:
+            async for msg in nc.request_stream(subject, body, timeout=cfg.chat_timeout_s):
+                r = json.loads(msg.payload)
+                if (msg.headers or {}).get("Nats-Stream-Done"):
+                    if not r.get("ok"):
+                        print(f"\nerror: {r.get('error')}", file=sys.stderr)
+                        rc = 1
+                    print()
+                    break
+                delta = r["data"]["chunk"]["choices"][0]["delta"].get("content", "")
+                print(delta, end="", flush=True)
+        else:
+            msg = await nc.request(subject, body, timeout=cfg.chat_timeout_s)
+            r = json.loads(msg.payload)
+            if r.get("ok"):
+                print(r["data"]["response"]["choices"][0]["message"]["content"])
+            else:
+                print(f"error: {r.get('error')}", file=sys.stderr)
+                rc = 1
+    finally:
+        await nc.close()
+    return rc
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="nats_llm_studio_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -231,13 +285,18 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("publish", help="import a GGUF and upload it to the bucket")
     p.add_argument("gguf")
     p.add_argument("model_id")
+    c = sub.add_parser("chat", help="send a chat request over NATS")
+    c.add_argument("model_id")
+    c.add_argument("prompt")
+    c.add_argument("--max-tokens", type=int, default=256)
+    c.add_argument("--temperature", type=float, default=0.8)
+    c.add_argument("--stream", action="store_true")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     run = {"serve": _run_serve, "broker": _run_broker, "route": _run_route, "obs": _run_obs,
-           "gateway": _run_gateway, "publish": _run_publish}[args.cmd]
-    asyncio.run(run(args))
-    return 0
+           "gateway": _run_gateway, "publish": _run_publish, "chat": _run_chat}[args.cmd]
+    return asyncio.run(run(args)) or 0
 
 
 if __name__ == "__main__":

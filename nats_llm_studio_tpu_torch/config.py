@@ -139,11 +139,69 @@ class WorkerConfig:
         default_factory=lambda: _env("OBS_SPANS", "1").strip().lower()
         not in ("0", "false", "off")
     )
+    # -- the paged KV pool (serve/block_pool.py) -----------------------------
+    # KV_BLOCK_TOKENS is tokens per block (snapped down to divide the
+    # prefill chunk); KV_POOL_BLOCKS=0 auto-sizes for zero starvation
+    # (every slot at max_seq + the prefix budget); deployments
+    # under-provision it to pack more slots into the same device memory
+    kv_block_tokens: int = field(
+        default_factory=lambda: int(_env("KV_BLOCK_TOKENS", "16"))
+    )
+    kv_pool_blocks: int = field(
+        default_factory=lambda: int(_env("KV_POOL_BLOCKS", "0"))
+    )
+    # -- hierarchical KV tiers (serve/kv_tiers.py) ---------------------------
+    # host-RAM tier budget in bytes under the device block pool: evicted/
+    # reclaimed prefix-cache chunks demote here (and spill onward to the
+    # Object Store) instead of being dropped. 0 disables tiering entirely.
+    kv_host_pool_bytes: int = field(
+        default_factory=lambda: int(_env("KV_HOST_POOL_BYTES", str(256 << 20)))
+    )
+    # spill host-tier evictions to the JetStream Object Store as KVX1 blobs
+    # (bucket "kv-tier"); the cold tier survives process death
+    kv_spill_objstore: bool = field(
+        default_factory=lambda: _env("KV_SPILL_OBJSTORE", "1").strip().lower()
+        not in ("0", "false", "off")
+    )
+    # seconds one Object Store call of the cold tier may take
+    kv_transfer_timeout_s: float = field(
+        default_factory=lambda: float(_env("KV_TRANSFER_TIMEOUT_S", "10"))
+    )
+    # slot suspend/resume (swap-don't-shed): under pool exhaustion or
+    # SHED_ONLY brownout, move a victim slot's KV + resume state to host
+    # RAM and continue it later bit-identically instead of shedding it.
+    # KV_SUSPEND=0 is the kill switch (shed on exhaustion).
+    kv_suspend: bool = field(
+        default_factory=lambda: _env("KV_SUSPEND", "1").strip().lower()
+        not in ("0", "false", "off")
+    )
+    # proactive demotion low-water mark: each owner tick with the pool's
+    # free fraction below this, cold cache chunks demote to the host tier
+    kv_demote_free_frac: float = field(
+        default_factory=lambda: float(_env("KV_DEMOTE_FREE_FRAC", "0.10"))
+    )
+    # promotion-on-hit ceiling: at most this many tiered chunks re-enter the
+    # pool per admit
+    kv_promote_chunks: int = field(
+        default_factory=lambda: int(_env("KV_PROMOTE_CHUNKS", "64"))
+    )
+    # cold-tier object-count cap; shallowest chains purge first
+    kv_spill_max_objects: int = field(
+        default_factory=lambda: int(_env("KV_SPILL_MAX_OBJECTS", "512"))
+    )
     # -- multi-tenant QoS (serve/qos.py) -------------------------------------
     # deficit-round-robin quantum in prompt tokens per round per unit of
     # class weight
     qos_quantum_tokens: int = field(
         default_factory=lambda: int(_env("QOS_QUANTUM_TOKENS", "256"))
+    )
+    # premium preempt-to-host-tier: a higher-class admit that finds the KV
+    # pool full suspends the lowest-class victim slot to host RAM (resumed
+    # bit-identically when pressure clears) before ever shedding. Off
+    # restores class-blind victim selection (largest slot first).
+    qos_preempt: bool = field(
+        default_factory=lambda: _env("QOS_PREEMPT", "1").strip().lower()
+        not in ("0", "false", "off")
     )
     # tenant-label cardinality cap for the Prometheus exposition: the top-K
     # tenants by volume keep their own rows, the rest roll up into

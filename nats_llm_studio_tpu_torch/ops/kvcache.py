@@ -76,6 +76,47 @@ def kv_nbytes(cache) -> int:
     return cache.numel() * cache.element_size()
 
 
+def host_kv_nbytes(leaf) -> int:
+    """Host bytes of one demoted or suspended KV leaf: a tensor or ndarray,
+    a KVQ pair, or the wire-normalized ``(codes, scales)`` tuple
+    (serve/kv_transfer.py), the host tier's accounting unit."""
+    if leaf is None:
+        return 0
+    if isinstance(leaf, tuple):
+        return host_kv_nbytes(leaf[0]) + host_kv_nbytes(leaf[1])
+    if is_quantized(leaf):
+        return kv_nbytes(leaf)
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return int(leaf.nbytes)
+
+
+def kv_to_host(leaf):
+    """Copy a pool read (a tensor or a KVQ pair) to host memory: a CPU
+    tensor, or a ``(codes, scales)`` tuple of CPU tensors, the layout the
+    host tier and the KVX1 wire format keep."""
+    if is_quantized(leaf):
+        return (leaf.q.cpu(), leaf.s.cpu())
+    return leaf.cpu()
+
+
+def kv_from_host(leaf, device):
+    """The inverse of ``kv_to_host`` for a pool write: a host tensor or
+    ndarray (or a ``(codes, scales)`` pair of them) on ``device``, as the
+    row ``kv_pool_write_row`` takes."""
+    if isinstance(leaf, tuple):
+        return KVQ(q=_host_tensor(leaf[0]).to(device), s=_host_tensor(leaf[1]).to(device))
+    return _host_tensor(leaf).to(device)
+
+
+def _host_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    import numpy as np
+
+    return torch.from_numpy(np.array(x))  # a writable copy of a wire buffer
+
+
 def kv_pool_zeros(shape, dtype: torch.dtype, device, quant: bool = False):
     """A zeroed pool leaf-set [NB, L, Hkv, T, D]: a tensor, or a KVQ pair."""
     if quant:

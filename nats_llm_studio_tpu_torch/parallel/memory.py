@@ -161,7 +161,8 @@ def kv_pool_block_bytes(cfg: ModelConfig, block_tokens: int,
     return 2 * cfg.n_layers * cfg.n_kv_heads * block_tokens * per_pos // max(1, tp)
 
 
-# the serving batcher's geometry (serve/batcher.py ContinuousBatcher)
+# the serving batcher's default geometry (serve/batcher.py
+# ContinuousBatcher); the block size is the ``KV_BLOCK_TOKENS`` setting
 PREFILL_CHUNK = 256
 KV_BLOCK_TOKENS = 16
 
@@ -193,7 +194,8 @@ def prefill_activation_bytes(cfg: ModelConfig, tokens: int) -> int:
 
 def estimate_load_bytes(cfg: ModelConfig, max_slots: int = 8,
                         max_seq_len: int | None = None, prefix_cache_blocks: int = 0,
-                        max_group_long: int = 4) -> dict[str, int]:
+                        max_group_long: int = 4, kv_block_tokens: int = KV_BLOCK_TOKENS,
+                        kv_pool_blocks: int = 0) -> dict[str, int]:
     """Device bytes of one model served by the port's batcher, priced as it
     allocates them (``cfg.dtype`` and ``cfg.kv_quant`` are the serving
     ones):
@@ -202,7 +204,9 @@ def estimate_load_bytes(cfg: ModelConfig, max_slots: int = 8,
       materializes it for tied embeddings);
     * ``kv_pool``: ``max_slots * blocks_per_row + prefix_cache_blocks + 1``
       pool blocks (every slot at max_seq, the prefix cache's budget and the
-      null block), as ``serve/batcher.py`` allocates them;
+      null block), or ``kv_pool_blocks + 1`` when ``KV_POOL_BLOCKS`` sets
+      the population, of ``kv_block_tokens`` tokens (snapped to divide the
+      serving chunk), as ``serve/batcher.py`` allocates them;
     * ``prefix``: the chunk-end logits rows the prefix cache keeps beside
       its blocks, one [1, 1, V] f32 row a node of C/T blocks; with the
       pool's prefix blocks this is the reference's ``prefix_block_bytes``
@@ -224,9 +228,10 @@ def estimate_load_bytes(cfg: ModelConfig, max_slots: int = 8,
       of their own.
     """
     seq = min(max_seq_len or cfg.max_seq_len, cfg.max_seq_len)
-    chunk, t = serving_geometry(seq)
+    chunk, t = serving_geometry(seq, block=max(1, kv_block_tokens))
     prefix_blocks = max(0, prefix_cache_blocks)
-    blocks = max_slots * (seq // t) + prefix_blocks + 1
+    blocks = 1 + (kv_pool_blocks if kv_pool_blocks > 0
+                  else max_slots * (seq // t) + prefix_blocks)
     est = estimate_device_bytes(cfg, {}, batch=max_slots, seq_len=seq)
     pool = blocks * kv_pool_block_bytes(cfg, t)
     row = 4 * cfg.vocab_size  # one [1, 1, V] f32 logits row

@@ -90,9 +90,27 @@ it off. The time is the host time of the call, as in the reference: eager
 launches return when queued, so a prefill chunk that queues ahead of the
 device reads low.
 
-Not ported yet: KV tiers (prefix demotion and promotion), slot suspend
-and parking (and with them QoS preemption and brownout's suspend lever),
-and the legacy contiguous-KV layout.
+Swap-don't-shed, as the reference's: when the pool runs dry an allocation
+first reclaims unpinned prefix-cache chunks, demoting them to the host KV
+tier (``serve/kv_tiers.py``, attached as ``kv_tiers``: a byte-budgeted
+host LRU with an Object Store spill below it) instead of discarding them;
+then suspends a victim slot (``KV_SUSPEND``, on): its blocks are read back
+to host memory with its position, rng step, seed, carry token and spec
+state, the slot frees, and it resumes later into fresh blocks, decoding
+exactly what it would have decoded; only then sheds. A higher-class admit
+first preempts strictly lower classes (``QOS_PREEMPT``, on; reason
+``preempted``). A decode burst whose table growth finds no block parks
+the growing slot (reason ``growth``) when it can ever resume, and sheds
+it alone otherwise, with no pool reset. Brownout's SHED_ONLY edge suspends
+the youngest streams of the lowest class down to ``suspend_target``; they
+resume once the level drops. A long prompt's admit first promotes
+host-tier chunks that extend its cached prefix back into the pool, and
+between bursts cold cache chunks demote ahead of demand to keep
+``demote_free_frac`` of the pool free. A suspended request's deadline
+keeps running. The readback and the restore are eager copies outside the
+programs, as in the reference: not dispatches of the device-time ledger.
+
+Not ported yet: the legacy contiguous-KV layout.
 """
 
 from __future__ import annotations
@@ -100,6 +118,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import logging
+import os
 import queue as _queue
 import random
 import threading
@@ -137,13 +156,16 @@ from ..ops.kvcache import (
     KVQ,
     is_quantized,
     kv_copy_slice,
+    kv_from_host,
     kv_nbytes,
     kv_pool_copy_block,
     kv_pool_read_blocks,
     kv_pool_write_row,
     kv_pool_zeros,
+    kv_to_host,
 )
 from ..parallel.memory import KV_BLOCK_TOKENS, PREFILL_CHUNK, serving_geometry
+from ..transport import faults as _faults
 from .block_pool import BlockPool
 from .brownout import LEVEL_NAMES, SHED_ONLY, BrownoutConfig, BrownoutController
 from .prefix_cache import PrefixCache
@@ -220,6 +242,42 @@ class BatcherOverloaded(RuntimeError):
 class _PoolExhausted(BatcherOverloaded):
     """The block pool ran dry. Raised before any device write, so only the
     one request is shed."""
+
+
+def _env_on(name: str) -> bool:
+    """A switch that is on unless the environment says 0/false/off."""
+    return os.environ.get(name, "1").strip().lower() not in ("0", "false", "off")
+
+
+class _Suspended:
+    """A slot parked on the host tier (swap-don't-shed): the host copies of
+    its KV blocks and everything a resume needs to decode exactly what it
+    would have: position, rng step and seed, the spec-decode n-gram state
+    (by reference: its history already holds every delivered token), and
+    the request itself (whose ``emitted`` tail re-seeds the carry token).
+    Owner thread only."""
+
+    __slots__ = ("req", "k", "v", "n_blocks", "min_blocks", "pos", "steps",
+                 "seed", "spec", "t_suspend", "reason")
+
+    def __init__(self, req, k, v, n_blocks, pos, steps, seed, spec, t_suspend, reason,
+                 min_blocks=None):
+        self.req = req
+        self.k = k
+        self.v = v
+        self.n_blocks = n_blocks
+        # resume gate: no re-admit until this many blocks are free. A slot
+        # parked by a failed decode growth needs its table plus the growth
+        # it could not take: resuming at exactly n_blocks would fail the
+        # same growth and park again, starving the slots the parking was
+        # meant to unblock
+        self.min_blocks = n_blocks if min_blocks is None else min_blocks
+        self.pos = pos
+        self.steps = steps
+        self.seed = seed
+        self.spec = spec
+        self.t_suspend = t_suspend
+        self.reason = reason
 
 
 @dataclass
@@ -564,9 +622,12 @@ class ContinuousBatcher:
     ``brownout`` (a ``BrownoutConfig``, None = off), ``hbm_headroom_fn``
     (the free fraction of the device-memory budget, or None), and
     ``deadline_min_tokens`` (1); ``recorder`` (a ``FlightRecorder``, None =
-    off) and ``qos_quantum_tokens`` (256: the DRR quantum in prompt tokens).
-    QoS preemption stays off, as in the reference when slot suspend is off:
-    it rides slot suspend, which the port does not have yet."""
+    off) and ``qos_quantum_tokens`` (256: the DRR quantum in prompt tokens);
+    ``kv_block_tokens`` (16, halved until it divides the serving chunk);
+    ``kv_tiers`` (a ``KVTierManager``, None = no host tier; it may also be
+    attached as ``kv_tiers`` before the first submit); ``kv_suspend`` and
+    ``qos_preempt`` (None reads ``KV_SUSPEND`` / ``QOS_PREEMPT``, both on;
+    preemption rides suspend)."""
 
     # the reference's serving defaults: 256-token prefill chunks, decode
     # bursts of 8 steps, 16-token KV blocks
@@ -583,7 +644,9 @@ class ContinuousBatcher:
                  max_queue: int = 0, max_queue_age_ms: float = 0.0,
                  brownout: BrownoutConfig | None = None, hbm_headroom_fn=None,
                  deadline_min_tokens: int = 1, recorder=None,
-                 qos_quantum_tokens: int = 256):
+                 qos_quantum_tokens: int = 256, kv_block_tokens: int | None = None,
+                 kv_tiers=None, kv_suspend: bool | None = None,
+                 qos_preempt: bool | None = None):
         self.params = ensure_lm_head(params)
         self.cfg = cfg
         self.device = self.params["embed"].device
@@ -594,7 +657,9 @@ class ContinuousBatcher:
         # never writes past the row cache; the block size divides the chunk,
         # so a cached chunk is whole blocks
         chunk = max(8, prefill_chunk if prefill_chunk is not None else self.PREFILL_CHUNK)
-        self.prefill_chunk, T = serving_geometry(self.max_seq, chunk, self.KV_BLOCK_TOKENS)
+        self.prefill_chunk, T = serving_geometry(
+            self.max_seq, chunk,
+            max(1, kv_block_tokens if kv_block_tokens is not None else self.KV_BLOCK_TOKENS))
         if self.max_seq % self.prefill_chunk:
             raise ValueError(
                 f"max_seq_len={self.max_seq} must be divisible by a prefill "
@@ -663,6 +728,23 @@ class ContinuousBatcher:
         self._prefill_rate_ewma = 0.0  # prompt tokens/s, at first token
         self._decode_spt_ewma = 0.0  # seconds a decode step, at readback
         self.recorder = recorder
+        # the host KV tier under the prefix cache (its demotion source and
+        # promotion target, so only meaningful with one); the owner loop
+        # reads it when it starts
+        self.kv_tiers = kv_tiers
+        # slot suspend (swap-don't-shed) and QoS preemption, which rides it
+        self.kv_suspend = bool(_env_on("KV_SUSPEND") if kv_suspend is None else kv_suspend)
+        self.qos_preempt = self.kv_suspend and bool(
+            _env_on("QOS_PREEMPT") if qos_preempt is None else qos_preempt)
+        # suspended-slot records (the owner thread mutates; len() is read
+        # from any thread) and lifetime suspend counters
+        self._suspended: list[_Suspended] = []
+        self._suspend_stats = {
+            "suspended_total": 0,
+            "resumed_total": 0,
+            "suspend_failures": 0,
+            "suspended_deadline_expired": 0,
+        }
         self._drr = DrrScheduler(quantum=max(1, int(qos_quantum_tokens)))
         self.tenant_stats = TenantStats()
         # the live slots' positions and tables for debug_snapshot(),
@@ -929,26 +1011,32 @@ class ContinuousBatcher:
 
     # -- block ownership (owner thread) --------------------------------------
 
-    def _alloc_blocks(self, k: int) -> list[int]:
+    def _try_alloc(self, k: int) -> list[int] | None:
         """Take k fresh pool blocks; on shortage, reclaim unpinned
-        prefix-cache blocks (the evictable tier) first. Raises
-        _PoolExhausted, before any device write, when that is not enough."""
+        prefix-cache blocks (the evictable tier: demoted to the host tier
+        when the owner loop has wired one, discarded otherwise) first. None
+        when that is not enough."""
         pool, pc = self._pool, self.prefix_cache
         got = pool.alloc(k)
         if got is None and pc is not None:
-            pc.reclaim(k - pool.free_blocks)
+            pc.reclaim(k - pool.free_blocks, demote=True)
             got = pool.alloc(k)
+        return got
+
+    def _exhausted(self, k: int) -> _PoolExhausted:
+        return _PoolExhausted(
+            f"kv block pool exhausted ({k} blocks needed, "
+            f"{self._pool.free_blocks} free) (shed_cause=kv_pool); "
+            f"retry on another worker"
+        )
+
+    def _alloc_blocks(self, k: int) -> list[int]:
+        """A decode write's growth: ``_try_alloc`` or _PoolExhausted, raised
+        before any device write and counted by the caller, which may park
+        the slot instead of shedding it."""
+        got = self._try_alloc(k)
         if got is None:
-            self.stats.record_shed("kv_pool")
-            if self.recorder is not None:
-                # rate-limited: a starved pool sheds every admit attempt
-                self.recorder.dump("kv_pool_exhausted",
-                                   extra={"needed": k, "free": pool.free_blocks})
-            raise _PoolExhausted(
-                f"kv block pool exhausted ({k} blocks needed, "
-                f"{pool.free_blocks} free) (shed_cause=kv_pool); "
-                f"retry on another worker"
-            )
+            raise self._exhausted(k)
         return got
 
     def _ensure_private(self, tbl: list[int], lo: int, hi: int) -> int:
@@ -1000,6 +1088,11 @@ class ContinuousBatcher:
             obs_emit("engine_crash", error=error, inflight_failed=n)
             if self.recorder is not None:
                 self.recorder.dump("engine_crash", extra={"error": error, "inflight_failed": n})
+        finally:
+            if self.prefix_cache is not None:
+                # the demotion hook closes over the loop's pool: unwired, so
+                # a stopped or crashed batcher holds no device memory
+                self.prefix_cache.demote_fn = None
 
     def _fail_inflight_retryable(self, cause: BaseException) -> int:
         """Fail every in-flight and queued request with a BatcherStopped
@@ -1028,6 +1121,9 @@ class ContinuousBatcher:
             if isinstance(req, _Request):
                 fail(req)
             self._slots[i] = None
+        for rec in self._suspended:
+            fail(rec.req)  # parked streams are live requests too
+        self._suspended = []
         self._slot_view = {}
         while True:
             try:
@@ -1079,6 +1175,15 @@ class ContinuousBatcher:
         fr["pool_blocks_free"] = ps["blocks_free"]
         fr["pool_blocks_live"] = ps["blocks_live"]
         fr["pool_blocks_shared"] = ps["blocks_shared"]
+        if self._suspended or self._suspend_stats["suspended_total"]:
+            fr["suspended_slots"] = len(self._suspended)
+            fr["suspended_total"] = self._suspend_stats["suspended_total"]
+        if self.kv_tiers is not None:
+            ts = self.kv_tiers.stats()
+            fr["tier_host_bytes"] = ts["host_bytes"]
+            fr["tier_host_entries"] = ts["host_entries"]
+            fr["tier_demoted_chunks"] = ts["demoted_chunks"]
+            fr["tier_promoted_chunks"] = ts["promoted_chunks"]
         return fr
 
     def debug_snapshot(self) -> dict:
@@ -1182,14 +1287,19 @@ class ContinuousBatcher:
             return
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
+        if self.kv_tiers is not None:
+            # flush pending spills so the Object Store tier is complete,
+            # then stop the spill thread
+            self.kv_tiers.close()
         self.params = None
         self._kv = None
 
     @property
     def idle(self) -> bool:
-        """Nothing served or queued (approximate; any thread)."""
+        """Nothing served, suspended or queued (approximate; any thread)."""
         return (
             not any(s is not None for s in self._slots)
+            and not self._suspended
             and self._inbox.qsize() == 0
             and self._wl_len == 0
         )
@@ -1207,6 +1317,22 @@ class ContinuousBatcher:
         kv = self._kv or (None, None)
         return {**self._pool.stats(), "kv_quant": self.cfg.kv_quant,
                 "bytes": kv_nbytes(kv[0]) + kv_nbytes(kv[1])}
+
+    def tier_stats(self) -> dict | None:
+        """KV tier and slot-suspend counters (the ``lmstudio_kv_tier_*``
+        families), or None when neither tiering nor suspend is on. Safe
+        from any thread."""
+        if self.kv_tiers is None and not self.kv_suspend:
+            return None
+        out = dict(self._suspend_stats)
+        out["suspended"] = len(self._suspended)
+        if self.kv_tiers is not None:
+            out.update(self.kv_tiers.stats())
+        if self.prefix_cache is not None:
+            c = self.prefix_cache.counters()
+            out["demoted_blocks"] = c.get("demoted_blocks", 0)
+            out["demote_failures"] = out.get("demote_failures", 0) + c.get("demote_failures", 0)
+        return out
 
     def drop_prefix_cache(self) -> int:
         """Evict every cached prefix block and zero the budget (the
@@ -1401,13 +1527,42 @@ class ContinuousBatcher:
         # ("admit", firsts, [(row in firsts, slot, req), ...])
         inflight: collections.deque = collections.deque()
         waitlist = self._waitlist
-        alloc_blocks = self._alloc_blocks
+        # the host KV tier (under the prefix cache only) and slot suspend
+        tier = self.kv_tiers if pc is not None else None
+        suspend_on = self.kv_suspend
+
+        def alloc_blocks(k: int, for_req: _Request | None = None) -> list[int]:
+            """Take k fresh pool blocks for an admit. On shortage: reclaim
+            (demote) the evictable cache; for a higher-class admit
+            (``for_req``) preempt strictly lower classes; suspend victim
+            slots (swap-don't-shed); shed only when every lever is spent.
+            Raises _PoolExhausted before any device write, so the caller
+            sheds one request instead of resetting the cache. Growth and
+            opportunistic allocations (promotion, resume) never suspend:
+            they call ``_alloc_blocks`` / ``_try_alloc``."""
+            got = self._try_alloc(k)
+            if got is None and suspend_on:
+                if self.qos_preempt and for_req is not None and for_req.rank > 0:
+                    # a premium admit never parks a premium peer
+                    while got is None and suspend_victim(below_rank=for_req.rank,
+                                                         reason="preempted"):
+                        got = self._try_alloc(k)
+                while got is None and suspend_victim():
+                    got = self._try_alloc(k)
+            if got is None:
+                self.stats.record_shed("kv_pool")
+                if self.recorder is not None:
+                    # rate-limited: a starved pool sheds every admit attempt
+                    self.recorder.dump("kv_pool_exhausted",
+                                       extra={"needed": k, "free": pool.free_blocks})
+                raise self._exhausted(k)
+            return got
 
         def ensure_blocks(i: int, upto: int) -> None:
             nonlocal table_dirty
             need = min(-(-min(upto, self.max_seq) // T), MB)
             if len(tables[i]) < need:
-                tables[i].extend(alloc_blocks(need - len(tables[i])))
+                tables[i].extend(self._alloc_blocks(need - len(tables[i])))
                 table_dirty = True
 
         def ensure_private(i: int, lo: int, hi: int) -> None:
@@ -1628,21 +1783,239 @@ class ContinuousBatcher:
                     waitlist.remove(req)
                     self.stats.record_cancel("waitlist")
 
-        def grow_for(act: list[int], width: int) -> list[int]:
-            """Grow each row's table over the next ``width`` writes and
-            privatize any still-shared block in the write range; a row the
-            pool cannot grow is shed alone, before any dispatch. Returns the
-            rows still active."""
-            for i in act:
+        # -- swap-don't-shed: the host tier, suspend and resume -----------------
+
+        def read_blocks(ids: list[int]) -> tuple:
+            """Host copies (``kv_to_host``) of the K and V pool blocks
+            ``ids``: one gather and one readback a pool."""
+            bids = torch.tensor(ids, dtype=torch.int32)
+            return (kv_to_host(kv_pool_read_blocks(KP, bids)),
+                    kv_to_host(kv_pool_read_blocks(VP, bids)))
+
+        def write_blocks(ids: list[int], k_host, v_host) -> None:
+            """Host K and V copies into the pool blocks ``ids``, queued on
+            the stream ahead of every later dispatch that reads them."""
+            bids = torch.tensor(ids, dtype=torch.int32)
+            kv_pool_write_row(KP, kv_from_host(k_host, dev), bids)
+            kv_pool_write_row(VP, kv_from_host(v_host, dev), bids)
+
+        if tier is not None:
+            def demote_chunk(token_ids, payload, logits) -> bool:
+                """Prefix-cache eviction hook (owner thread, the cache's
+                lock held): read the node's pool blocks back to host and
+                hand them to the tier, so eviction becomes demotion. False
+                (plain eviction) for a payload minted before a pool reset:
+                its ids name recycled blocks."""
+                ep, ids = payload
+                if ep != pool.epoch:
+                    return False
+                k_host, v_host = read_blocks(ids)
+                lg = None if logits is None else logits.float().cpu()
+                return tier.demote(token_ids, k_host, v_host, lg)
+
+            pc.demote_fn = demote_chunk
+
+        def suspend_slot(i: int, reason: str, min_blocks: int | None = None) -> bool:
+            """Move slot i (its KV blocks and full resume state) to the host
+            side and free the slot. False with the slot untouched when it
+            is not suspendable (mid-admit, a state the resume could not
+            rebuild, a failed readback): the caller sheds instead. Chaos
+            hook: a ``raise`` rule at SUSPEND is a worker dying
+            mid-suspend; any other kind aborts the suspend before any state
+            has moved."""
+            if not suspend_on:
+                return False
+            req = self._slots[i]
+            if not isinstance(req, _Request) or req.cancelled:
+                return False
+            if _faults.ACTIVE is not None:
+                f = _faults.ACTIVE.check(_faults.SUSPEND)
+                if f is not None:
+                    self._suspend_stats["suspend_failures"] += 1
+                    if f.kind == "raise":
+                        raise f.exception()
+                    return False
+            # drain every dispatch in flight first: delivered tokens,
+            # positions and rng steps must agree before the state is frozen
+            # (a pending burst would deliver tokens the copy does not hold)
+            pump(0)
+            req = self._slots[i]
+            if not isinstance(req, _Request) or req.cancelled:
+                return False  # finished or cancelled during the drain
+            if len(req.prompt_ids) + len(req.emitted) != host_pos[i] + 1 or not tables[i]:
+                self._suspend_stats["suspend_failures"] += 1
+                return False
+            t0 = time.monotonic()
+            try:
+                k_host, v_host = read_blocks(tables[i])
+            except Exception:  # noqa: BLE001 — readback failed; the slot stays
+                log.exception("suspend readback failed; slot %d stays", i)
+                self._suspend_stats["suspend_failures"] += 1
+                return False
+            rec = _Suspended(req=req, k=k_host, v=v_host, n_blocks=len(tables[i]),
+                             pos=host_pos[i], steps=host_steps[i], seed=host_seed[i],
+                             spec=spec_slots[i], t_suspend=time.monotonic(), reason=reason,
+                             min_blocks=min_blocks)
+            finish_slot(i)  # decrefs the blocks; the host copy owns the KV
+            self._suspended.append(rec)
+            self._suspend_stats["suspended_total"] += 1
+            if reason == "preempted":
+                # parked, not lost: counts preemptions per tenant, not sheds
+                self.tenant_stats.record_preempted(req.tenant)
+            obs_emit("slot_suspend", slot=i, reason=reason, pos=rec.pos,
+                     generated=req.generated, blocks=rec.n_blocks,
+                     ms=round((rec.t_suspend - t0) * 1e3, 3))
+            return True
+
+        def suspend_victim(below_rank: int | None = None, reason: str = "kv_pool") -> bool:
+            """Suspend the slot whose demotion frees the most blocks, lowest
+            priority class first (falling through candidates a drain
+            disqualifies); ``below_rank`` keeps only strictly lower classes
+            (preemption for a higher-class admit). False when nothing is
+            suspendable."""
+            cand = sorted(
+                (i for i, r in enumerate(self._slots)
+                 if isinstance(r, _Request) and not r.cancelled and tables[i]
+                 and (below_rank is None or r.rank < below_rank)),
+                key=lambda i: (self._slots[i].rank, -len(tables[i])))
+            return any(suspend_slot(i, reason) for i in cand)
+
+        def resume_suspended() -> None:
+            """Re-admit suspended slots, oldest first, while slots and
+            blocks allow: the host copies go into fresh blocks, the
+            position, rng step, seed and spec state come back, and the
+            carry token is the last delivered one (the prompt's last when
+            nothing was delivered), so the next step computes what it
+            would have computed unsuspended."""
+            nonlocal tok_dev, table_dirty
+            bo = self.brownout
+            if not self._suspended or (bo is not None and bo.level >= SHED_ONLY):
+                return  # nothing parked, or still inside the incident window
+            pending = self._suspended
+            while pending and None in self._slots:
+                rec = pending[0]
+                req = rec.req
+                if req.cancelled:
+                    pending.pop(0)
+                    self._ledger_finalize(req, "deadline_abort" if req.deadline_hit
+                                          else "cancelled")
+                    self.stats.record_cancel("active")
+                    continue
+                if pool.free_blocks < rec.min_blocks and pc is not None:
+                    pc.reclaim(rec.min_blocks - pool.free_blocks, demote=True)
+                if pool.free_blocks < rec.min_blocks:
+                    return  # the pool is still tight: next pass
+                # never suspends another slot (thrash) nor sheds: a full
+                # pool defers the resume
+                ids = self._try_alloc(rec.n_blocks)
+                if ids is None:
+                    return
+                slot = self._slots.index(None)
+                t0 = time.monotonic()
                 try:
+                    write_blocks(ids, rec.k, rec.v)
+                except Exception as e:  # noqa: BLE001 — the host copy is unusable
+                    log.exception("resume failed; slot of %d tokens dropped", req.generated)
+                    pool.decref(ids)
+                    pending.pop(0)
+                    self._suspend_stats["suspend_failures"] += 1
+                    self._ledger_finalize(req, "failed")
+                    req.emit("err", BatcherOverloaded(
+                        f"resume failed after {req.generated} tokens ({e}); "
+                        f"retry on another worker"))
+                    continue
+                pending.pop(0)
+                tables[slot] = list(ids)
+                table_dirty = True
+                req.slot = slot
+                self._slots[slot] = req
+                host_pos[slot] = rec.pos
+                host_steps[slot] = rec.steps
+                host_seed[slot] = rec.seed
+                spec_slots[slot] = rec.spec
+                tok_dev = tok_dev.clone()  # an in-flight record may hold the carry
+                tok_dev[slot] = req.emitted[-1] if req.emitted else req.prompt_ids[-1]
+                self._suspend_stats["resumed_total"] += 1
+                now = time.monotonic()
+                obs_emit("slot_resume", slot=slot, reason=rec.reason, pos=rec.pos,
+                         generated=req.generated,
+                         suspended_ms=round((now - rec.t_suspend) * 1e3, 1),
+                         ms=round((now - t0) * 1e3, 3))
+
+        def promote_from_tier(prompt_ids) -> None:
+            """Pull host-tier chunks that extend this prompt's cached prefix
+            back into the pool and the radix cache (promotion-on-hit), at
+            most ``tier.promote_chunks`` an admit. A full pool or any
+            failure leaves the cache as it was: fresh blocks are dropped,
+            the cache's own references keep what it inserted."""
+            if tier is None or tier.promote_chunks <= 0 or pc.capacity <= 0:
+                return  # nothing to promote into (a dropped cache inserts nothing)
+            n_full = len(prompt_ids) // C
+            have = pc.peek(prompt_ids) // C
+            if n_full <= have:
+                return
+            nbc = C // T
+            token_ids = [int(t) for t in prompt_ids[: n_full * C]]
+            payloads: list = [None] * have
+            logits_list: list = [None] * have
+            alloc: list[int] = []
+            found = 0
+            try:
+                for j in range(have, min(n_full, have + tier.promote_chunks)):
+                    ent = tier.lookup(tuple(token_ids[: (j + 1) * C]))
+                    if ent is None:
+                        break
+                    ids = self._try_alloc(nbc)
+                    if ids is None:
+                        break  # promote what fit; the admit decides the rest
+                    alloc.extend(ids)
+                    write_blocks(ids, ent.k, ent.v)
+                    payloads.append((pool.epoch, list(ids)))
+                    logits_list.append(None if ent.logits is None else
+                                       torch.from_numpy(np.array(ent.logits, np.float32)).to(dev))
+                    found += 1
+            except Exception:  # noqa: BLE001 — promotion is best-effort
+                log.exception("tier promotion failed; continuing without")
+                found = 0
+            if found:
+                pc.insert(token_ids[: (have + found) * C], payloads, logits_list)
+                tier.note_promoted(found)
+            if alloc:
+                # the cache's acquire holds the inserted chunks' references
+                pool.decref(alloc)
+
+        def grow_for_burst(act: list[int], width: int, prev_ctx) -> bool:
+            """Grow each row's table over the next ``width`` writes and
+            privatize any still-shared block in the write range, before any
+            dispatch. A row the pool cannot grow ends the round: it is
+            parked on the host tier when parking can ever succeed (its full
+            extent fits the pool and another slot will release blocks; it
+            resumes and regrows once they free) and shed alone otherwise;
+            the other streams keep their tokens and the pool is not reset.
+            False when the caller must skip the round (the slot list is
+            stale)."""
+            i = -1
+            try:
+                for i in act:
                     ensure_blocks(i, host_pos[i] + width)
                     ensure_private(i, host_pos[i], host_pos[i] + width)
-                except _PoolExhausted as e:
-                    r = self._slots[i]
+                return True
+            except _PoolExhausted as e:
+                self._charge_ctx = prev_ctx
+                r = self._slots[i]
+                fits = isinstance(r, _Request) and min(
+                    -(-(len(r.prompt_ids) + r.sp.max_tokens) // T), MB) <= pool.n_blocks - 1
+                others = any(j != i and isinstance(self._slots[j], _Request) for j in range(B))
+                need = min(-(-min(host_pos[i] + width, self.max_seq) // T), MB)
+                if fits and others and suspend_slot(i, "growth", min_blocks=need):
+                    return False
+                r = self._slots[i]  # the suspend's drain may have finished it
+                if isinstance(r, _Request):
+                    self.stats.record_shed("kv_pool")
                     self._ledger_finalize(r, "shed_after_prefill")
                     finish_slot(i)
                     r.emit("err", e)
-            return active()
+                return False
 
         def sampling_lists():
             live = [r if isinstance(r, _Request) else None for r in self._slots]
@@ -1662,9 +2035,7 @@ class ContinuousBatcher:
             # charge the step (and its CoW copies) to the live requests
             prev = self._charged(self._slots[i] for i in act)
             try:
-                act = grow_for(act, 1)
-                self._charge_ctx = tuple(self._slots[i] for i in act)
-                if act:
+                if grow_for_burst(act, 1, prev):
                     ext_dispatch(act)
             finally:
                 self._charge_ctx = prev
@@ -1727,8 +2098,8 @@ class ContinuousBatcher:
             # cache still shares, so the whole range is privatized
             prev = self._charged(self._slots[i] for i in act)
             try:
-                if grow_for(act, k + 1) != act:
-                    return False  # a row was shed: the plain burst re-scans
+                if not grow_for_burst(act, k + 1, prev):
+                    return False  # a row was parked or shed: the burst re-scans
                 refresh_tables()
                 pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
                 self._shape = (B, k + 1, host_pos, B * (k + 1))
@@ -1764,10 +2135,8 @@ class ContinuousBatcher:
             # the previous context back, since bursts run inside chunked admits
             prev = self._charged(self._slots[i] for i in act)
             try:
-                act = grow_for(act, n)
-                if not act:
+                if not grow_for_burst(act, n, prev):
                     return
-                self._charge_ctx = tuple(self._slots[i] for i in act)
                 refresh_tables()
                 pos = torch.tensor(host_pos, dtype=torch.int32).to(dev)
                 self._shape = (B, 1, host_pos, B, n)
@@ -1833,7 +2202,7 @@ class ContinuousBatcher:
             nonlocal table_dirty
             if n <= C:
                 bucket = self._bucket(n)
-                ids = alloc_blocks(-(-n // T))
+                ids = alloc_blocks(-(-n // T), for_req=req)
                 tables[slot] = ids
                 table_dirty = True
                 bids = ids + [0] * (max(1, bucket // T) - len(ids))
@@ -1848,6 +2217,10 @@ class ContinuousBatcher:
             n_full = n // C
             nbc = C // T
             chunk_logits = [None] * n_full if pc is not None else None
+            # promotion-on-hit: chunks the cache demoted to the host tier
+            # come back into the pool first, so the match below covers the
+            # deepest tier-resident prefix
+            promote_from_tier(req.prompt_ids)
             hit = pc.match(req.prompt_ids) if pc is not None else None
             if hit is not None and any(p is None or p[0] != pool.epoch
                                        for p in hit.payloads):
@@ -1904,7 +2277,7 @@ class ContinuousBatcher:
             # before any later admit's read of these ids)
             total = -(-n // T)
             bstart = len(tables[slot])
-            tables[slot].extend(alloc_blocks(total - bstart))
+            tables[slot].extend(alloc_blocks(total - bstart, for_req=req))
             table_dirty = True
             harvest_prefix(req.prompt_ids, chunk_logits, slot, skip_chunks=skip)
             # a full [max_seq/T] bid row: NULL for the shared prefix blocks
@@ -1982,7 +2355,7 @@ class ContinuousBatcher:
             not fit is shed."""
             need = sum(-(-n // T) for n in ns)
             if need > pool.free_blocks and pc is not None:
-                pc.reclaim(need - pool.free_blocks)
+                pc.reclaim(need - pool.free_blocks, demote=True)
             return need <= pool.free_blocks
 
         def group_args(reqs: list[_Request]):
@@ -2016,7 +2389,7 @@ class ContinuousBatcher:
                     slots.append(s)
                 idx, seeds, samps = group_args(reqs)
                 for j, s in enumerate(slots):
-                    tables[s] = alloc_blocks(-(-ns[j] // T))
+                    tables[s] = alloc_blocks(-(-ns[j] // T), for_req=reqs[j])
                 table_dirty = True
                 nblk = max(1, bucket // T)
                 null = [0] * nblk
@@ -2095,7 +2468,7 @@ class ContinuousBatcher:
                         pump()
                 # tables before the harvest, which records their block ids
                 for j, s in enumerate(slots):
-                    tables[s] = alloc_blocks(-(-ns[j] // T))
+                    tables[s] = alloc_blocks(-(-ns[j] // T), for_req=reqs[j])
                 table_dirty = True
                 if glogits is not None:
                     for j in range(m):
@@ -2293,10 +2666,31 @@ class ContinuousBatcher:
                 headroom = self._headroom()
                 bo.update(depth_frac=depth / limit, age_p95_ms=age_p95,
                           hbm_headroom_frac=headroom, now=now)
-                if bo.level == SHED_ONLY and before < SHED_ONLY and rec is not None:
-                    rec.dump("shed_only_entry",
-                             extra={"depth": depth, "age_p95_ms": round(age_p95, 1),
-                                    "hbm_headroom_frac": headroom})
+                if bo.level == SHED_ONLY and before < SHED_ONLY:
+                    if rec is not None:
+                        rec.dump("shed_only_entry",
+                                 extra={"depth": depth, "age_p95_ms": round(age_p95, 1),
+                                        "hbm_headroom_frac": headroom})
+                    # swap-don't-shed on the incident edge: park the
+                    # youngest streams of the lowest class on the host tier
+                    # so the survivors keep full decode width; they resume
+                    # once the level drops below SHED_ONLY
+                    target = bo.suspend_target(self.max_slots)
+                    while suspend_on:
+                        live = active()
+                        if len(live) <= target:
+                            break
+                        victim = min(live, key=lambda i: (self._slots[i].rank,
+                                                          -self._slots[i].t_admit))
+                        if not suspend_slot(victim, "brownout"):
+                            break
+            if tier is not None:
+                # proactive demotion: keep ~demote_free_frac of the pool free
+                # by demoting cold cache chunks between bursts, so admits
+                # stop paying the reclaim at the worst moment
+                floor_blocks = int(pool.n_blocks * tier.demote_free_frac)
+                if pool.free_blocks < floor_blocks:
+                    pc.reclaim(floor_blocks - pool.free_blocks, demote=True)
             if waitlist and any(r.deadline is not None for r in waitlist):
                 kept = []
                 for r in waitlist:
@@ -2326,6 +2720,29 @@ class ContinuousBatcher:
                     r.emit("err", BatcherOverloaded(
                         f"deadline exceeded mid-decode after {r.generated} "
                         f"tokens (shed_cause=deadline); retry on another worker"))
+            if self._suspended:
+                # a parked slot's clock keeps running: an expired one fails
+                # here with the same retryable cause (it holds no blocks),
+                # a cancelled one is dropped
+                kept_s = []
+                for srec in self._suspended:
+                    r = srec.req
+                    if r.cancelled:
+                        self._ledger_finalize(r, "deadline_abort" if r.deadline_hit
+                                              else "cancelled")
+                        self.stats.record_cancel("active")
+                    elif r.deadline is not None and now > r.deadline:
+                        r.deadline_hit = True
+                        self.stats.record_shed("deadline", waited_ms=(now - r.t_enq) * 1e3)
+                        self._suspend_stats["suspended_deadline_expired"] += 1
+                        self._ledger_finalize(r, "deadline_abort")
+                        self.tenant_stats.record_shed(r.tenant)
+                        r.emit("err", BatcherOverloaded(
+                            f"deadline exceeded while suspended after {r.generated} "
+                            f"tokens (shed_cause=deadline); retry on another worker"))
+                    else:
+                        kept_s.append(srec)
+                self._suspended = kept_s
             if len(waitlist) > 1:
                 # deficit round-robin over tenants, prompt tokens as cost,
                 # class (or key) weight as share; one tenant keeps FIFO
@@ -2376,13 +2793,24 @@ class ContinuousBatcher:
 
         while True:
             self.heartbeat = time.monotonic()  # supervisor liveness stamp
+            if _faults.ACTIVE is not None:  # chaos harness; off ⇒ one attr read
+                f = _faults.ACTIVE.check(_faults.PUMP)
+                if f is not None and f.kind == "raise":
+                    raise f.exception()
             act = active()
             self.stats.peak_active = max(self.stats.peak_active, len(act))
-            block = not act and not waitlist and not inflight
+            # suspended slots keep their deadline clocks running, so with
+            # any parked the idle wait becomes a bounded poll; when a resume
+            # is possible now, no wait at all
+            bo = self.brownout
+            can_resume = bool(self._suspended and None in self._slots
+                              and (bo is None or bo.level < SHED_ONLY))
+            block = not act and not waitlist and not inflight and not can_resume
+            poll_s = 0.05 if (block and self._suspended) else None
             first_intake = block
             while True:
                 try:
-                    item = self._inbox.get(block=block)
+                    item = self._inbox.get(block=block, timeout=poll_s)
                 except _queue.Empty:
                     break
                 block = False
@@ -2412,6 +2840,9 @@ class ContinuousBatcher:
                             self._wl_len = len(waitlist)
             drain_cancels()
             overload_tick(time.monotonic())
+            # parked slots are older work that already has its first
+            # tokens: they resume before new waiters are admitted
+            resume_suspended()
             admit_waiters()
             age_sweep()
             bo = self.brownout
@@ -2500,6 +2931,12 @@ class ContinuousBatcher:
                 self._ledger_finalize(req, "served")
                 end(req)
             self._slots[i] = None
+        for rec in self._suspended:
+            # parked streams end like active slots: what streamed before
+            # was served, the rest retries elsewhere
+            self._ledger_finalize(rec.req, "served")
+            end(rec.req)
+        self._suspended = []
         while True:
             try:
                 req = self._inbox.get_nowait()

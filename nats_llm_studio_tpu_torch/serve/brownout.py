@@ -1,7 +1,6 @@
 """Adaptive brownout: degrade service under overload instead of falling over.
 
-Copy of ``nats_llm_studio_tpu/serve/brownout.py``, whole. ``suspend_target``
-has nothing to act on in the port until slot suspend is ported.
+Copy of ``nats_llm_studio_tpu/serve/brownout.py``, whole.
 
 The batcher's only overload responses so far are binary — serve, or shed at
 the depth/age bounds. Under sustained pressure that means full-quality

@@ -1,8 +1,9 @@
 """Automatic prefix KV cache: radix-tree prompt reuse across requests.
 
-Copy of ``nats_llm_studio_tpu/serve/prefix_cache.py`` without the KV-tier
-demotion hook (``demote_fn`` and its counters) and ``hot_prefixes``, which
-wait for the port's KV tiers and cluster adverts.
+Copy of ``nats_llm_studio_tpu/serve/prefix_cache.py`` with the KV-tier
+demotion hook (``demote_fn``, ``reclaim(..., demote=)`` and the
+``demoted_blocks`` / ``demote_failures`` counters), without
+``hot_prefixes``, which waits for the warm handoff.
 
 The ``chat_model`` contract renders every request through the GGUF chat
 template, so real traffic shares long common prefixes: the system prompt
@@ -175,6 +176,13 @@ class PrefixCache:
         self._tick = 0
         self._blocks = 0
         self._bytes = 0
+        # tiered-KV hook (serve/kv_tiers.py): when set by the batcher,
+        # owner-thread eviction paths call ``demote_fn(token_ids, payload,
+        # logits)`` BEFORE freeing a node, turning LRU eviction into
+        # demotion to the host tier. Only owner-thread call sites pass
+        # ``demote=True`` — the fn reads device pool blocks, which only the
+        # owner thread may do; registry-side clear/resize never demote.
+        self.demote_fn = None
         # monotonic counters; hit_tokens is the acceptance metric
         self.hits = 0
         self.misses = 0
@@ -182,6 +190,8 @@ class PrefixCache:
         self.hit_tokens = 0
         self.inserted_blocks = 0
         self.evicted_blocks = 0
+        self.demoted_blocks = 0
+        self.demote_failures = 0
         self.hit_tokens_hist = LogHistogram(lo=1.0, hi=131072.0, growth=1.5)
 
     # -- lookup ---------------------------------------------------------------
@@ -293,12 +303,14 @@ class PrefixCache:
                 nd.tick = self._tick
                 parent = nd
                 level = nd.children
-            evicted = self._evict_to_locked(self.capacity)
+            # insert runs on the owner thread, so capacity overflow demotes
+            # (LRU → host tier) instead of dropping when the hook is wired
+            evicted = self._evict_to_locked(self.capacity, demote=True)
         if evicted:
             obs_emit("prefix_evict", blocks=evicted, resident=self.blocks)
         return added
 
-    def _evict_to_locked(self, capacity: int) -> int:
+    def _evict_to_locked(self, capacity: int, demote: bool = False) -> int:
         """Detach LRU leaves until at most ``capacity`` blocks remain
         (lock held). A pinned leaf is detached but NOT freed — an admit in
         flight still reads its arrays; ``release`` frees it. Interior
@@ -309,7 +321,7 @@ class PrefixCache:
             leaf = self._lru_leaf_locked()
             if leaf is None:
                 break
-            evicted += self._detach_locked(leaf)
+            evicted += self._detach_locked(leaf, demote=demote)
         return evicted
 
     def _lru_leaf_locked(self, unpinned_only: bool = False):
@@ -325,7 +337,24 @@ class PrefixCache:
                 leaf = nd
         return leaf
 
-    def _detach_locked(self, leaf) -> int:
+    def _detach_locked(self, leaf, demote: bool = False) -> int:
+        if demote and self.demote_fn is not None and leaf.payload is not None:
+            # hand the node's KV to the lower tier BEFORE the refcount drop
+            # below can recycle its pool blocks. Reconstructed path =
+            # concatenated chunk keys root→leaf. Any failure falls back to
+            # plain eviction — the free below still runs either way, so
+            # pool books stay exact.
+            chain = []
+            nd = leaf
+            while nd is not None:
+                chain.append(nd.key)
+                nd = nd.parent
+            tokens = [t for key in reversed(chain) for t in key]
+            try:
+                if self.demote_fn(tokens, leaf.payload, leaf.logits):
+                    self.demoted_blocks += leaf.units
+            except Exception:  # noqa: BLE001 — demotion is strictly best-effort
+                self.demote_failures += 1
         owner = leaf.parent.children if leaf.parent is not None else self._root
         owner.pop(leaf.key, None)
         self._blocks -= leaf.units
@@ -336,19 +365,21 @@ class PrefixCache:
             leaf.free()
         return leaf.units
 
-    def reclaim(self, n_units: int) -> int:
+    def reclaim(self, n_units: int, demote: bool = False) -> int:
         """Evict UNPINNED LRU leaves until ~``n_units`` capacity units have
         actually been freed (paged mode: pool blocks returned to the free
         list right now, not deferred behind a pin). The batcher calls this
         when the pool runs dry — cached prefixes are the reclaimable tier,
-        live slots are not. Returns units freed."""
+        live slots are not. With ``demote=True`` (owner thread only) each
+        reclaimed node's KV is handed to the tier hook first, so pressure
+        relief swaps instead of discarding. Returns units freed."""
         freed = 0
         with self._lock:
             while freed < n_units:
                 leaf = self._lru_leaf_locked(unpinned_only=True)
                 if leaf is None:
                     break
-                freed += self._detach_locked(leaf)
+                freed += self._detach_locked(leaf, demote=demote)
         if freed:
             obs_emit("prefix_evict", blocks=freed, resident=self.blocks,
                      reclaim=True)
@@ -390,6 +421,8 @@ class PrefixCache:
             "hit_tokens": self.hit_tokens,
             "inserted_blocks": self.inserted_blocks,
             "evicted_blocks": self.evicted_blocks,
+            "demoted_blocks": self.demoted_blocks,
+            "demote_failures": self.demote_failures,
         }
 
     def stats(self) -> dict[str, Any]:

@@ -48,8 +48,20 @@ against ``torch.cuda.memory_stats``; an ``hbm_drift`` event when the
 unexplained bytes keep growing. Inert on the CPU. ``EFFICIENCY=0`` turns it
 off.
 
-Not ported yet: the mesh gate and precompile at pull time, KV tiers and QoS
-preemption.
+The paged pool and swap-don't-shed, as the reference's: ``KV_BLOCK_TOKENS``
+(16) and ``KV_POOL_BLOCKS`` (0 = every slot at max_seq plus the prefix
+budget) size each batcher's pool, and the admission estimate prices that
+pool. With ``KV_HOST_POOL_BYTES`` > 0 (256 MiB) and a prefix cache, each
+engine gets a ``KVTierManager`` (the host tier, ``KV_PROMOTE_CHUNKS``,
+``KV_DEMOTE_FREE_FRAC``, ``KV_SPILL_MAX_OBJECTS``) over the worker's
+``kv_spill_factory`` (an Object Store spill, late-bound by the worker);
+its bytes are host memory, outside the admission ledger. Batchers suspend
+slots (``KV_SUSPEND``) and preempt for higher classes (``QOS_PREEMPT``);
+the batcher's ``stop`` closes the tier on evict, delete and restart.
+
+Not ported yet: the mesh gate and precompile at pull time, and the
+restart's warm import of spilled prefixes (``warm_exports`` into
+``import_prefix_blocks``), which waits for the KV import.
 """
 
 from __future__ import annotations
@@ -106,6 +118,25 @@ def _prefix_cache_blocks_env(default: int = 64) -> int:
         except ValueError:
             log.warning("ignoring non-integer PREFIX_CACHE_BLOCKS=%r", env)
     return default
+
+
+def _env_int(name: str, default: int, lo: int = 0) -> int:
+    env = os.environ.get(name, "").strip()
+    if env:
+        try:
+            return max(lo, int(env))
+        except ValueError:
+            log.warning("ignoring non-integer %s=%r", name, env)
+    return default
+
+
+def _kv_tier_policy_env() -> tuple[int, float, int]:
+    """(promote_chunks, demote_free_frac, spill_max_objects): the
+    KVTierManager policy knobs (``KV_PROMOTE_CHUNKS``,
+    ``KV_DEMOTE_FREE_FRAC``, ``KV_SPILL_MAX_OBJECTS``)."""
+    frac = min(max(_env_float("KV_DEMOTE_FREE_FRAC", 0.10), 0.0), 0.9)
+    return (_env_int("KV_PROMOTE_CHUNKS", 64, lo=1), frac,
+            _env_int("KV_SPILL_MAX_OBJECTS", 512, lo=1))
 
 
 def _spec_decode_env(default_k: int = 6) -> tuple[int, int]:
@@ -534,13 +565,34 @@ class TorchRegistry(Registry):
                  obs_recorder: bool | None = None,
                  obs_recorder_interval_ms: float | None = None,
                  obs_dump_dir: str | None = None, worker_id: str = "",
-                 qos_quantum_tokens: int | None = None):
+                 qos_quantum_tokens: int | None = None, kv_block_tokens: int | None = None,
+                 kv_pool_blocks: int | None = None, kv_host_pool_bytes: int | None = None,
+                 kv_spill_factory=None, kv_suspend: bool | None = None,
+                 qos_preempt: bool | None = None):
         self.kv_quant = check_kv_quant(kv_quant)
         self.prefix_cache_blocks = (prefix_cache_blocks if prefix_cache_blocks is not None
                                     else _prefix_cache_blocks_env())
         env_k, env_ma = _spec_decode_env()
         self.spec_decode_k = spec_decode_k if spec_decode_k is not None else env_k
         self.spec_max_active = spec_max_active if spec_max_active is not None else env_ma
+        # the paged pool: tokens a block (the batcher snaps it to divide the
+        # serving chunk) and the population (0 = every slot at max_seq plus
+        # the prefix budget)
+        self.kv_block_tokens = (kv_block_tokens if kv_block_tokens is not None
+                                else _env_int("KV_BLOCK_TOKENS", 16, lo=1))
+        self.kv_pool_blocks = (kv_pool_blocks if kv_pool_blocks is not None
+                               else _env_int("KV_POOL_BLOCKS", 0))
+        # the host KV tier's budget (0 = no tier), its policy knobs and the
+        # Object Store spill factory the worker binds once it has a
+        # connection (None = host tier only)
+        self.kv_host_pool_bytes = (kv_host_pool_bytes if kv_host_pool_bytes is not None
+                                   else _env_int("KV_HOST_POOL_BYTES", 256 << 20))
+        self.kv_spill_factory = kv_spill_factory
+        (self.kv_promote_chunks, self.kv_demote_free_frac,
+         self.kv_spill_max_objects) = _kv_tier_policy_env()
+        # None: each batcher reads KV_SUSPEND / QOS_PREEMPT
+        self.kv_suspend = kv_suspend
+        self.qos_preempt = qos_preempt
         self.device = resolve_device(device)
         self.store = store
         self.dtype = default_dtype(self.device)
@@ -820,7 +872,9 @@ class TorchRegistry(Registry):
         with self._open(paths) as reader:
             cfg = self._serving_config(reader)
         return estimate_load_bytes(cfg, self.max_batch_slots, self.max_seq_len,
-                                   prefix_cache_blocks=self.prefix_cache_blocks)
+                                   prefix_cache_blocks=self.prefix_cache_blocks,
+                                   kv_block_tokens=self.kv_block_tokens,
+                                   kv_pool_blocks=self.kv_pool_blocks)
 
     def _estimate_load_bytes(self, paths: list[str]) -> int:
         """Device bytes of serving this GGUF with this registry's settings."""
@@ -914,9 +968,17 @@ class TorchRegistry(Registry):
                                     hbm_headroom_fn=self._hbm_headroom_frac,
                                     deadline_min_tokens=self.deadline_min_tokens,
                                     recorder=recorder,
-                                    qos_quantum_tokens=self.qos_quantum_tokens)
+                                    qos_quantum_tokens=self.qos_quantum_tokens,
+                                    kv_block_tokens=self.kv_block_tokens,
+                                    kv_pool_blocks=self.kv_pool_blocks,
+                                    kv_suspend=self.kv_suspend,
+                                    qos_preempt=self.qos_preempt)
         if batcher.brownout is not None:
             batcher.brownout.engine = model_id
+        if self.kv_host_pool_bytes > 0 and batcher.prefix_cache is not None:
+            # keyed by whole prefix-cache chunks, so attached after the
+            # batcher has settled its (possibly halved) serving chunk
+            batcher.kv_tiers = self._tier_manager(model_id, batcher.prefill_chunk)
         batcher.start()
         load_s = time.perf_counter() - t0
         log.info("loaded %s in %.1fs (%s, %s, kv %s, %s)", model_id, load_s, cfg.arch,
@@ -925,6 +987,25 @@ class TorchRegistry(Registry):
                  dtype=self.dtype)
         return TorchChatEngine(model_id, batcher, tokenizer, cfg, meta,
                                quantization="/".join(sorted(quant)))
+
+    def _tier_manager(self, model_id: str, chunk_tokens: int):
+        """The host KV tier of one engine, over the Object Store spill when
+        the worker bound a factory (a spill that cannot be made leaves the
+        host tier alone)."""
+        from .kv_tiers import KVTierManager
+
+        spill = None
+        if self.kv_spill_factory is not None:
+            try:
+                spill = self.kv_spill_factory()
+            except Exception:  # noqa: BLE001 — the cold tier is optional
+                log.warning("kv spill store unavailable for %s; host tier only", model_id,
+                            exc_info=True)
+        return KVTierManager(
+            self.kv_host_pool_bytes, chunk_tokens=chunk_tokens, spill=spill,
+            namespace=f"kv/{model_id}", max_spill_objects=self.kv_spill_max_objects,
+            promote_chunks=self.kv_promote_chunks, demote_free_frac=self.kv_demote_free_frac,
+        )
 
     # -- engine supervision ----------------------------------------------------
 

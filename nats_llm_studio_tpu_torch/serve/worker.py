@@ -38,6 +38,13 @@ reaches it while it drains, is bounced retryably. ``metrics.prom`` carries
 the efficiency plane (MFU/MBU, program flops and bytes, the device-time
 ledger, the HBM ledger) unless ``EFFICIENCY=0``.
 
+Swap-don't-shed: the worker binds the registry's ``kv_spill_factory`` to
+an Object Store spill over its own connection (``_ObjectStoreSpill``,
+bucket ``kv-tier``; ``KV_SPILL_OBJSTORE=0`` keeps the host tier alone),
+renders the ``lmstudio_kv_tier_*`` families and advertises its host-tier
+depth; the batchers' ``slot_suspend`` and ``slot_resume`` events land on
+``lmstudio.events``.
+
 Not ported yet: the drain's suspend-harvest and warm handoff
 (``handoff_to``), KV export/import (``kv_import``, ``kv_handoff``) and the
 disaggregated roles.
@@ -82,6 +89,79 @@ log = logging.getLogger(__name__)
 # headers of features this worker does not serve; a chat carrying one is
 # answered with an error naming it
 UNSUPPORTED_HEADERS = (KV_PREFILL_HEADER,)
+
+
+class _ObjectStoreSpill:
+    """Sync ``SpillStore`` over the worker's JetStream Object Store (bucket
+    ``kv-tier``) for serve/kv_tiers.py: the tier manager's spill thread
+    calls put/get/delete, each marshalled onto the worker's asyncio loop
+    with ``run_coroutine_threadsafe``. The bucket is the cold KV tier that
+    survives process death.
+
+    An availability probe starts at construction and is never awaited on
+    the hot path: the broker has no no-responders signalling, so a broker
+    without the object-store module would otherwise stall the full timeout
+    on every call. One short ``ensure_bucket``, latched both ways: ready,
+    or dead for the process (the host tier stays, the cold tier is off)."""
+
+    _PROBE_TIMEOUT_S = 2.0
+
+    def __init__(self, nc, loop, timeout: float = 10.0):
+        from ..transport.jetstream import ObjectStore
+
+        self._store = ObjectStore(nc, timeout=timeout)
+        self._loop = loop
+        self._timeout = timeout
+        self._bucket = "kv-tier"
+        probe = ObjectStore(nc, timeout=min(self._PROBE_TIMEOUT_S, timeout))
+
+        async def _probe_once() -> bool:
+            try:
+                await probe.ensure_bucket(self._bucket)
+                return True
+            except Exception as e:  # noqa: BLE001 — any failure = no tier
+                log.warning("kv-tier object store unreachable (%s); cold KV spill "
+                            "disabled for this process", type(e).__name__)
+                return False
+
+        self._probe_fut = asyncio.run_coroutine_threadsafe(_probe_once(), loop)
+
+    def _run(self, coro):
+        return asyncio.run_coroutine_threadsafe(coro, self._loop).result(self._timeout + 5.0)
+
+    def _alive(self, wait: bool) -> bool:
+        """The probe's verdict. ``wait=False`` (reads: promotion fetches)
+        treats an unresolved probe as dead for now, so lookups are instant
+        misses; ``wait=True`` (the spill thread) blocks for it."""
+        try:
+            if wait:
+                return bool(self._probe_fut.result(self._PROBE_TIMEOUT_S + 5.0))
+            return self._probe_fut.done() and bool(self._probe_fut.result(0))
+        except Exception:  # noqa: BLE001 — a cancelled or timed-out probe = dead
+            return False
+
+    def put(self, name: str, data: bytes) -> None:
+        from ..transport.jetstream import ObjectStoreError
+
+        if not self._alive(wait=True):
+            raise ObjectStoreError("kv-tier object store unavailable")
+        self._run(self._store.put(self._bucket, name, data))
+
+    def get(self, name: str) -> bytes | None:
+        from ..transport.jetstream import ObjectNotFound
+
+        if not self._alive(wait=False):
+            return None  # no (confirmed) cold tier: same as a miss
+        try:
+            return self._run(self._store.get(self._bucket, name))
+        except ObjectNotFound:
+            return None  # never spilled, or pruned: a clean miss
+
+    def delete(self, name: str) -> None:
+        if not self._alive(wait=False):
+            return
+        with contextlib.suppress(Exception):
+            self._run(self._store.delete(self._bucket, name))
 
 
 def _zip_dir(path: str) -> bytes:
@@ -173,12 +253,23 @@ class Worker:
         cfg = self.config
         self.nc = await connect(
             cfg.nats_url,
-            name=f"torch-worker-{self.worker_id}",
+            # the reference's CONNECT name: the chaos harness's worker-scoped
+            # sever rule (faults.FaultPlan.sever_worker) keys on it
+            name=f"tpu-worker-{self.worker_id}",
             max_reconnects=cfg.max_reconnects,
             reconnect_wait_s=cfg.reconnect_wait_s,
             reconnect_max_wait_s=cfg.reconnect_max_wait_s,
             ping_interval_s=cfg.ping_interval_s,
         )
+        # the cold KV tier: hand the registry a spill factory over this
+        # connection (late-bound: the registry exists before the connection)
+        if (cfg.kv_spill_objstore
+                and getattr(self.registry, "kv_host_pool_bytes", 0) > 0
+                and getattr(self.registry, "kv_spill_factory", False) is None):
+            loop = asyncio.get_running_loop()
+            nc, spill_t = self.nc, cfg.kv_transfer_timeout_s
+            self.registry.kv_spill_factory = (
+                lambda: _ObjectStoreSpill(nc, loop, timeout=spill_t))
         subs = {
             cfg.subject("list_models"): self.on_list_models,
             cfg.subject("pull_model"): self.on_pull_model,
@@ -243,10 +334,12 @@ class Worker:
         brownout level, the headroom of the admission budget), capacity
         (``slots`` summed over engines), loaded models, the draining flag
         and the head hashes of recently served prompts (the router's
-        prefix-locality signal). Host state only: no CUDA call. The port
-        has no mesh, no KV tiers and no roles, so ``mesh`` is {},
-        ``kv_tier_depth`` 0 and ``role`` ""."""
-        depth = slots = brownout = 0
+        prefix-locality signal) and ``kv_tier_depth``, the host-tier entries
+        of its engines (a warmer tier serves repeat prefixes without
+        recompute: the router's tiebreak at equal load). Host state only: no
+        CUDA call. The port has no mesh and no roles, so ``mesh`` is {} and
+        ``role`` ""."""
+        depth = slots = brownout = tier_depth = 0
         for eng in self.registry.loaded_engines().values():
             b = getattr(eng, "batcher", None)
             if b is None:
@@ -254,6 +347,10 @@ class Worker:
             depth += int(getattr(b, "queue_depth", 0) or 0)
             slots += int(getattr(b, "max_slots", 0) or 0)
             brownout = max(brownout, int(getattr(b, "brownout_level", 0) or 0))
+            tier_fn = getattr(b, "tier_stats", None)
+            ts = tier_fn() if tier_fn is not None else None
+            if ts:
+                tier_depth += int(ts.get("host_entries", 0) or 0)
         headroom_fn = getattr(self.registry, "_hbm_headroom_frac", None)
         try:
             headroom = float(headroom_fn()) if headroom_fn is not None else 1.0
@@ -268,7 +365,7 @@ class Worker:
             "hbm_headroom": round(headroom, 4),
             "mesh": {},
             "models": sorted(self.registry.loaded_engines()),
-            "kv_tier_depth": 0,
+            "kv_tier_depth": tier_depth,
             "draining": self.draining,
             "heads": self._recent_heads.snapshot(),
             "seq": self._advert_seq,
@@ -858,8 +955,8 @@ class Worker:
         """Worker totals, registry gauges and each engine's batcher
         counters and histograms as Prometheus text, under the reference's
         family names, labels and help strings. Families of features the
-        port does not have yet (KV transfer and tiers, the mesh, XLA's
-        compile cache and recompiles, the legacy ring) are left out."""
+        port does not have yet (KV transfer, the mesh, XLA's compile cache
+        and recompiles, the legacy ring) are left out."""
         eff = efficiency_enabled()
         r = PromRenderer(default_labels={"worker_id": self.worker_id})
         r.gauge("lmstudio_uptime_seconds", round(time.monotonic() - self._t0, 3))
@@ -969,6 +1066,30 @@ class Worker:
                     help="0=normal 1=brownout 2=shed-only")
             for name, v in stats.spec_counters().items():
                 r.counter(f"lmstudio_spec_{name}_total", v, labels=labels)
+            tier_fn = getattr(rb, "tier_stats", None)
+            tier = tier_fn() if tier_fn is not None else None
+            if tier:
+                # the host KV tier and slot suspend/resume: gauges for the
+                # host tier's occupancy, counters for the chunk traffic
+                # between tiers and the swap-don't-shed slot movements
+                for name in ("host_entries", "host_bytes", "host_budget_bytes",
+                             "spill_pending"):
+                    if name in tier:
+                        r.gauge(f"lmstudio_kv_tier_{name}", tier[name], labels=labels)
+                r.gauge("lmstudio_kv_tier_suspended_slots", tier.get("suspended", 0),
+                        labels=labels,
+                        help="slots currently swapped out to the host tier "
+                             "awaiting resume")
+                for name in ("demoted_chunks", "promoted_chunks", "demote_failures",
+                             "host_hits", "host_misses", "spilled_blobs", "fetched_blobs",
+                             "spill_failures", "fetch_failures", "demoted_blocks",
+                             "suspended_total", "resumed_total", "suspend_failures",
+                             "suspended_deadline_expired"):
+                    if name in tier:
+                        # keys like suspended_total carry the suffix already
+                        base = name[:-6] if name.endswith("_total") else name
+                        r.counter(f"lmstudio_kv_tier_{base}_total", tier[name],
+                                  labels=labels)
             for name, h in stats.histograms().items():
                 r.histogram(f"lmstudio_{name}", h.snapshot(), labels=labels)
             # per-program host dispatch time, one labeled histogram family

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from typing import Awaitable, Callable
 
 from ..utils import subject_matches, valid_subject
+from . import faults as _faults
 from . import protocol as p
 
 log = logging.getLogger(__name__)
@@ -154,6 +155,22 @@ class _ClientConn:
             if len(ev.payload) > self.broker.max_payload:
                 self.send(p.encode_err("Maximum Payload Violation"))
                 return
+            if _faults.ACTIVE is not None:  # chaos harness; off ⇒ one attr read
+                f = _faults.ACTIVE.check(_faults.BROKER_PUBLISH, ev.subject,
+                                         client=self.name)
+                if f is not None:
+                    if f.kind == "sever":
+                        # drop the publisher's TCP connection; the message is
+                        # lost, exactly like a broker crash mid-publish (or,
+                        # with a client= scoped rule, that worker dying)
+                        log.warning("chaos: severing client %d (%s) on publish to %s",
+                                    self.cid, self.name or "unnamed", ev.subject)
+                        await self._close()
+                        return
+                    if f.kind == "drop":
+                        return  # silently lose this one message
+                    if f.kind == "delay":
+                        await asyncio.sleep(f.delay_s)
             await self.broker.route(ev.subject, ev.payload, ev.reply, ev.headers)
         elif isinstance(ev, p.SubEvent):
             if not valid_subject(ev.subject, allow_wildcards=True):

@@ -34,27 +34,20 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-import os
 import random
 import time
 from dataclasses import dataclass
 from typing import AsyncIterator, Awaitable, Callable
 from urllib.parse import urlparse
 
+from ..obs import new_trace_id
+from ..obs import emit as obs_emit
 from ..utils import next_nuid
+from . import faults as _faults
 from . import protocol as p
 from .envelope import deadline_header_value, deadline_remaining_s, is_retryable_envelope
 
 log = logging.getLogger(__name__)
-
-
-def new_trace_id() -> str:
-    return os.urandom(8).hex()
-
-
-def obs_emit(kind: str, **fields) -> None:
-    """Connection events go to the log (this package keeps no event ring)."""
-    log.info("%s %s", kind, fields)
 
 
 class ConnectionClosedError(ConnectionError):
@@ -250,6 +243,10 @@ class NatsClient:
     async def _dial(self) -> None:
         """One connection attempt: TCP connect, INFO/CONNECT handshake, fresh
         read loop. Shared by the initial connect and every reconnect."""
+        if _faults.ACTIVE is not None:
+            f = _faults.ACTIVE.check(_faults.CLIENT_CONNECT)
+            if f is not None and f.kind == "raise":
+                raise ConnectionError("injected connect failure (chaos)")
         u = urlparse(self._url)
         host = u.hostname or "127.0.0.1"
         port = u.port or 4222

@@ -1,7 +1,8 @@
 """Object Store client speaking the public JetStream wire protocol.
 
 Copy of ``nats_llm_studio_tpu/transport/jetstream.py``, trimmed to what
-the model lifecycle runs (bucket create, put, info, chunked get, list):
+the model lifecycle and the KV tier's spill run (bucket create, put, info,
+chunked and whole get, list, delete):
 the same subjects, chunking (``DEFAULT_CHUNK``) and SHA-256 digests, so
 either package's client reads and writes objects through either
 package's store module.
@@ -247,3 +248,21 @@ class ObjectStore:
                 out.append(inf)
             seq = int((msg.headers or {}).get("Nats-Sequence", seq + 1))
         return out
+
+    async def get(self, bucket: str, name: str) -> bytes:
+        parts = [chunk async for chunk in self.get_chunks(bucket, name)]
+        return b"".join(parts)
+
+    async def delete(self, bucket: str, name: str) -> None:
+        inf = await self.info(bucket, name)
+        await self._api(
+            f"STREAM.PURGE.{self._stream(bucket)}", {"filter": f"$O.{bucket}.C.{inf.nuid}"}
+        )
+        meta = dict(inf.raw)
+        meta.update({"deleted": True, "size": 0, "chunks": 0, "digest": ""})
+        await self.nc.publish(
+            f"$O.{bucket}.M.{_b64name(name)}",
+            json.dumps(meta, separators=(",", ":")).encode(),
+            headers={"Nats-Rollup": "sub"},
+        )
+        await self.nc.flush()

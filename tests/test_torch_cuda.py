@@ -30,6 +30,8 @@ the HBM ledger over ``torch.cuda.memory_stats`` stays quiet over freed
 allocations and fires once on held ones; with an engine serving, adverts
 make no CUDA call, the registry's ledger prices the engine and stays
 quiet, and each program's flops are the analytic count of its shapes.
+Swap-don't-shed: an int8-KV slot suspended to host memory and resumed
+into fresh blocks decodes the tokens it decodes on an ample pool.
 """
 
 import math
@@ -655,6 +657,64 @@ def test_crashed_batcher_memory_is_returned_on_the_card(gen, tmp_path):
     first, again, before, after = asyncio.run(run())
     assert abs(after - before) <= 0.01 * before, (before, after)
     assert again["choices"][0]["message"] == first["choices"][0]["message"]
+
+
+def test_kvq_slot_suspend_and_resume_on_the_card(gen, tmp_path):
+    """Slot suspend under int8 KV on the card: B's admit finds a 30-block
+    pool short and suspends A (its codes and scales read back to host
+    memory together); A resumes into fresh blocks once B ends and decodes
+    through K1q the same greedy tokens as beside B on an ample pool.
+    Nothing is shed and the pool is free after."""
+    import asyncio
+
+    from nats_llm_studio_tpu_torch.engine.generator import SamplingParams
+    from nats_llm_studio_tpu_torch.serve.batcher import ContinuousBatcher
+
+    registry = _small_registry(tmp_path, kv_quant="int8")
+    p_a = [(i * 7 + 3) % 509 for i in range(300)]
+    p_b = [(i * 11 + 5) % 509 for i in range(300)]
+
+    async def pressure(b):
+        started = asyncio.get_running_loop().create_future()
+
+        async def run_a():
+            out = []
+            async for t in b.submit(p_a, SamplingParams(temperature=0.0, max_tokens=24)):
+                out.append(t)
+                if len(out) == 2 and not started.done():
+                    started.set_result(None)
+            return out
+
+        ta = asyncio.ensure_future(run_a())
+        await started
+        got_b = [t async for t in b.submit(p_b, SamplingParams(temperature=0.0, max_tokens=8))]
+        return await ta, got_b
+
+    async def run():
+        eng = await registry.get_engine(_SMALL_MID)
+        params, cfg = eng.batcher.params, eng.batcher.cfg
+        out = []
+        for blocks in (0, 30):
+            b = ContinuousBatcher(params, cfg, max_slots=2, max_seq_len=1024, decode_burst=1,
+                                  admit_coalesce_ms=0.0, kv_pool_blocks=blocks)
+            try:
+                launches = pa.paged_decode_attention_kvq.launches
+                toks = await pressure(b)
+                while not b.idle:
+                    await asyncio.sleep(0.01)
+                out.append((toks, dict(b._suspend_stats), b.stats.shed_cause_counts(),
+                            b.pool_stats(), pa.paged_decode_attention_kvq.launches - launches))
+            finally:
+                b.stop()
+        await registry.close()
+        return out
+
+    (want, _, _, _, _), (got, sus, sheds, pool, launches) = asyncio.run(run())
+    assert got == want, "the resumed int8 slot departed from its ample-pool tokens"
+    assert sus["suspended_total"] >= 1 and sus["resumed_total"] == sus["suspended_total"]
+    assert sheds.get("kv_pool", 0) == 0
+    assert pool["blocks_free"] == pool["blocks_total"] and pool["kv_quant"] == "int8"
+    assert launches > 0  # K1q decoded the resumed slot
 
 
 def test_profile_trace_names_the_paged_decode_kernel(gen, tmp_path):

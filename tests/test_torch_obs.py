@@ -51,25 +51,17 @@ from nats_llm_studio_tpu_torch.transport.envelope import deadline_header_value
 from test_torch_serve import MID, _export
 
 # families the JAX worker renders for features the port does not have yet,
-# each with the ROADMAP item it waits for
+# each with the ROADMAP Queue A item it waits for
 NOT_PORTED = {
-    # item 5: disaggregated prefill (roles, KV transfer, warm handoff),
-    # KV tiers, the legacy ring
+    # item 3: disaggregated prefill (roles, KV transfer, warm handoff); item
+    # 7: the legacy ring
     "lmstudio_worker_role", "lmstudio_kv_transfer_bytes_total",
     "lmstudio_kv_transfer_ms_total", "lmstudio_kv_transfer_failures_total",
     "lmstudio_warm_handoff_sent_total", "lmstudio_warm_handoff_received_total",
     "lmstudio_batcher_ring_compactions_total",
-    *(f"lmstudio_kv_tier_{g}" for g in ("host_entries", "host_bytes", "host_budget_bytes",
-                                          "spill_pending", "suspended_slots")),
-    *(f"lmstudio_kv_tier_{c}_total" for c in (
-        "demoted_chunks", "promoted_chunks", "demote_failures", "host_hits", "host_misses",
-        "spilled_blobs", "fetched_blobs", "spill_failures", "fetch_failures",
-        "demoted_blocks", "suspended", "resumed", "suspend_failures",
-        "suspended_deadline_expired")),
-    "lmstudio_prefix_cache_demote_failures_total", "lmstudio_prefix_cache_demoted_blocks_total",
-    # item 7: the serving mesh
+    # item 6: the serving mesh
     "lmstudio_mesh_tp", "lmstudio_mesh_dp", "lmstudio_mesh_ep", "lmstudio_mesh_sp",
-    # item 8: XLA's compile cache and recompiles, and its kernel choice
+    # item 5: XLA's compile cache and recompiles, and its kernel choice
     # (the port has one decode kernel and no compile cache yet)
     "lmstudio_compile_cache_hits_total", "lmstudio_compile_cache_misses_total",
     "lmstudio_decode_recompiles_total", "lmstudio_batcher_decode_recompiles_total",
