@@ -20,7 +20,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
              start 256) and, K3/K4, on a partial prefix hit (@fill: start 512
              right after two cached chunks were copied in, exactly); K1 and
              K1q also at a speculative verify's width (@W7: 7 query rows a
-             slot, two m16 tiles of 28 rows a kv head).
+             slot, two m16 tiles of 28 rows a kv head). Each row names the
+             body that ran (body=wgmma: the Hopper body of K2/K3/K4 at head
+             dim 128; mma: mma.sync tiles), read from the wrapper's
+             per-body launch counter; over the phases below every bf16
+             flash launch must take the Hopper body (the float32 logits
+             gates run the FMA body).
 3. model   — write a bf16 GGUF at Meta-Llama-3-8B's published widths (the
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
@@ -504,9 +509,16 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
     results: dict[str, dict] = {}
     for name, (make, kern, plain) in cases.items():
         errs, rel = [], []
+        # the body a flash wrapper ran, read from its per-body launch counter
+        # (the paged wrappers' tensor-core body is fixed by the plan: mma)
+        bodies = getattr(kern, "body_launches", None)
+        body = "mma"
         for i in range(ERR_SEEDS):
             x = make(torch, torch.Generator(device=dev).manual_seed(seed + i), c)
+            before = dict(bodies) if bodies is not None else None
             got, want = kern(*x["args"]), plain(*x["args"])
+            if before is not None and i == 0:
+                body = "+".join(k for k in bodies if bodies[k] != before[k])
             errs.append(float((got.float() - want.float()).abs().max()))
             rel.append(row_rel_err(got, want))
             if i == 0:
@@ -514,7 +526,7 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
             del x, got, want
         results[name] = dict(max_abs_err=max(errs), errs=errs, max_row_rel_err=max(rel),
                              rels=rel, shape=first["shape"], args=first["args"], kern=kern,
-                             plain=plain)
+                             plain=plain, body=body)
         torch.cuda.empty_cache()
 
     # K1, K1q: bytes of each slot's live K/V rows, read once (bf16 rows of D
@@ -599,7 +611,7 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
         del args
         torch.cuda.empty_cache()
     for name, r in results.items():
-        log(f"kernel {name}: {r['shape']}: max_abs_err={r['max_abs_err']:.3e} over "
+        log(f"kernel {name}: body={r['body']}: {r['shape']}: max_abs_err={r['max_abs_err']:.3e} over "
             f"{ERR_SEEDS} draws {[f'{e:.3e}' for e in r['errs']]}, max_row_rel_err="
             f"{r['max_row_rel_err']:.3e} {[f'{e:.3e}' for e in r['rels']]} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) "
@@ -2849,8 +2861,15 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
             return enqueue(*a, **kw)
 
         batcher._enqueue = timed_enqueue
+        # the earlier long chat's chunks may still be spilling to the
+        # object store over the worker's event loop, beside these arrivals
+        tiers = batcher.kv_tiers
+        spill0 = tiers.stats() if tiers is not None else {}
         rs = await asyncio.gather(*[h.chat(MID, t, 4) for t in wave])
         batcher._enqueue = enqueue
+        out["group_spill_pending"] = spill0.get("spill_pending")
+        out["group_spilled_blobs"] = ((tiers.stats()["spilled_blobs"] - spill0["spilled_blobs"])
+                                      if tiers is not None else None)
         for r in rs:
             ok(r, "group chat")
         out["group_arrivals_ms"] = [round((t - enq[0]) * 1e3, 2) for t in enq]
@@ -2859,7 +2878,9 @@ async def lifecycle_phase(torch, model_root: Path, work: Path, seed: int,
         out["group_peak_bytes"] = (torch.cuda.max_memory_allocated(torch) - base) if cuda else 0
         log(f"lifecycle: four concurrent chats of {out['group_prompt_tokens']} tokens, "
             f"arriving at the batcher at {out['group_arrivals_ms']} ms, "
-            f"{out['group_admits']} admitted by one chunked group; peak over the load and "
+            f"{out['group_admits']} admitted by one chunked group (KV tier: "
+            f"{out['group_spill_pending']} spills pending as the wave was sent, "
+            f"{out['group_spilled_blobs']} blobs spilled during it); peak over the load and "
             f"every chat {out['group_peak_bytes']} bytes (estimate total {big['total']})")
         if out["group_admits"] < 4:
             raise AssertionError(f"the four long chats were not admitted as one group: "
@@ -3004,6 +3025,10 @@ def main() -> int:
 
     counters = (pa.paged_decode_attention, pa.paged_decode_attention_kvq, fa.flash_attention,
                 fa.flash_attention_chunk, fa.flash_attention_chunk_kvq)
+    # the flash wrappers' launches by body over every phase from here on
+    # (the main path: serve, tier, overload, cluster, lifecycle)
+    flash = (fa.flash_attention, fa.flash_attention_chunk, fa.flash_attention_chunk_kvq)
+    body0 = {f.__name__: dict(f.body_launches) for f in flash}
     paths = {kv: serve_path(torch, model_root, kv, args.seed, counters)
              for kv in ("none", "int8")}
     tier = {kv: tier_phase(torch, model_root, kv, counters) for kv in ("none", "int8")}
@@ -3037,6 +3062,16 @@ def main() -> int:
         if launches[name] != 0:
             raise AssertionError(f"lifecycle: {name} was launched under the bf16 KV cache")
     lifecycle["launches"] = launches
+    bodies = {f.__name__: {k: n - body0[f.__name__][k] for k, n in f.body_launches.items()}
+              for f in flash}
+    log(f"flash launches by body over the main path (serve, tier, overload, cluster, "
+        f"lifecycle): {bodies}")
+    for name, by in bodies.items():
+        # Llama-3-8B at head_dim 128: every bf16 launch takes the Hopper body
+        # (the FMA body's launches are the float32 logits gates')
+        if by["wgmma"] <= 0 or by["mma"]:
+            raise AssertionError(f"{name}: the main path's bf16 launches ran bodies {by}, "
+                                 f"not only wgmma")
     shutil.rmtree(work, ignore_errors=True)
     for name in ("prefill", "decode"):
         a, b = paths["int8"]["gate"][name], paths["none"]["gate"][name]
@@ -3048,26 +3083,26 @@ def main() -> int:
     log(f"pool: {pb['blocks_total']} blocks: bf16 {pb['bytes']} bytes, int8 {pq['bytes']} "
         f"bytes ({pq['bytes'] / pb['bytes']:.4f} x)")
 
-    # per wrapper: its source, the TPU kernel it replaces, and its design
-    # (mma: the tensor-core body; fma: f32 FMAs from shared memory)
+    # per wrapper: its source and the TPU kernel it replaces; per row the
+    # body that ran (wgmma: the Hopper body; mma: mma.sync tensor-core tiles)
     src = {
         "paged_decode_attention": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
-                                   "nats_llm_studio_tpu/ops/paged_attention.py:205", "mma"),
+                                   "nats_llm_studio_tpu/ops/paged_attention.py:205"),
         "paged_decode_attention_kvq": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
-                                       "nats_llm_studio_tpu/ops/paged_attention.py:205", "mma"),
+                                       "nats_llm_studio_tpu/ops/paged_attention.py:205"),
         "flash_attention": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
-                            "nats_llm_studio_tpu/ops/flash_attention.py:143", "mma"),
+                            "nats_llm_studio_tpu/ops/flash_attention.py:143"),
         "flash_attention_chunk": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
-                                  "nats_llm_studio_tpu/ops/flash_attention.py:288", "mma"),
+                                  "nats_llm_studio_tpu/ops/flash_attention.py:288"),
         "flash_attention_chunk_kvq": ("nats_llm_studio_tpu_torch/csrc/flash_attention.cu",
-                                      "nats_llm_studio_tpu/ops/flash_attention.py:438", "mma"),
+                                      "nats_llm_studio_tpu/ops/flash_attention.py:438"),
     }
     rows = []
     for name, r in kernels.items():
         wrapper = r["kern"].__name__
         rows.append({
             "name": name, "route": "cuda", "source": src[wrapper][0],
-            "replaces": src[wrapper][1], "design": src[wrapper][2], "shape": r["shape"],
+            "replaces": src[wrapper][1], "design": r["body"], "shape": r["shape"],
             # the wrapper's launches over both serve and tier phases, the
             # overload, the cluster and the lifecycle phases (K2 serves both
             # KV modes), at whatever shapes they ran: a second row of one
@@ -3078,6 +3113,7 @@ def main() -> int:
             + overload["launches"][wrapper] + cluster["launches"][wrapper]
             + lifecycle["launches"][wrapper],
             "launches_of": wrapper,
+            "launches_by_body": bodies.get(wrapper),
             "max_abs_err": r["max_abs_err"], "max_row_rel_err": r["max_row_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -47,6 +47,7 @@ _BPE_PATTERN_ASCII = (  # fallback when `regex` is unavailable
     r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\w\d]?[^\W\d_]+|\d{1,3}"
     r"| ?[^\s\w\d]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
 )
+_PIECE_CACHE_MAX = 1 << 16  # pieces a gpt2 tokenizer remembers the ids of
 
 
 @lru_cache(maxsize=1)
@@ -105,6 +106,9 @@ class GGUFTokenizer:
             self._u2b = {c: b for b, c in self._b2u.items()}
             pat = _BPE_PATTERN if _HAVE_REGEX else _BPE_PATTERN_ASCII
             self._pre = _re.compile(pat)
+            # pre-tokenized piece -> ids: words recur, and their merge loop
+            # dominates a long prompt's encode (it runs on the event loop)
+            self._piece_ids: dict[str, list[int]] = {}
         self._control_ids = {
             i for i, tt in enumerate(token_types or []) if tt == TokenType.CONTROL
         }
@@ -200,12 +204,16 @@ class GGUFTokenizer:
 
     def _encode_bpe(self, text: str) -> list[int]:
         ids: list[int] = []
+        cache = self._piece_ids
         for piece in self._pre.findall(text):
-            mapped = "".join(self._b2u[b] for b in piece.encode("utf-8"))
-            for part in self._bpe_merge(mapped):
-                tid = self.vocab.get(part)
-                if tid is not None:
-                    ids.append(tid)
+            got = cache.get(piece)
+            if got is None:
+                mapped = "".join(self._b2u[b] for b in piece.encode("utf-8"))
+                got = [tid for tid in map(self.vocab.get, self._bpe_merge(mapped))
+                       if tid is not None]
+                if len(cache) < _PIECE_CACHE_MAX:
+                    cache[piece] = got
+            ids.extend(got)
         return ids
 
     def _bpe_merge(self, word: str) -> Iterable[str]:

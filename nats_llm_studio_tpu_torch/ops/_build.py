@@ -55,6 +55,7 @@ SIGNATURES = {
             [_i, _i, _p, _i64, _i64, _i64, _p, _i64, _i64, _i64, _p, _i64, _i64,
              _p, _i64, _i64, _i64, _p, _i64, _i64,
              _p, _i, _i, _i, _i, _i, _i, _f, _p], _i),
+        "flash_body": ([_i, _i], _i),
     },
 }
 

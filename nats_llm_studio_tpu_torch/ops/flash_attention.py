@@ -11,11 +11,14 @@ Port of ``nats_llm_studio_tpu/ops/flash_attention.py``:
 * ``flash_attention_chunk_kvq`` (K4): K3 over an int8 slab, codes
   [B, Hkv, KW, D] and f32 scales [B, Hkv, KW], dequantized tile by tile.
 
-All three launch the FA2-style kernel of ``csrc/flash_attention.cu``; the
-slabs may be strided views of the row cache (e.g.
-``k_cache[:, layer, :, :win]``), which the kernel reads in place. Each
-wrapper launches its kernel for CUDA tensors and uses its plain version
-only for CPU tensors.
+All three launch a kernel of ``csrc/flash_attention.cu``, whose
+``body_of`` picks the body by q dtype and head dim: bf16 at D = 128 the
+Hopper body (wgmma products on operands brought by TMA),
+other bf16 head dims the mma.sync body, f32 the FMA body. The slabs may be
+strided views of the row cache (e.g. ``k_cache[:, layer, :, :win]``),
+which the kernels read in place. Each wrapper launches its kernel for CUDA
+tensors and uses its plain version only for CPU tensors; it counts its
+launches (``launches``) and, by body, in ``body_launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,26 @@ from .kvcache import KVQ, dequantize
 from .layers import NEG_INF, softmax_pv
 
 HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
+BODIES = ("fma", "mma", "wgmma")  # the kernel's body codes (csrc Body)
+_bodies: dict = {}
+
+
+def kernel_body(dtype, d: int) -> str:
+    """The body K2, K3 and K4 run for q in ``dtype`` at head dim ``d``, as
+    the library's ``flash_body`` rules (cached per key)."""
+    key = (dtype, d)
+    body = _bodies.get(key)
+    if body is None:
+        code = _build.load_library("flash_attention").flash_body(_build.dtype_code(dtype), d)
+        if code < 0:
+            raise TypeError(f"no flash kernel body for {dtype} at head_dim {d}")
+        body = _bodies[key] = BODIES[code]
+    return body
+
+
+def _count(fn, body: str) -> None:
+    fn.launches += 1
+    fn.body_launches[body] += 1
 
 
 def flash_attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -112,7 +135,7 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
         out.data_ptr(), b, t, hq, hkv, float(scale),
         _build.current_stream(q.device))
     _build.check_launch("flash_attention", rc)
-    flash_attention.launches += 1
+    _count(flash_attention, kernel_body(q.dtype, d))
     return out
 
 
@@ -138,7 +161,7 @@ def flash_attention_chunk(q, k, v, scale: float, start: int) -> torch.Tensor:
         out.data_ptr(), b, c, hq, hkv, kw, int(start), float(scale),
         _build.current_stream(q.device))
     _build.check_launch("flash_attention_chunk", rc)
-    flash_attention_chunk.launches += 1
+    _count(flash_attention_chunk, kernel_body(q.dtype, d))
     return out
 
 
@@ -173,10 +196,10 @@ def flash_attention_chunk_kvq(q, kq, ks, vq, vs, scale: float, start: int) -> to
         out.data_ptr(), b, c, hq, hkv, kw, int(start), float(scale),
         _build.current_stream(q.device))
     _build.check_launch(name, rc)
-    flash_attention_chunk_kvq.launches += 1
+    _count(flash_attention_chunk_kvq, kernel_body(q.dtype, d))
     return out
 
 
-flash_attention.launches = 0
-flash_attention_chunk.launches = 0
-flash_attention_chunk_kvq.launches = 0
+for _fn in (flash_attention, flash_attention_chunk, flash_attention_chunk_kvq):
+    _fn.launches = 0
+    _fn.body_launches = dict.fromkeys(BODIES, 0)

@@ -100,7 +100,7 @@ from .batcher import (
 from .brownout import BrownoutConfig
 from .qos import ANON_TENANT, DEFAULT_PRIORITY, parse_priority_header
 from .constrain import ConstraintError, compile_token_dfa, validate_response_format
-from .template import render_chat_template, stop_token_ids
+from .template import chat_renderer, stop_token_ids
 
 log = logging.getLogger(__name__)
 
@@ -219,6 +219,7 @@ class TorchChatEngine(ChatEngine):
         self.meta = meta
         self.quantization = quantization
         self._stop_ids = stop_token_ids(tokenizer)
+        self._render = chat_renderer(meta)
 
     def _sampling(self, payload: dict) -> SamplingParams:
         return SamplingParams(
@@ -232,8 +233,7 @@ class TorchChatEngine(ChatEngine):
 
     def _encode_prompt(self, payload: dict) -> list[int]:
         messages = payload.get("messages") or []
-        prompt = render_chat_template(self.meta, messages, add_generation_prompt=True)
-        return self.tokenizer.encode(prompt)
+        return self.tokenizer.encode(self._render(messages, add_generation_prompt=True))
 
     def _parse_ext(self, payload: dict):
         """The engine-layer OpenAI extensions of a payload: (token_dfa,

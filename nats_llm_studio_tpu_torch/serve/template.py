@@ -116,22 +116,37 @@ def _generic_format(messages: list[dict], add_generation_prompt: bool) -> str:
     return "".join(parts)
 
 
-def render_chat_template(
-    md: dict[str, Any], messages: list[dict], add_generation_prompt: bool = True
-) -> str:
-    """messages -> prompt string, using (in order): the GGUF-embedded jinja
-    template, a family-specific fallback keyed off vocab markers, generic."""
+def chat_renderer(md: dict[str, Any]):
+    """The prompt builder of one model: ``render(messages,
+    add_generation_prompt=True) -> str``, using (in order) the GGUF-embedded
+    jinja template, a family-specific fallback keyed off vocab markers,
+    generic. The fallback is chosen here, once: the marker lookup builds a
+    set of the whole vocabulary (milliseconds at a 128k vocabulary), which
+    per chat would sit on the worker's event loop before every arrival."""
     template = md.get(KEY_CHAT_TEMPLATE)
-    if template:
-        out = _render_jinja(str(template), messages, add_generation_prompt, md)
-        if out is not None:
-            return out
     tokens = md.get("tokenizer.ggml.tokens")
     vocab = set(tokens) if tokens is not None else set()
     if "<|start_header_id|>" in vocab:
-        return _llama3_format(messages, add_generation_prompt)
-    if "<|start_of_role|>" in vocab:
-        return _granite_format(messages, add_generation_prompt)
-    if "<|im_start|>" in vocab:
-        return _chatml_format(messages, add_generation_prompt)
-    return _generic_format(messages, add_generation_prompt)
+        fallback = _llama3_format
+    elif "<|start_of_role|>" in vocab:
+        fallback = _granite_format
+    elif "<|im_start|>" in vocab:
+        fallback = _chatml_format
+    else:
+        fallback = _generic_format
+
+    def render(messages: list[dict], add_generation_prompt: bool = True) -> str:
+        if template:
+            out = _render_jinja(str(template), messages, add_generation_prompt, md)
+            if out is not None:
+                return out
+        return fallback(messages, add_generation_prompt)
+
+    return render
+
+
+def render_chat_template(
+    md: dict[str, Any], messages: list[dict], add_generation_prompt: bool = True
+) -> str:
+    """messages -> prompt string (``chat_renderer`` for a single call)."""
+    return chat_renderer(md)(messages, add_generation_prompt)

@@ -7,13 +7,15 @@ the kernels, a fresh prefill forward, and a paged decode step.
 * kernels: K1 (``paged_decode_attention``, bf16 pool) and K1q
   (``paged_decode_attention_kvq``, the same draws quantized to an int8
   pool) at the serve shape (8 slots, positions 4095 .. 5, 16-token
-  blocks), K2
-  (``flash_attention``) at T=512 and T=4096, and K3
-  (``flash_attention_chunk``) and K4 (``flash_attention_chunk_kvq``, int8
-  cache) at start 1024 over KW 2048 and at start 3840 over KW 4096, on the
-  inputs ``chip_smoke.py``'s kernel phase draws from seed 0; each by
-  ``chip_smoke.cuda_ms`` (CUDA events around calls queued behind a
-  device-side sleep).
+  blocks), and K2 (``flash_attention``), K3 (``flash_attention_chunk``)
+  and K4 (``flash_attention_chunk_kvq``, int8 cache) at every row of
+  ``chip_smoke.py``'s kernel phase, on the inputs it draws from seed 0;
+  each by ``chip_smoke.cuda_ms`` (CUDA events around calls queued behind
+  a device-side sleep).
+* host: the host microseconds a call of the K2, K3 and K4 wrappers takes
+  (their first kernel-phase row): 200 calls queued behind a device-side
+  sleep, so none waits on the card, timed on the host clock; the least of
+  five runs, and all five.
 * prefill: random bf16 weights at Meta-Llama-3-8B's published widths
   (``chip_smoke.LLAMA3_8B``; sigma 0.02, seeded), all 32 layers, made on
   the card; ``models.llama.forward`` runs one fresh prefill of 1024 and of
@@ -40,6 +42,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -87,17 +90,52 @@ def kernel_times(torch, smoke) -> None:
               pa.paged_decode_attention_kvq),
              ("flash_attention T=512", smoke.k2_inputs, fa.flash_attention),
              ("flash_attention T=4096", smoke.k2_long_inputs, fa.flash_attention),
+             ("flash_attention B=4 T=256", smoke.k2_group_inputs, fa.flash_attention),
              ("flash_attention_chunk start=1024 KW=2048", smoke.k3_inputs,
               fa.flash_attention_chunk),
              ("flash_attention_chunk start=3840 KW=4096", smoke.k3_long_inputs,
               fa.flash_attention_chunk),
+             ("flash_attention_chunk B=4 start=256 KW=512", smoke.k3_group_inputs,
+              fa.flash_attention_chunk),
+             ("flash_attention_chunk start=512 after a fill", smoke.k3_fill_inputs,
+              fa.flash_attention_chunk),
              ("flash_attention_chunk_kvq start=1024 KW=2048", smoke.k4_inputs,
               fa.flash_attention_chunk_kvq),
              ("flash_attention_chunk_kvq start=3840 KW=4096", smoke.k4_long_inputs,
+              fa.flash_attention_chunk_kvq),
+             ("flash_attention_chunk_kvq B=4 start=256 KW=512", smoke.k4_group_inputs,
+              fa.flash_attention_chunk_kvq),
+             ("flash_attention_chunk_kvq start=512 after a fill", smoke.k4_fill_inputs,
               fa.flash_attention_chunk_kvq))
     for name, make, kern in cases:
         args = make(torch, torch.Generator(device="cuda").manual_seed(SEED), c)["args"]
         print(f"kernel {name}: {smoke.cuda_ms(torch, lambda: kern(*args)):.4f} ms", flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+
+def host_times(torch, smoke, calls: int = 200, runs: int = 5) -> None:
+    from nats_llm_studio_tpu_torch.ops import flash_attention as fa
+
+    c = smoke.LLAMA3_8B
+    for name, make, kern in (("flash_attention T=512", smoke.k2_inputs, fa.flash_attention),
+                             ("flash_attention_chunk start=1024 KW=2048", smoke.k3_inputs,
+                              fa.flash_attention_chunk),
+                             ("flash_attention_chunk_kvq start=1024 KW=2048", smoke.k4_inputs,
+                              fa.flash_attention_chunk_kvq)):
+        args = make(torch, torch.Generator(device="cuda").manual_seed(SEED), c)["args"]
+        kern(*args)
+        us = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000_000)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                kern(*args)
+            us.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        print(f"host {name}: {min(us):.2f} us a call "
+              f"({', '.join(f'{u:.2f}' for u in us)})", flush=True)
         del args
         torch.cuda.empty_cache()
 
@@ -165,6 +203,7 @@ def main() -> int:
     smoke = load_chip_smoke()
     print(f"card: {smoke.card_line()}; root {args.root}; {LAYERS} layers", flush=True)
     kernel_times(torch, smoke)
+    host_times(torch, smoke)
     cfg = model_config(smoke)
     params = random_params(torch, cfg, SEED)
     prefill_times(torch, smoke, cfg, params)

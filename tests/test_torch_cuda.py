@@ -8,9 +8,12 @@ of a checkout (the test conftest needs jax, which that machine may lack):
 
 Tolerances: max abs error 1e-4 in float32 (summation order only) and 2e-2
 in bf16 (the bf16 tolerance of tests/test_flash_attention.py:184). bf16 K2,
-K3 and K4 run the tensor-core body of csrc/flash_attention.cu, float32 the
-FMA body; the flash cases cover both at ragged query, key and window
-edges, starts off the 64-key tile grid, groups 1 to 8 and D 64 to 256.
+K3 and K4 at D = 128 run the Hopper body of csrc/flash_attention.cu (wgmma
+on operands brought by TMA), at D 64 and 256 its mma.sync body, float32 the
+FMA body; the flash cases cover all three at ragged query, key and window
+edges (the Hopper body's through TMA's zero fill, each case counted on its
+per-body launch counter), starts off the tile grid, windows from an
+offset key, scales views off 16 bytes, groups 1 to 8 and D 64 to 256.
 bf16 K1 and K1q at D 64, 128 and 256 run the tensor-core body of
 csrc/paged_attention.cu (over a bf16 pool, and over int8 codes
 dequantized in shared memory), every other K1 and K1q shape the FMA body;
@@ -437,6 +440,79 @@ def test_flash_chunk_kernels_batch4_chunk256(gen, quant):
     got = kern(*args)
     assert kern.launches == before + 1
     _check(got, plain(*args), torch.bfloat16)
+
+
+def _ran_wgmma(kern, before):
+    """The wrapper launched once more, and by the Hopper body."""
+    return (kern.launches == before[0] + 1
+            and kern.body_launches["wgmma"] == before[1] + 1)
+
+
+@pytest.mark.parametrize("b,t,hq,hkv", [
+    (1, 200, 8, 8),      # group 1, T off the 128-row tile
+    (2, 300, 16, 4),     # group 4, a partial last q tile and kv tile
+    (1, 129, 32, 4),     # one row past a tile: a q tile of one row
+    (4, 256, 32, 8),     # the group admit: B = 4, T = 256
+    (1, 77, 16, 2),      # group 8, one partial tile
+    (2, 1000, 32, 8),    # many tiles, both ring stages reused
+])
+def test_flash_wgmma_body_matches_plain(gen, b, t, hq, hkv):
+    """K2 on the Hopper body (bf16, D = 128): ragged q and kv edges arrive
+    as TMA zero fill, and the mask still drops them."""
+    q = _rn(gen, b, t, hq, 128, dtype=torch.bfloat16)
+    k, v = (_rn(gen, b, t, hkv, 128, dtype=torch.bfloat16) for _ in range(2))
+    before = (fa.flash_attention.launches, fa.flash_attention.body_launches["wgmma"])
+    got = fa.flash_attention(q, k, v, 128 ** -0.5)
+    assert _ran_wgmma(fa.flash_attention, before)
+    _check(got, fa.flash_attention_plain(q, k, v, 128 ** -0.5), torch.bfloat16)
+
+
+# b, c, hq, hkv, kw, s (the row cache's length), start, off (the window's
+# first key in the cache)
+WGMMA_CHUNK_CASES = [
+    (1, 100, 8, 8, 300, 320, 200, 0),       # group 1, C and KW off the tile grid
+    (2, 33, 16, 4, 161, 200, 128, 0),       # group 4, KW = start + C
+    (1, 256, 32, 8, 700, 768, 444, 0),      # group 8, start off the grid
+    (4, 256, 32, 8, 512, 1024, 256, 0),     # the group admit's second chunk
+    (1, 256, 32, 8, 4096, 4096, 3840, 0),   # the last chunk of a 4096-token prompt
+    (2, 50, 8, 2, 181, 260, 131, 3),        # a window from key 3
+]
+
+
+@pytest.mark.parametrize("b,c,hq,hkv,kw,s,start,off", WGMMA_CHUNK_CASES)
+def test_flash_chunk_wgmma_body_matches_plain(gen, b, c, hq, hkv, kw, s, start, off):
+    """K3 on the Hopper body (bf16, D = 128) over strided views
+    [:, 1, :, off:off + kw] of a row cache."""
+    kc, vc = (_rn(gen, b, 3, hkv, s + off, 128, dtype=torch.bfloat16) for _ in range(2))
+    q = _rn(gen, b, c, hq, 128, dtype=torch.bfloat16)
+    win = slice(off, off + kw)
+    args = (q, kc[:, 1, :, win], vc[:, 1, :, win], 128 ** -0.5, start)
+    before = (fa.flash_attention_chunk.launches, fa.flash_attention_chunk.body_launches["wgmma"])
+    got = fa.flash_attention_chunk(*args)
+    assert _ran_wgmma(fa.flash_attention_chunk, before)
+    _check(got, fa.flash_attention_chunk_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,c,hq,hkv,kw,s,start,off", WGMMA_CHUNK_CASES + [
+    (1, 64, 8, 1, 130, 130, 66, 0),         # layer 1's scales 8 bytes off 16 (S = 130, Hkv = 1)
+    (2, 40, 12, 3, 97, 98, 57, 1),          # S = 99 with the window from key 1: 8 bytes off
+])
+def test_flash_chunk_kvq_wgmma_body_matches_plain(gen, b, c, hq, hkv, kw, s, start, off):
+    """K4 on the Hopper body (bf16 q, D = 128): codes by TMA, scales by
+    4-byte copies from views [:, 1, :, off:off + kw] of an int8 row cache
+    [B, 3, Hkv, S(+off), 128], whose layer and window offsets can leave the
+    scales' base off 16 bytes."""
+    kc, vc = _kvq(gen, b, 3, hkv, s + off, 128), _kvq(gen, b, 3, hkv, s + off, 128)
+    q = _rn(gen, b, c, hq, 128, dtype=torch.bfloat16)
+    win = slice(off, off + kw)
+    args = (q, kc.q[:, 1, :, win], kc.s[:, 1, :, win], vc.q[:, 1, :, win], vc.s[:, 1, :, win],
+            128 ** -0.5, start)
+    assert (args[2].data_ptr() % 16 != 0) == ((hkv * (s + off) + off) % 4 != 0)
+    before = (fa.flash_attention_chunk_kvq.launches,
+              fa.flash_attention_chunk_kvq.body_launches["wgmma"])
+    got = fa.flash_attention_chunk_kvq(*args)
+    assert _ran_wgmma(fa.flash_attention_chunk_kvq, before)
+    _check(got, fa.flash_attention_chunk_kvq_plain(*args), torch.bfloat16)
 
 
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
