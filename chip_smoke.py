@@ -20,12 +20,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
              start 256) and, K3/K4, on a partial prefix hit (@fill: start 512
              right after two cached chunks were copied in, exactly); K1 and
              K1q also at a speculative verify's width (@W7: 7 query rows a
-             slot, two m16 tiles of 28 rows a kv head). Each row names the
-             body that ran (body=wgmma: the Hopper body of K2/K3/K4 at head
-             dim 128; mma: mma.sync tiles), read from the wrapper's
-             per-body launch counter; over the phases below every bf16
-             flash launch must take the Hopper body (the float32 logits
-             gates run the FMA body).
+             slot, a 28-row bundle a kv head, held by one CTA). Each row
+             names the body that ran (body=wgmma: the Hopper body of
+             K2/K3/K4 at head dim 128; body=hopper: the Hopper body of
+             K1/K1q at head dim 128; mma: mma.sync tiles; fma: f32 FMAs),
+             read from the wrapper's per-body launch counter, and each
+             K1/K1q row has a line of its own with the device time of the
+             decode kernel and of its split merge (torch.profiler); over
+             the phases below every bf16 flash launch must take the
+             Hopper body (the float32 logits gates run the FMA body), and
+             so must every bf16 K1 and K1q launch.
 3. model   — write a bf16 GGUF at Meta-Llama-3-8B's published widths (the
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
@@ -102,7 +106,7 @@ verifies (k = 6 prompt-lookup drafts at 1-4 live slots):
              bound (every chat answered, depth and shed-only sheds, the
              brownout events, gauge and no verify at level >= 1), the
              heartbeat over a ~4000-token chunked prefill, profile naming
-             paged_decode_mma_kernel, debug.snapshot and debug.dump, the
+             paged_decode_hopper_kernel, debug.snapshot and debug.dump, the
              loop's cost with the recorder and the efficiency plane on and
              off, a crash injected into
              a decode program (restart, the same greedy text, memory within
@@ -230,6 +234,23 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_us(torch, fn, reps: int = 50) -> dict[str, float]:
+    """{kernel name: device µs a call of ``fn``} as torch.profiler sees
+    them over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0) > 0}
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     peak_flops, peak_bytes = PEAKS
     t_bytes = bytes_moved / peak_bytes * 1e3
@@ -296,7 +317,7 @@ SPEC_K = 6  # the registry's default draft length: a verify is W = k + 1 rows a 
 
 def k1_verify_inputs(torch, g, c: dict) -> dict:
     """K1 at a speculative verify's width: W = 7 rows a slot, 28 rows a kv
-    head with Llama-3's group of 4 (two m16 tiles)."""
+    head with Llama-3's group of 4 (two m16 tiles, one CTA)."""
     return k1_inputs(torch, g, c, w=SPEC_K + 1)
 
 
@@ -509,15 +530,13 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
     results: dict[str, dict] = {}
     for name, (make, kern, plain) in cases.items():
         errs, rel = [], []
-        # the body a flash wrapper ran, read from its per-body launch counter
-        # (the paged wrappers' tensor-core body is fixed by the plan: mma)
-        bodies = getattr(kern, "body_launches", None)
-        body = "mma"
+        # the body the wrapper ran, read from its per-body launch counter
+        bodies = kern.body_launches
         for i in range(ERR_SEEDS):
             x = make(torch, torch.Generator(device=dev).manual_seed(seed + i), c)
-            before = dict(bodies) if bodies is not None else None
+            before = dict(bodies)
             got, want = kern(*x["args"]), plain(*x["args"])
-            if before is not None and i == 0:
+            if i == 0:
                 body = "+".join(k for k in bodies if bodies[k] != before[k])
             errs.append(float((got.float() - want.float()).abs().max()))
             rel.append(row_rel_err(got, want))
@@ -608,6 +627,8 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
         r["ms"] = cuda_ms(torch, lambda: kern(*args))
         r["plain_ms"] = cuda_ms(torch, lambda: plain(*args), iters=5)
         r["library_ms"] = cuda_ms(torch, r.pop("library"))
+        if name.startswith("paged_"):
+            r["kernels_us"] = kernel_us(torch, lambda: kern(*args))
         del args
         torch.cuda.empty_cache()
     for name, r in results.items():
@@ -616,6 +637,12 @@ def kernel_phase(torch, seed: int) -> dict[str, dict]:
             f"{r['max_row_rel_err']:.3e} {[f'{e:.3e}' for e in r['rels']]} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) "
             f"library_ms={r['library_ms']:.4f}")
+        if "kernels_us" in r:
+            ks = r["kernels_us"]
+            merge = sum(us for k, us in ks.items() if "combine" in k)
+            log(f"kernel {name}: device time a call (torch.profiler): decode "
+                f"{(sum(ks.values()) - merge) / 1e3:.4f} ms, split merge {merge / 1e3:.4f} ms "
+                f"({', '.join(f'{k[:60]} {us:.2f} us' for k, us in ks.items())})")
         if not r["max_abs_err"] <= ABS_LIMIT:
             raise AssertionError(f"{name}: max abs error {r['max_abs_err']} > {ABS_LIMIT}")
         if not r["max_row_rel_err"] <= ROW_REL_LIMIT:
@@ -1961,7 +1988,7 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
     at level >= 1, and the lmstudio_brownout_level gauge follows the level. A ~4000-token
     prompt prefilled in chunks beside a live stream (K3): the largest
     heartbeat age, and no hang declared; meanwhile profile (a Chrome trace
-    naming paged_decode_mma_kernel), debug.snapshot (slot refcounts = the
+    naming paged_decode_hopper_kernel), debug.snapshot (slot refcounts = the
     pool's) and debug.dump (a file under OBS_DUMP_DIR). Supervision: a
     crash injected into a decode program, the supervisor's restart, the
     same greedy text, memory_allocated within 1% of before the crash; on a
@@ -2209,8 +2236,8 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
         prof = await subject(h, "profile", {"seconds": 1.0}, timeout=120.0)
         gate(prof["ok"] and prof["data"].get("bucket") == "profiles", f"profile: {prof}")
         trace_text = Path(prof["data"]["trace_file"]).read_text()
-        gate(device != "cuda" or "paged_decode_mma_kernel" in trace_text,
-             "the profile trace does not name paged_decode_mma_kernel")
+        gate(device != "cuda" or "paged_decode_hopper_kernel" in trace_text,
+             "the profile trace does not name paged_decode_hopper_kernel")
         stops[0].set()
         await asyncio.gather(*tasks)
         hung = [e for e in (await subject(h, "events", {"kind": "engine_supervisor",
@@ -2221,7 +2248,7 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
         out["profile"] = {"trace_bytes": len(trace_text), "bucket": prof["data"].get("bucket")}
         log(f"overload: heartbeat age at most {hb[0]:.3f} s over a {n_long}-token chunked "
             f"prefill beside a stream; profile trace {len(trace_text)} bytes names "
-            f"paged_decode_mma_kernel; debug.dump {dump['data']['dumps'][MID]}")
+            f"paged_decode_hopper_kernel; debug.dump {dump['data']['dumps'][MID]}")
 
         del b, verify, spy
 
@@ -3029,6 +3056,9 @@ def main() -> int:
     # (the main path: serve, tier, overload, cluster, lifecycle)
     flash = (fa.flash_attention, fa.flash_attention_chunk, fa.flash_attention_chunk_kvq)
     body0 = {f.__name__: dict(f.body_launches) for f in flash}
+    # and the paged wrappers' bf16 launches by body
+    paged = (pa.paged_decode_attention, pa.paged_decode_attention_kvq)
+    paged0 = {f.__name__: dict(f.bf16_body_launches) for f in paged}
     paths = {kv: serve_path(torch, model_root, kv, args.seed, counters)
              for kv in ("none", "int8")}
     tier = {kv: tier_phase(torch, model_root, kv, counters) for kv in ("none", "int8")}
@@ -3072,6 +3102,16 @@ def main() -> int:
         if by["wgmma"] <= 0 or by["mma"]:
             raise AssertionError(f"{name}: the main path's bf16 launches ran bodies {by}, "
                                  f"not only wgmma")
+    paged_bodies = {f.__name__: {k: n - paged0[f.__name__][k]
+                                 for k, n in f.bf16_body_launches.items()} for f in paged}
+    log(f"paged bf16 launches by body over the main path (serve, tier, overload, cluster, "
+        f"lifecycle): {paged_bodies}")
+    for name, by in paged_bodies.items():
+        # head_dim 128, 16-token blocks: every bf16 K1 and K1q launch takes
+        # the Hopper body
+        if by["hopper"] <= 0 or by["mma"] or by["fma"]:
+            raise AssertionError(f"{name}: the main path's bf16 launches ran bodies {by}, "
+                                 f"not only hopper")
     shutil.rmtree(work, ignore_errors=True)
     for name in ("prefill", "decode"):
         a, b = paths["int8"]["gate"][name], paths["none"]["gate"][name]
@@ -3084,7 +3124,8 @@ def main() -> int:
         f"bytes ({pq['bytes'] / pb['bytes']:.4f} x)")
 
     # per wrapper: its source and the TPU kernel it replaces; per row the
-    # body that ran (wgmma: the Hopper body; mma: mma.sync tensor-core tiles)
+    # body that ran (wgmma and hopper: the Hopper bodies; mma: mma.sync
+    # tensor-core tiles)
     src = {
         "paged_decode_attention": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
                                    "nats_llm_studio_tpu/ops/paged_attention.py:205"),
@@ -3113,7 +3154,7 @@ def main() -> int:
             + overload["launches"][wrapper] + cluster["launches"][wrapper]
             + lifecycle["launches"][wrapper],
             "launches_of": wrapper,
-            "launches_by_body": bodies.get(wrapper),
+            "launches_by_body": bodies.get(wrapper) or paged_bodies.get(wrapper),
             "max_abs_err": r["max_abs_err"], "max_row_rel_err": r["max_row_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
