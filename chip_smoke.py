@@ -22,14 +22,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
              K1q also at a speculative verify's width (@W7: 7 query rows a
              slot, a 28-row bundle a kv head, held by one CTA). Each row
              names the body that ran (body=wgmma: the Hopper body of
-             K2/K3/K4 at head dim 128; body=hopper: the Hopper body of
-             K1/K1q at head dim 128; mma: mma.sync tiles; fma: f32 FMAs),
-             read from the wrapper's per-body launch counter, and each
-             K1/K1q row has a line of its own with the device time of the
-             decode kernel and of its split merge (torch.profiler); over
-             the phases below every bf16 flash launch must take the
-             Hopper body (the float32 logits gates run the FMA body), and
-             so must every bf16 K1 and K1q launch.
+             K2/K3/K4 at head dim 128; mma: mma.sync tiles, which K1/K1q
+             run at head dim 128; fma: f32 FMAs), read from the wrapper's
+             per-body launch counter, and each K1/K1q row has a line of
+             its own with the device time of the decode kernel and of its
+             split merge (torch.profiler); over the phases below every
+             bf16 flash launch must take the Hopper body (the float32
+             logits gates run the FMA body), and every bf16 K1 and K1q
+             launch the mma.sync body.
 3. model   — write a bf16 GGUF at Meta-Llama-3-8B's published widths (the
              meta-llama/Meta-Llama-3-8B config.json: vocab 128256, d_model
              4096, 32 heads, 8 kv heads, head_dim 128, d_ff 14336,
@@ -106,7 +106,7 @@ verifies (k = 6 prompt-lookup drafts at 1-4 live slots):
              bound (every chat answered, depth and shed-only sheds, the
              brownout events, gauge and no verify at level >= 1), the
              heartbeat over a ~4000-token chunked prefill, profile naming
-             paged_decode_hopper_kernel, debug.snapshot and debug.dump, the
+             paged_decode_mma_kernel, debug.snapshot and debug.dump, the
              loop's cost with the recorder and the efficiency plane on and
              off, a crash injected into
              a decode program (restart, the same greedy text, memory within
@@ -1988,7 +1988,7 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
     at level >= 1, and the lmstudio_brownout_level gauge follows the level. A ~4000-token
     prompt prefilled in chunks beside a live stream (K3): the largest
     heartbeat age, and no hang declared; meanwhile profile (a Chrome trace
-    naming paged_decode_hopper_kernel), debug.snapshot (slot refcounts = the
+    naming paged_decode_mma_kernel), debug.snapshot (slot refcounts = the
     pool's) and debug.dump (a file under OBS_DUMP_DIR). Supervision: a
     crash injected into a decode program, the supervisor's restart, the
     same greedy text, memory_allocated within 1% of before the crash; on a
@@ -2236,8 +2236,8 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
         prof = await subject(h, "profile", {"seconds": 1.0}, timeout=120.0)
         gate(prof["ok"] and prof["data"].get("bucket") == "profiles", f"profile: {prof}")
         trace_text = Path(prof["data"]["trace_file"]).read_text()
-        gate(device != "cuda" or "paged_decode_hopper_kernel" in trace_text,
-             "the profile trace does not name paged_decode_hopper_kernel")
+        gate(device != "cuda" or "paged_decode_mma_kernel" in trace_text,
+             "the profile trace does not name paged_decode_mma_kernel")
         stops[0].set()
         await asyncio.gather(*tasks)
         hung = [e for e in (await subject(h, "events", {"kind": "engine_supervisor",
@@ -2248,7 +2248,7 @@ async def overload_phase(torch, model_root: Path, staging: Path, seed: int,
         out["profile"] = {"trace_bytes": len(trace_text), "bucket": prof["data"].get("bucket")}
         log(f"overload: heartbeat age at most {hb[0]:.3f} s over a {n_long}-token chunked "
             f"prefill beside a stream; profile trace {len(trace_text)} bytes names "
-            f"paged_decode_hopper_kernel; debug.dump {dump['data']['dumps'][MID]}")
+            f"paged_decode_mma_kernel; debug.dump {dump['data']['dumps'][MID]}")
 
         del b, verify, spy
 
@@ -3107,11 +3107,11 @@ def main() -> int:
     log(f"paged bf16 launches by body over the main path (serve, tier, overload, cluster, "
         f"lifecycle): {paged_bodies}")
     for name, by in paged_bodies.items():
-        # head_dim 128, 16-token blocks: every bf16 K1 and K1q launch takes
-        # the Hopper body
-        if by["hopper"] <= 0 or by["mma"] or by["fma"]:
+        # head_dim 128: every bf16 K1 and K1q launch takes the tensor-core
+        # body
+        if by["mma"] <= 0 or by["fma"]:
             raise AssertionError(f"{name}: the main path's bf16 launches ran bodies {by}, "
-                                 f"not only hopper")
+                                 f"not only mma")
     shutil.rmtree(work, ignore_errors=True)
     for name in ("prefill", "decode"):
         a, b = paths["int8"]["gate"][name], paths["none"]["gate"][name]
@@ -3124,8 +3124,7 @@ def main() -> int:
         f"bytes ({pq['bytes'] / pb['bytes']:.4f} x)")
 
     # per wrapper: its source and the TPU kernel it replaces; per row the
-    # body that ran (wgmma and hopper: the Hopper bodies; mma: mma.sync
-    # tensor-core tiles)
+    # body that ran (wgmma: the Hopper body; mma: mma.sync tensor-core tiles)
     src = {
         "paged_decode_attention": ("nats_llm_studio_tpu_torch/csrc/paged_attention.cu",
                                    "nats_llm_studio_tpu/ops/paged_attention.py:205"),

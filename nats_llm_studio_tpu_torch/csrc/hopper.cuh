@@ -8,20 +8,11 @@
 //    have landed; ``wait`` spins until the phase of the given parity has
 //    completed (a fresh barrier is in phase 0, so waiting on parity 1
 //    passes at once: the idiom for "the buffer starts empty");
-//  * cp_async_mbar_arrive: ``bar``'s current phase also waits for every
-//    cp.async this thread has issued (its pending count rises by one now
-//    and falls when they land);
 //  * tma_load_4d: one thread asks for a box of a tensor (a CUtensorMap
 //    built on the host, passed as a __grid_constant__ kernel parameter)
 //    at coordinates {c0 innermost, c1, c2, c3}; the bytes arrive in shared
 //    memory, swizzled as the map says, and complete on ``bar``. Elements
-//    outside the tensor's extent arrive as zeros, and count toward the
-//    box's bytes all the same;
-//  * bulk_load: one thread copies ``bytes`` contiguous bytes (16-byte
-//    aligned, a multiple of 16) from device to shared memory, completing
-//    on ``bar`` (cp.async.bulk, no tensor map);
-//  * encode_tiled (host): cuTensorMapEncodeTiled from libcuda, found
-//    through the runtime (no -lcuda at link time), or null;
+//    outside the tensor's extent arrive as zeros;
 //  * gmma_desc_sw128: the 64-bit shared-memory matrix descriptor of a
 //    wgmma operand stored in 128-byte swizzled rows (the layout a TMA copy
 //    with CU_TENSOR_MAP_SWIZZLE_128B writes: row r of 128 bytes at r * 128,
@@ -56,7 +47,6 @@
 #pragma once
 
 #include <cuda.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"  // smem_addr
@@ -94,11 +84,6 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return ok != 0;
 }
 
-__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
 // A wait that has spun ~2^35 cycles (over 15 s at the H100's clocks) has
 // lost an arrival: trap, so the launch fails with an error instead of
 // hanging the card.
@@ -125,38 +110,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(f)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // -- wgmma ------------------------------------------------------------------

@@ -6,8 +6,9 @@
 // paged history, read block by block through the block table, straight out
 // of the pool [NB, L, Hkv, T, D]. K1 reads a pool in q's dtype; K1q reads
 // int8 codes [NB, L, Hkv, T, D] with f32 scales [NB, L, Hkv, T] (the KVQ
-// cache) and dequantizes each tile in shared memory (code x scale in f32,
-// rounded to q's dtype, as the JAX kernel's quantized branch does).
+// cache) and dequantizes each tile as it copies it into shared memory
+// (code x scale in f32, rounded to q's dtype, as the JAX kernel's
+// quantized branch does).
 //
 // What bounds it on the H100: bytes. Each decode step reads every live K/V
 // row of every slot once (2 x context x Hkv x D x 2 bytes per slot per
@@ -16,148 +17,114 @@
 // (~4 in int8), far below the ~295 flops/byte where the tensor cores would
 // become the limit.
 //
-// Which body serves which (q dtype, pool storage, D, T), by body_of(), with
-// no fallback between them (a failed build or launch raises in the
-// wrapper):
-//  * bf16 q at D = 128 (every main-path model) over a bf16 pool (K1) or an
-//    int8 one (K1q), T % 8 == 0 and T a divisor or a multiple of 64:
-//    paged_decode_hopper_kernel<QUANT, M> + paged_combine_hopper_kernel,
-//    the Hopper body below. The block sizes the config makes (divisors of
-//    the prefill chunk) all qualify from 8 up; T < 8 (a box would start
-//    off the 1024-byte swizzle period, and a block's scales would be under
-//    16 bytes) and T = 24-style sizes go to the FMA body;
-//  * bf16 q at D = 64 and 256 (no main-path model): paged_decode_mma_kernel
-//    <KV, D> + paged_combine_mma_kernel, mma.sync tiles fed by a cp.async
-//    ring (the earlier body, kept by an explicit rule on D);
-//  * f32 q over either pool, and bf16 q at any other D (D % 8 == 0, D <=
-//    256; D % 16 == 0 over int8): paged_decode_kernel<T, KV> +
-//    paged_combine_kernel, f32 FMAs.
+// Which body serves which (q dtype, pool storage, D), chosen by type in
+// paged_decode_plan() and paged_decode_attention(), with no fallback:
+//  * (bf16, bf16, D in {64, 128, 256}), K1: paged_decode_mma_kernel<bf16, D,
+//    MT> (plan body 1);
+//  * (bf16, int8, D in {64, 128, 256}), K1q: paged_decode_mma_kernel<int8_t,
+//    D, MT> (plan body 2);
+//    MT, the m16 tiles a CTA holds, is 2 for a bundle of more than 16 rows
+//    at D <= 128, else 1;
+//  * every other pair, by an explicit rule (plan body 0): (f32, f32) and
+//    bf16 at any other D <= 256 with D % 8 == 0 (K1), and (f32, int8) and
+//    bf16 at any other D with D % 16 == 0 over int8 (K1q):
+//    paged_decode_kernel<T, KV>.
 //
-// The Hopper body. What held the mma.sync body back, measured on the card
-// before this design (scripts/decode_attention_ms.py --breakdown on the
-// mma.sync body; PERF.md): at the kernel phase's shape the decode kernel took
-// 22.3 us of K1's 28.6 (W = 1), the merge 3.5 and the gaps 2.8; at W = 7
-// 40.4 + 10.0 + 2.7, and 24.0 + 6.8 with the bundle cut to one m16 tile,
-// so the second m-tile's CTAs cost ~16 us. Forcing smaller splits (better
-// balance) made it slower (26.6 us at 2 tiles a split against 22.2 at 8):
-// each CTA's fixed start (table slice, Q, the ring's first tiles) and not
-// the imbalance sets its pace. Per-CTA timestamps of this body's first
-// versions (a diagnostic build, not kept) then showed where a CTA's time
-// goes: most CTAs wait on data (the card's bytes are the bound), and the
-// last CTAs, whose runs cross many short slots, pay a fixed cost for every
-// (slot, head) they start: its Q read under a saturated memory system and
-// its epilogue. So:
-//  * Work units are 64-key tiles of one (slot, virtual head): hv = h * RG +
-//    rg, the kv head and a row group of at most 32 bundle rows (RG = 1
-//    unless group x W > 32: Llama-3's 4 x 7 = 28 rows are one group),
-//    grouped in chunks of CH tiles (2 at M = 1, 3 at M = 2) from each
-//    head's tile 0. The online softmax starts afresh at every chunk, and a
-//    head of several chunks leaves one partial a chunk, merged in chunk
-//    order: a slot's numerics depend on nothing but its own length, so a
-//    request decodes the same text whatever else the batch holds (a
-//    partition of tiles by the whole batch's load changed a slot's split
-//    points, and so its roundings, with its neighbours; the smoke's prefix
-//    gate, a hit's text against its miss's, caught it). The grid is one
-//    wave of CTAs, as many as the card holds at once (the host knows B,
-//    Hkv, the table's width and the SM count, and asks the card's
-//    occupancy once a shape), fewer for small batches; each CTA reads
-//    pos[0..B), counts each slot's live tiles and chunks (hp_units) and
-//    takes an equal-cost run of whole chunks (HpShares: a tile costs 4, a
-//    chunk 2 (M = 1) to 7 (int8 at M = 2) more), which it walks as one
-//    pipeline across (slot, head) boundaries. The merge
-//    (paged_combine_hopper_kernel) reads the chunk ids from pos by the same
-//    function. Scratch is sized on the host for every slot's table full.
-//  * One CTA holds the whole row bundle (M = 1 or 2 m16 tiles): each tile
-//    is read from device memory once and, under int8, dequantized once,
-//    whatever W is. Each consumer warp keeps the Q fragments of every
-//    m-tile in registers (32 u32 an m-tile), and each K and V fragment it
-//    loads by ldmatrix feeds every m-tile's mma.sync m16n8k16.
-//  * Departure from one warp = one key quarter all the way: warp w scores
-//    keys 16 w .. 16 w + 15 of the tile against every row, the four warps
-//    trade their row maxes through shared memory (a named barrier), write
-//    P (bf16) to shared memory (a second barrier), and each then
-//    accumulates its own 32 output columns over all 64 keys. So the warps
-//    share one running max a row, each holds 16 x M accumulators (not
-//    64 x M: W = 7 keeps every Q fragment in registers under the two-CTA
-//    budget), and no merge of four warps' states is needed at a segment's
-//    end, only a sum of their row sums.
-//  * K/V tiles by TMA (cp.async.bulk.tensor.4d) under one CUtensorMap a
-//    pool, its (layer, head) pairs as one dim. bf16: {64, 2 T, L Hkv, NB},
-//    each 256-byte key row as two 128-byte lines, one box a block's rows
-//    (64 of them when T >= 64, at row (64 t) % T) with the 128-byte
-//    swizzle (hp_kv_off; the consumers' ldmatrix reads meet 2-way bank
-//    conflicts): half the TMA requests of a box a 64-column half (within
-//    the calls' spread on the card). int8: {128, T, L Hkv, NB}, whole
-//    128-byte code rows, unswizzled, and the f32 scales by 16-byte
-//    cp.async on the same mbarrier (cp.async.mbarrier.arrive), off the TMA
-//    unit: as 64-byte bulk copies they made the TMA warp, not the free
-//    stages, set the dequant warps' pace. A tile is one
-//    box (T >= 64) or 64 / T boxes of consecutive table entries, each
-//    issued by its own lane of the TMA warp, which reads the table three
-//    tiles ahead. A block with no live key is asked for at block NB,
-//    outside the pool, so TMA fills it with zeros (its bytes count all the
-//    same). The maps are encoded on the host once per pool (pool_map:
-//    keyed by address, storage and shape, 16 kept), not per call.
-//  * Q: consumer warp 0 brings each (slot, head)'s bundle rows into a Q
-//    buffer by 1-D bulk copies (one a row), two segments ahead (one for
-//    bf16 at M = 2, where a second buffer would not fit two CTAs an SM):
-//    a segment's Q buffer is refilled as soon as every warp holds its rows
-//    in registers, so the read overlaps the tiles before it.
-//  * Rings of full/empty mbarriers, filled by one TMA warp: bf16 three 32 KB
-//    stages (K and V of a tile); int8 code stages (16 KB of codes and 512 B
-//    of scales) and bf16 stages. Under int8, dequant warps convert each
-//    code stage into the swizzled bf16 stage, with dequant8_bf16's
-//    rounding, 16 codes a step, and hand both stages back on mbarriers,
-//    each warp on its own: the consumers see bf16 tiles only, and the
-//    conversion is off their path. Keys past the slot's live keys take
-//    scale 0 (zeros whatever the block held). No shared buffer a thread
-//    writes with ordinary stores is ever a TMA or bulk-copy destination
-//    (the bf16 ring under int8 is written and read by threads only,
-//    ordered by its mbarriers), so no proxy fence is needed: threads only
-//    read what the async proxy wrote, and a buffer goes back to TMA only
-//    after its readers have consumed what they read (as CUTLASS's TMA
-//    pipelines do).
-//  * CTAs at D = 128, with shared memory of the 227 KB a CTA may use:
-//    bf16: 4 consumer warps + the TMA warp, 3 x 32 KB ring, Q (2 x 4.25 KB
-//    at M = 1, 8.5 KB at M = 2), P (2 or 4 KB), maxes and sums (1 KB),
-//    barriers and the slot table (8 B a slot): ~108-110 KB, two CTAs an
-//    SM; int8 at M = 1: + 3 dequant warps, 2 bf16 and 2 code stages, ~109
-//    KB, two CTAs an SM; int8 at M = 2: the consumers' registers leave room
-//    for too few dequant warps at two CTAs an SM, so one CTA an SM with 7
-//    dequant warps, 3 bf16 and 4 code stages (~185 KB).
-//  * The merge stays a second launch (paged_combine_hopper_kernel, one CTA
-//    of 512 threads per (slot, virtual head, m-tile): a thread a row's 4
-//    columns, and with few live rows thread groups split the partials).
-
-// The mma.sync body (D = 64, 256), one CTA per (slot, kv-head, split,
-// m-tile): 4 warps, each 16 keys of a 64-key tile gathered key row by key
-// row through the table by cp.async into a three-stage ring (int8: codes
-// and scales, dequantized by the warp that reads them); S, online softmax
-// and P V on mma.sync fragments; the 4 warps merge in shared memory; splits
-// of a fixed number of tiles by the table's width, merged by
-// paged_combine_mma_kernel.
+// Shared by both bodies:
+//  * one CTA per (slot, kv-head, split): each K/V tile is read from device
+//    memory once and serves the whole GQA row bundle (group x W query
+//    rows), so the grouped heads cost no extra bytes;
+//  * the CTA reads its own block-table row and position and walks only its
+//    share of the live blocks 0..(pos+W-1)//T, so a slot's cost follows its
+//    context, not the table width (no scalar prefetch, no dead grid cells);
+//  * split-K (flash-decoding): each split leaves its unnormalized
+//    accumulator and (max, sum), and a second kernel merges them
+//    (paged_combine_mma_kernel for the tensor-core body, paged_combine_kernel
+//    for the FMA body);
+//  * the layer is a runtime argument indexed inside the kernel: the pool is
+//    never sliced or copied per layer.
 //
-// The FMA body (paged_decode_kernel<T, KV>): a tile is 64 keys (several
-// blocks), loaded with 16-byte vector loads issued four per thread before
-// their shared-memory stores; scores and PV products are scalar f32 FMAs
-// from padded shared-memory tiles; the table's tiles are divided among
-// about two CTAs an SM. Over int8 it dequantizes each tile as it stores it.
+// paged_decode_mma_kernel<KV, D, MT> (tensor cores, cp.async ring):
+//  * 4 warps; the bundle's rows, padded to 16, are m16 A fragments of Q.
+//    At D <= 128 one CTA holds up to two of them (mma_tiles_per_cta): a
+//    bundle of 17 to 32 rows, as a speculative verify's 28 (W = 7, group
+//    4), is one CTA, and each K and V fragment a warp loads by ldmatrix
+//    feeds the products of both m-tiles, so a tile is read from device
+//    memory, and under int8 dequantized, once whatever W is. Q stays in
+//    registers when it is one fragment at D <= 128 or two at D = 64, and is
+//    read from shared memory a k-step otherwise (two tiles' output
+//    fragments take 128 registers a lane at D = 128). A bundle of more than
+//    32 rows takes one CTA per pair of m-tiles; at D = 256 one CTA per
+//    m-tile (two tiles' 256 output registers a lane would spill);
+//  * 64-key tiles are gathered through the block table, key row by key row
+//    (block tbl[key / T], row key % T: any T, and a tile may span blocks),
+//    by cp.async into a three-stage ring: tiles t+1 and t+2 are in flight
+//    while tile t is computed. The CTA first copies its split's slice of
+//    the table row into shared memory. Only this load stage depends on KV:
+//      - bf16: the ring holds the swizzled bf16 K and V tiles themselves,
+//        16-byte copies by the whole CTA, one block barrier a tile;
+//      - int8: the ring holds codes (16-byte copies) and their f32 scales
+//        (4-byte copies, one a key row, through the same table slice) in one
+//        commit group a tile; keys past the split's end get codes and scale
+//        0. Since warp w reads only key rows 16w..16w+15 of K and of V, each
+//        warp copies its own 16 rows (two lanes a row: one row index a lane)
+//        and dequantizes them (code -> f32 by a byte permute and one add,
+//        times the scale in f32, rounded to nearest even: the JAX kernel's
+//        (codes.astype(f32) * scales[:, None]).astype(bf16), bit for bit)
+//        into its rows of one bf16 K and one bf16 V tile, which the
+//        ldmatrix reads below take as they are. The key loop then needs
+//        only cp.async waits and warp barriers, no block barrier. 87.5 KB
+//        a CTA at D = 128 (code ring 3 x 16.5 KB, bf16 tiles 32 KB, Q 4 KB)
+//        keeps two CTAs an SM, as the bf16 ring (101 KB) does: decode is a
+//        chain of latencies, so occupancy is worth more than overlap inside
+//        a CTA. The int8 pool halves the bytes; the conversion adds ~3.5
+//        instructions a K/V element;
+//  * each warp takes 16 keys of every tile: S = Q K^T (16 x 16, D/16
+//    k-steps of mma.sync m16n8k16 fed by ldmatrix), then scale, mask and
+//    online softmax on the fragments, P rounded to bf16 in registers (the
+//    JAX p.astype(v.dtype)) and O += P V with V by ldmatrix.trans. Each warp
+//    keeps its own (m, l, O); at the end the 4 warps merge in shared memory.
+//    The tensor cores are not the bound (128 mma.sync a 32 KB tile); they
+//    bring the operands in by ldmatrix rather than one shared load per FMA;
+//  * splits are sized by work: paged_decode_plan() gives each split a fixed
+//    number of tiles, as many splits as the table's width needs. CTAs past
+//    a slot's live tiles exit at once; a slot with one live split writes
+//    its output directly, and the combine step reads only the splits that
+//    held keys. A warp or split that saw no live key carries (m, l) =
+//    (-1e30, 0) and weighs 0. The attributes are set once a device. The
+//    merge gives each CTA 8 rows of the bundle (COMBINE_ROWS), so a
+//    verify's 28 rows spread over four CTAs a (slot, kv head);
+//  * why not TMA at D = 128: a body with a TMA/mbarrier K/V ring under
+//    tensor maps cached per pool, dequant warps for int8, and a split
+//    balanced on the card from ``pos`` (one wave of CTAs over chunks of
+//    every live (slot, kv head)) was built and measured on the H100 against
+//    this one (PERF.md section 6). It won only on a skewed batch at W = 7;
+//    at the decode step's own shape (8 slots of 512 tokens) its fixed cost
+//    a CTA (barrier set-up, ring fill, the chunked merge) made each call
+//    slower (paged attention 0.425 -> 0.594 ms a bf16 step of 32 layers),
+//    and the W = 7 loss it aimed at was the second m-tile's CTAs, which the
+//    two-tile CTA above removes. Decode does 2-4 flops a byte, so the
+//    tensor cores stay on mma.sync m16n8k16 (a wgmma tile's 64 rows would
+//    be 56-94% padding for a 4- or 28-row bundle).
+//
+// paged_decode_kernel<T, KV> (f32 FMAs): a tile is 64 keys (several
+// 16-token blocks), loaded with 16-byte vector loads issued four per thread
+// before their shared-memory stores; scores and PV products are scalar f32
+// FMAs from padded shared-memory tiles; the table's tiles are divided among
+// about two CTAs an SM. Over int8 (f32 K1q) it dequantizes each tile as it
+// stores it.
 //
 // Numerics follow the JAX kernel: f32 scores and online-softmax state,
 // -1e30 mask, probabilities rounded to the pool dtype before the PV product,
 // l clamped at 1e-30. Row r of the bundle is (query offset r / group,
-// q-head r % group); its causal frontier is key_pos <= pos + r / group. The
-// tensor-core bodies take ex2.approx of (s - max) in base 2, which is
-// exp(s - max) to ~2^-22 relative, far below the bf16 rounding of p.
+// q-head r % group); its causal frontier is key_pos <= pos + r / group.
 // Tables that point at the null block 0 give finite junk.
 
 #include <algorithm>
 #include <atomic>
-#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
-#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -417,14 +384,15 @@ paged_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-// -- mma.sync body: bf16 q over a bf16 pool (K1) or an int8 one (K1q), ------
-// -- D in {64, 256} ------------------------------------------------------------
+// -- tensor-core body: bf16 q over a bf16 pool (K1) or an int8 one (K1q), ----
+// -- D in {64, 128, 256} -------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
 constexpr int PM_STAGES = 3;  // K/V (or code) ring: tiles t + 1 and t + 2 load during tile t
 constexpr int MIN_SPLIT_TILES = 2;
 constexpr int MAX_SPLIT_TILES = 8;
+constexpr int COMBINE_ROWS = 8;  // bundle rows a CTA of paged_combine_mma_kernel merges
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -452,20 +420,25 @@ __host__ __device__ constexpr int code_stage_bytes(int D) {
   return 2 * TILE_KEYS * D + 2 * TILE_KEYS * 4;
 }
 
+// m16 tiles of the bundle one CTA holds (MT; the header's rule)
+int mma_tiles_per_cta(int D, int rows) { return D <= 128 && rows > 16 ? 2 : 1; }
+
 // Shared memory, then the split's slice of the block table. bf16 pool: the
-// K and V rings of PM_STAGES bf16 tiles, Q's 16 rows. int8 pool: one bf16 K
-// and one bf16 V tile, Q, the code ring of PM_STAGES stages. The warps'
-// final (m, l, O) reuse the first 256 x D bytes (the rings, or the bf16
-// tiles) and the 512 after them.
-size_t paged_mma_smem_bytes(bool quant, int D, int split_tiles, int Tb) {
+// K and V rings of PM_STAGES bf16 tiles, Q's 16 * MT rows. int8 pool: one
+// bf16 K and one bf16 V tile, Q, the code ring of PM_STAGES stages. The
+// warps' final (m, l, O) reuse the start of it (4 x 16 * MT rows of D + 2
+// f32, which every layout above covers).
+size_t paged_mma_smem_bytes(bool quant, int D, int MT, int split_tiles, int Tb) {
+  const size_t q_rows = 16 * (size_t)MT;
   const size_t tiles =
-      quant ? (size_t)(2 * TILE_KEYS + 16) * D * sizeof(bf16) +
+      quant ? (size_t)(2 * TILE_KEYS + q_rows) * D * sizeof(bf16) +
                   (size_t)PM_STAGES * code_stage_bytes(D)
-            : (size_t)(2 * PM_STAGES * TILE_KEYS + 16) * D * sizeof(bf16);
-  return tiles + (size_t)split_blocks(split_tiles, Tb) * sizeof(int);
+            : (size_t)(2 * PM_STAGES * TILE_KEYS + q_rows) * D * sizeof(bf16);
+  const size_t merge = 4 * q_rows * (D + 2) * sizeof(float);
+  return std::max(tiles, merge) + (size_t)split_blocks(split_tiles, Tb) * sizeof(int);
 }
 
-template <typename KV, int D>
+template <typename KV, int D, int MT>
 __global__ void __launch_bounds__(NTH)
 paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
                         const KV* __restrict__ k_pool,  // [NB, L, Hkv, Tb, D]
@@ -484,25 +457,26 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
   constexpr int KSTEPS = D / 16;
   constexpr int NO = D / 8;  // 8-column n-tiles of a warp's output
   constexpr int CH = D / 8;  // 16-byte chunks a row
-  constexpr bool Q_IN_REGS = D <= 128;  // D = 64; reloaded a k-step at D = 256
+  constexpr int QR = 16 * MT;  // bundle rows this CTA holds
+  constexpr bool Q_IN_REGS = D * MT <= 128;  // else ldmatrix'd from shared each k-step
   static_assert(TILE_KEYS == 16 * (NTH / 32), "one warp per 16 keys of a tile");
-  static_assert(TILE_KEYS * CH % NTH == 0 && 16 * CH % NTH == 0, "chunks per thread");
+  static_assert(TILE_KEYS * CH % NTH == 0 && QR * CH % NTH == 0, "chunks per thread");
   extern __shared__ __align__(16) unsigned char smem[];
   // bf16: the K and V rings [PM_STAGES][64][D]; int8: one bf16 K and one
   // bf16 V tile [64][D], then Q, then the code ring
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = sK + (QUANT ? 1 : PM_STAGES) * TILE;
-  bf16* sQ = sV + (QUANT ? 1 : PM_STAGES) * TILE;  // [16][D]
-  int8_t* sCodes = reinterpret_cast<int8_t*>(sQ + 16 * D);
+  bf16* sQ = sV + (QUANT ? 1 : PM_STAGES) * TILE;  // [QR][D]
+  int8_t* sCodes = reinterpret_cast<int8_t*>(sQ + QR * D);
   int* sT = reinterpret_cast<int*>(sCodes + (QUANT ? PM_STAGES * code_stage_bytes(D) : 0));
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int group = Hq / Hkv;
   const int rows = group * W;
-  const int m_tiles = (rows + 15) / 16;
-  const int mt = blockIdx.z % m_tiles;
-  const int split = blockIdx.z / m_tiles;
+  const int row_groups = ((rows + 15) / 16 + MT - 1) / MT;
+  const int r0 = blockIdx.z % row_groups * QR;  // the CTA's first bundle row
+  const int split = blockIdx.z / row_groups;
   const int p0 = pos[b];
   // keys past pos + W - 1 are masked for every row; the table ends at nbt * Tb
   const int n_keys = min(max(p0 + W, 1), nbt * Tb);
@@ -519,16 +493,16 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int* trow = tbl + (int64_t)b * nbt;
-  // Q: the m-tile's 16 bundle rows, row R reading q[b, R / group, h * group
+  // Q: the CTA's QR bundle rows, row R reading q[b, R / group, h * group
   // + R % group]; rows past the bundle are zero (their outputs are never
   // written). bf16: it lands with tile 0; int8: before the table's barrier
   auto load_q = [&]() {
 #pragma unroll
-    for (int it = 0; it < 16 * CH / NTH; ++it) {
+    for (int it = 0; it < QR * CH / NTH; ++it) {
       const int i = it * NTH + tid;
       const int r = i / CH;
       const int c = i - r * CH;
-      const int R = mt * 16 + r;
+      const int R = r0 + r;
       const bool ok = R < rows;
       const int w = R / group;
       const bf16* src = q + ((int64_t)(b * W + w) * Hq + h * group + (R - w * group)) * D;
@@ -627,23 +601,30 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
     cp_async_commit();
   }
 
-  float o[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {NEG_INF_F, NEG_INF_F};  // running max of rows g and g + 8 (base 2)
-  float l[2] = {0.f, 0.f};              // this lane's share of their running sums
-  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+  // per m-tile i of the CTA: the output fragments, the running max of rows
+  // g and g + 8 (base 2) and this lane's share of their running sums
+  float o[MT][NO][4];
+  float m[MT][2], l[MT][2];
   // the last key rows g and g + 8 of this lane see: the causal frontier
   // pos + R / group, inside the live keys
-  int lim[2];
+  int lim[MT][2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-    lim[hh] = min(p0 + (mt * 16 + (lane >> 2) + 8 * hh) / group, key_end - 1);
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int dt = 0; dt < NO; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][dt][e] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m[i][hh] = NEG_INF_F;
+      l[i][hh] = 0.f;
+      lim[i][hh] = min(p0 + (r0 + i * 16 + (lane >> 2) + 8 * hh) / group, key_end - 1);
+    }
+  }
+  uint32_t qf[MT][Q_IN_REGS ? KSTEPS : 1][4];
   const int x_qv = (lane >> 4) ^ (lane & 7);       // Q and V: chunk 2 * step + lane / 16
   const int x_k = ((lane >> 3) & 1) ^ (lane & 7);  // K: chunk 2 * step + (lane / 8) % 2
-  const bf16* sQw = sQ + (lane & 15) * D;
+  const bf16* sQw = sQ + (lane & 15) * D;          // m-tile i: + i * 16 * D
   // this warp's 16 keys of a tile: rows warp * 16 .. + 15 of the stage
   const int k_row = (warp * 16 + (lane >> 4) * 8 + (lane & 7)) * D;
   const int v_row = (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * D;
@@ -671,83 +652,110 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
     if constexpr (Q_IN_REGS) {
       if (t == 0) {
 #pragma unroll
-        for (int ks = 0; ks < KSTEPS; ++ks) ldmatrix_x4(qf[ks], sQw + (((2 * ks) ^ x_qv) << 3));
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int ks = 0; ks < KSTEPS; ++ks)
+            ldmatrix_x4(qf[i][ks], sQw + i * 16 * D + (((2 * ks) ^ x_qv) << 3));
       }
     }
 
-    // S = Q K^T: the m-tile's 16 rows x this warp's 16 keys
-    float s[2][4];
+    // S = Q K^T: each m-tile's 16 rows x this warp's 16 keys, one K
+    // fragment a k-step for all MT tiles
+    float s[MT][2][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][nt][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t a[4];
-      if constexpr (Q_IN_REGS) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
-      } else {
-        ldmatrix_x4(a, sQw + (((2 * ks) ^ x_qv) << 3));
-      }
       uint32_t kf[4];  // keys +0 .. +7 and +8 .. +15, dims ks*16 .. +15
       ldmatrix_x4(kf, sKs + k_row + (((2 * ks) ^ x_k) << 3));
-      mma_bf16_16816(s[0], a, kf[0], kf[1]);
-      mma_bf16_16816(s[1], a, kf[2], kf[3]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t a[4];
+        if constexpr (Q_IN_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[i][ks][e];
+        } else {
+          ldmatrix_x4(a, sQw + i * 16 * D + (((2 * ks) ^ x_qv) << 3));
+        }
+        mma_bf16_16816(s[i][0], a, kf[0], kf[1]);
+        mma_bf16_16816(s[i][1], a, kf[2], kf[3]);
+      }
     }
 
     // scale (base 2) and mask: the frontier, the split's end, the table's end
     const int kbase = key0 + t * TILE_KEYS + warp * 16 + (lane & 3) * 2;
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = kbase + nt * 8 + (e & 1);
-        s[nt][e] = kp > lim[e >> 1] ? NEG_INF_F : s[nt][e] * scale_log2;
-      }
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kbase + nt * 8 + (e & 1);
+          s[i][nt][e] = kp > lim[i][e >> 1] ? NEG_INF_F : s[i][nt][e] * scale_log2;
+        }
 
     // online softmax on the fragments; a row that has seen no live key yet
     // keeps p = 0, so (m, l, O) stay (-1e30, 0, 0) and weigh 0 below
-    float corr[2];
+    bool rescale = false;
+    float corr[MT][2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = fmaxf(m[hh], fmaxf(fmaxf(s[0][2 * hh], s[0][2 * hh + 1]),
-                                    fmaxf(s[1][2 * hh], s[1][2 * hh + 1])));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mref = mx == NEG_INF_F ? 0.f : mx;
-      corr[hh] = fast_exp2(m[hh] - mref);
-      m[hh] = mx;
-      float sum = 0.f;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const float p0v = fast_exp2(s[nt][2 * hh] - mref);
-        const float p1v = fast_exp2(s[nt][2 * hh + 1] - mref);
-        s[nt][2 * hh] = p0v;
-        s[nt][2 * hh + 1] = p1v;
-        sum += p0v + p1v;
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = fmaxf(m[i][hh], fmaxf(fmaxf(s[i][0][2 * hh], s[i][0][2 * hh + 1]),
+                                         fmaxf(s[i][1][2 * hh], s[i][1][2 * hh + 1])));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mref = mx == NEG_INF_F ? 0.f : mx;
+        corr[i][hh] = fast_exp2(m[i][hh] - mref);
+        rescale |= corr[i][hh] != 1.f;
+        m[i][hh] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float p0v = fast_exp2(s[i][nt][2 * hh] - mref);
+          const float p1v = fast_exp2(s[i][nt][2 * hh + 1] - mref);
+          s[i][nt][2 * hh] = p0v;
+          s[i][nt][2 * hh + 1] = p1v;
+          sum += p0v + p1v;
+        }
+        l[i][hh] = l[i][hh] * corr[i][hh] + sum;
       }
-      l[hh] = l[hh] * corr[hh] + sum;
-    }
-    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+    if (__any_sync(0xffffffffu, rescale)) {
 #pragma unroll
-      for (int dt = 0; dt < NO; ++dt) {
-        o[dt][0] *= corr[0];
-        o[dt][1] *= corr[0];
-        o[dt][2] *= corr[1];
-        o[dt][3] *= corr[1];
-      }
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int dt = 0; dt < NO; ++dt) {
+          o[i][dt][0] *= corr[i][0];
+          o[i][dt][1] *= corr[i][0];
+          o[i][dt][2] *= corr[i][1];
+          o[i][dt][3] *= corr[i][1];
+        }
     }
 
-    // O += P V: P rounded to bf16 in registers (the JAX p.astype(v.dtype))
-    const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                           pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    // O += P V: P rounded to bf16 in registers (the JAX p.astype(v.dtype)),
+    // one V fragment a step for all MT tiles
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      pa[i][0] = pack_bf16(s[i][0][0], s[i][0][1]);
+      pa[i][1] = pack_bf16(s[i][0][2], s[i][0][3]);
+      pa[i][2] = pack_bf16(s[i][1][0], s[i][1][1]);
+      pa[i][3] = pack_bf16(s[i][1][2], s[i][1][3]);
+    }
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t vf[4];  // keys +0 .. +15, dims dp*16 .. +7 and +8 .. +15
       ldmatrix_x4_trans(vf, sVs + v_row + (((2 * dp) ^ x_qv) << 3));
-      mma_bf16_16816(o[2 * dp], a, vf[0], vf[1]);
-      mma_bf16_16816(o[2 * dp + 1], a, vf[2], vf[3]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16_16816(o[i][2 * dp], pa[i], vf[0], vf[1]);
+        mma_bf16_16816(o[i][2 * dp + 1], pa[i], vf[2], vf[3]);
+      }
     }
     stage = stage == PM_STAGES - 1 ? 0 : stage + 1;
   }
@@ -755,40 +763,42 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
   __syncthreads();  // every warp is done with the rings: they take (m, l, O)
 
   // the 4 warps' states, then their merge: weights 2^(m_w - max_w m_w)
-  float* sO = reinterpret_cast<float*>(smem);  // [4][16][D]
-  float* sML = sO + 4 * 16 * D;                // [4][16][2]
+  float* sO = reinterpret_cast<float*>(smem);  // [4][QR][D]
+  float* sML = sO + 4 * QR * D;                // [4][QR][2]
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float lt = l[hh];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const int r = warp * 16 + (lane >> 2) + 8 * hh;
-    if ((lane & 3) == 0) {
-      sML[r * 2] = m[hh];
-      sML[r * 2 + 1] = lt;
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float lt = l[i][hh];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int r = warp * QR + i * 16 + (lane >> 2) + 8 * hh;
+      if ((lane & 3) == 0) {
+        sML[r * 2] = m[i][hh];
+        sML[r * 2 + 1] = lt;
+      }
+#pragma unroll
+      for (int dt = 0; dt < NO; ++dt)
+        *reinterpret_cast<float2*>(sO + r * D + dt * 8 + (lane & 3) * 2) =
+            make_float2(o[i][dt][2 * hh], o[i][dt][2 * hh + 1]);
     }
-#pragma unroll
-    for (int dt = 0; dt < NO; ++dt)
-      *reinterpret_cast<float2*>(sO + r * D + dt * 8 + (lane & 3) * 2) =
-          make_float2(o[dt][2 * hh], o[dt][2 * hh + 1]);
-  }
   __syncthreads();
   const int64_t prow = (((int64_t)b * Hkv + h) * n_splits + split) * rows;
-  for (int i = tid; i < 16 * D / 4; i += NTH) {
+  for (int i = tid; i < QR * D / 4; i += NTH) {
     const int r = i / (D / 4);
     const int d = (i - r * (D / 4)) * 4;
-    const int R = mt * 16 + r;
+    const int R = r0 + r;
     if (R >= rows) break;  // rows grow with i
     float mx = NEG_INF_F;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, sML[(w * 16 + r) * 2]);
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, sML[(w * QR + r) * 2]);
     float lsum = 0.f;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-      const float wgt = fast_exp2(sML[(w * 16 + r) * 2] - mx);
-      lsum = fmaf(sML[(w * 16 + r) * 2 + 1], wgt, lsum);
-      const float4 x = *reinterpret_cast<const float4*>(sO + (w * 16 + r) * D + d);
+      const float wgt = fast_exp2(sML[(w * QR + r) * 2] - mx);
+      lsum = fmaf(sML[(w * QR + r) * 2 + 1], wgt, lsum);
+      const float4 x = *reinterpret_cast<const float4*>(sO + (w * QR + r) * D + d);
       acc.x = fmaf(x.x, wgt, acc.x);
       acc.y = fmaf(x.y, wgt, acc.y);
       acc.z = fmaf(x.z, wgt, acc.z);
@@ -814,52 +824,59 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,     // [B, W, Hq, D]
 // Merge the splits of one (slot, kv-head) for paged_decode_mma_kernel: split
 // s held key tiles [s * split_tiles, (s + 1) * split_tiles) of the slot's
 // live tiles, so only the first ceil(live / split_tiles) are read, and a
-// slot with one live split was written by that split directly. Every
-// (split, row) (m, l) is read at once into shared memory, each row's
-// weights exp(m_s - max m) and 1 / sum are formed once, then each thread
-// sums 4 adjacent output columns over the splits with independent loads.
+// slot with one live split was written by that split directly. A CTA takes
+// COMBINE_ROWS rows of the bundle (blockIdx.z), so a wide bundle (a
+// verify's 28 rows) spreads over as many CTAs as its rows need rather than
+// lengthening one CTA's chain of loads. Every (split, row) (m, l) is read
+// at once into shared memory, each row's weights exp(m_s - max m) and
+// 1 / sum are formed once, then each thread sums 4 adjacent output columns
+// over the splits with independent loads.
 template <int D>
 __global__ void __launch_bounds__(NTH)
 paged_combine_mma_kernel(const float* __restrict__ part_acc,
                          const float* __restrict__ part_ml, bf16* __restrict__ out,
                          const int* __restrict__ pos, int W, int Hq, int Hkv, int Tb,
                          int nbt, int n_splits, int split_tiles) {
-  extern __shared__ float sw[];  // [n_splits][rows] m, then weights; [n_splits][rows] l; [rows]
+  extern __shared__ float sw[];  // [n_splits][nr] m, then weights; [n_splits][nr] l; [nr]
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int group = Hq / Hkv;
   const int rows = group * W;
+  const int r0 = blockIdx.z * COMBINE_ROWS;
+  const int nr = min(COMBINE_ROWS, rows - r0);
   const int n_keys = min(max(pos[b] + W, 1), nbt * Tb);
   const int ns = ((n_keys + TILE_KEYS - 1) / TILE_KEYS + split_tiles - 1) / split_tiles;
   if (ns <= 1) return;
-  float* sL = sw + n_splits * rows;
-  float* sInv = sL + n_splits * rows;
-  const int64_t base = ((int64_t)b * Hkv + h) * n_splits * rows;
-  for (int i = threadIdx.x; i < ns * rows; i += NTH) {
-    const float2 ml = *reinterpret_cast<const float2*>(part_ml + (base + i) * 2);
+  float* sL = sw + n_splits * nr;
+  float* sInv = sL + n_splits * nr;
+  const int64_t base = ((int64_t)b * Hkv + h) * n_splits * rows + r0;
+  for (int i = threadIdx.x; i < ns * nr; i += NTH) {
+    const int s = i / nr;
+    const float2 ml =
+        *reinterpret_cast<const float2*>(part_ml + (base + s * rows + i - s * nr) * 2);
     sw[i] = ml.x;
     sL[i] = ml.y;
   }
   __syncthreads();
-  for (int r = threadIdx.x; r < rows; r += NTH) {
+  for (int r = threadIdx.x; r < nr; r += NTH) {
     float mx = NEG_INF_F;
-    for (int s = 0; s < ns; ++s) mx = fmaxf(mx, sw[s * rows + r]);
+    for (int s = 0; s < ns; ++s) mx = fmaxf(mx, sw[s * nr + r]);
     float l = 0.f;
     for (int s = 0; s < ns; ++s) {
-      const float wgt = expf(sw[s * rows + r] - mx);
-      sw[s * rows + r] = wgt;
-      l = fmaf(sL[s * rows + r], wgt, l);
+      const float wgt = expf(sw[s * nr + r] - mx);
+      sw[s * nr + r] = wgt;
+      l = fmaf(sL[s * nr + r], wgt, l);
     }
     sInv[r] = 1.f / fmaxf(l, 1e-30f);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * (D / 4); i += NTH) {
+  for (int i = threadIdx.x; i < nr * (D / 4); i += NTH) {
     const int r = i / (D / 4);
     const int d = (i - r * (D / 4)) * 4;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
     for (int s = 0; s < ns; ++s) {
-      const float wgt = sw[s * rows + r];
+      const float wgt = sw[s * nr + r];
       const float4 x =
           *reinterpret_cast<const float4*>(part_acc + (base + s * rows + r) * D + d);
       acc.x = fmaf(x.x, wgt, acc.x);
@@ -868,821 +885,19 @@ paged_combine_mma_kernel(const float* __restrict__ part_acc,
       acc.w = fmaf(x.w, wgt, acc.w);
     }
     const float inv = sInv[r];
-    const int w = r / group;
-    bf16* orow = out + ((int64_t)(b * W + w) * Hq + h * group + (r - w * group)) * D + d;
+    const int R = r0 + r;
+    const int w = R / group;
+    bf16* orow = out + ((int64_t)(b * W + w) * Hq + h * group + (R - w * group)) * D + d;
     *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
     *reinterpret_cast<__nv_bfloat162*>(orow + 2) =
         __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
   }
 }
 
-
-// -- the Hopper body: bf16 q at D = 128 over a bf16 pool (K1) or an int8 one --
-// -- (K1q) ----------------------------------------------------------------------
-
-constexpr int HP_D = 128;
-constexpr int HP_KEYS = 64;                 // keys a tile: one unit of work
-constexpr int HP_TILE = HP_KEYS * HP_D * 2;  // bytes: one bf16 K or V tile
-constexpr int HP_STAGE = 2 * HP_TILE;       // bytes: a ring stage, K then V
-constexpr int HP_CODES = HP_KEYS * HP_D;    // bytes: one tile of K or V codes
-constexpr int HP_CODE_STAGE = 2 * HP_CODES + 2 * HP_KEYS * 4;  // K, V codes; K, V scales
-constexpr int HP_ROWS = 32;                 // bundle rows one CTA holds at most
-constexpr int HP_Q_ROW = HP_D * 2 + 16;     // bytes: a Q row in shared memory (ldmatrix
-                                            // reads 8 rows 16 bytes apart in the banks)
-constexpr int HP_COMBINE_THREADS = 512;  // one a (row, 4 columns) of an m-tile
-constexpr int BAR_CONSUMERS = 1;  // the consumers' named barrier (0 is __syncthreads)
-
-// Tiles a chunk at M m16 tiles a CTA (the partition below)
-__host__ __device__ constexpr int hp_chunk(int M) { return M == 1 ? 2 : 3; }
-
-// The CTA of paged_decode_hopper_kernel<QUANT, M>: 4 consumer warps and
-// the producers (bf16: one warp of TMA; int8: warps that issue the code
-// copies and dequantize), and its shared memory, in bytes: the bf16 ring
-// (1024-aligned stages, 128-byte swizzled halves), the code ring (int8),
-// the Q buffer, P of one tile, the consumers' row maxes and row sums, the
-// mbarriers (full and empty a bf16 stage, full a code stage, full the Q
-// buffer), then the tiles and the chunks before each slot [B + 1 each] and
-// the slots' positions [B].
-template <bool QUANT, int M>
-struct Hp {
-  // int8 at M = 2: the consumers' registers leave room for 2 producer
-  // warps at two CTAs an SM, too few to dequantize at the bytes' pace, so
-  // one CTA an SM with 8 producers and deeper rings
-  static constexpr bool WIDE = QUANT && M == 2;
-  static constexpr int CTAS_PER_SM = WIDE ? 1 : 2;
-  static constexpr int DEQUANT = QUANT ? (WIDE ? 7 : 3) : 0;  // dequant warps
-  // tiles a chunk (the unit of the numerics, hp_chunk) and a chunk's
-  // fixed cost in tile costs / HP_TILE_W (HpShares)
-  static constexpr int CH = hp_chunk(M);
-  static constexpr int SEG_W = M == 1 ? 2 : (WIDE ? 7 : 4);
-  // Q buffers: two, so each segment's Q is asked for two segments ahead,
-  // but one for bf16 at M = 2 (a second would not fit two CTAs an SM)
-  static constexpr int QBUF = QUANT || M == 1 ? 2 : 1;
-  static constexpr int THREADS = 32 * (5 + DEQUANT);  // 4 consumers, 1 TMA warp
-  static constexpr int STAGES = QUANT && !WIDE ? 2 : 3;
-  static constexpr int CODE_STAGES = QUANT ? (WIDE ? 4 : 2) : 0;
-  static constexpr int MR = 16 * M;  // rows a CTA holds (M m16 tiles)
-  static constexpr int CODES = STAGES * HP_STAGE;
-  static constexpr int Q = CODES + CODE_STAGES * HP_CODE_STAGE;
-  static constexpr int P = Q + QBUF * MR * HP_Q_ROW;
-  static constexpr int MAXES = P + MR * 128;
-  static constexpr int SUMS = MAXES + 4 * MR * 4;
-  static constexpr int BARS = SUMS + 4 * MR * 4;
-  static constexpr int SLOTS = BARS + (2 * STAGES + 2 * CODE_STAGES + QBUF) * 8;
-  static size_t bytes(int B) { return SLOTS + (size_t)(3 * B + 2) * 4; }
-};
-
-// -- the work partition, shared by the decode kernel and its merge ------------
-//
-// A tile is 64 keys of one (slot b, virtual head hv): hv = h * RG + rg,
-// where row group rg holds bundle rows [32 rg, 32 rg + 32) of kv head h
-// (RG = ceil(rows / 32); 1 unless group x W > 32). Slot b has
-// hp_tiles(pos[b]) live tiles; tiles are numbered slot by slot, head by
-// head, tile by tile: cum[b] tiles come before slot b, U = cum[B] in all.
-//
-// A chunk is CH consecutive tiles of one (slot, head) from its tile 0 (the
-// last may be shorter): the online softmax starts afresh at each chunk and
-// each chunk of a (slot, head) of several leaves one partial, which the
-// merge sums in chunk order. CH follows from M alone (hp_chunk), so a
-// slot's result does not depend on the other slots of the batch, nor on
-// which CTA took which chunk: the same request decodes the same text
-// beside any other traffic. cumc[b] chunks come before slot b.
-//
-// The CTAs share out the chunks in equal cost: a tile costs HP_TILE_W and
-// a chunk Hp::SEG_W more (its epilogue's barrier and stores and, at a
-// (slot, head) boundary, the wait for its Q; the weights were set from
-// per-CTA timestamps on the card: more at M = 2, whose epilogue stores
-// twice the rows, and most for int8 at M = 2, whose one CTA an SM takes
-// twice the tiles), so a CTA whose run crosses many short slots takes
-// fewer tiles. On the cost line chunk k of a (slot, head) starts k (seg_w
-// + TILE_W CH) past the head's start, and each head spans nch seg_w +
-// TILE_W nt. The CTAs make S = min(G, C / (2 (seg_w + TILE_W CH))) shares
-// (at least two chunks' cost each, so every share holds a chunk start and
-// small batches use fewer, fuller CTAs); share c takes the cost range
-// [c C / S, (c + 1) C / S) and with it the chunks that start there, a run
-// of tiles [begin(c), begin(c + 1)) that starts and ends on chunk edges.
-// CTAs past the last share exit.
-constexpr int HP_TILE_W = 4;
-
-__device__ __forceinline__ int hp_tiles(int p, int W, int table_keys) {
-  return (min(max(p + W, 1), table_keys) + HP_KEYS - 1) / HP_KEYS;
-}
-
-struct HpShares {
-  const int* cum;   // [B + 1] tiles before each slot
-  const int* cumc;  // [B + 1] chunks before each slot
-  int B, Hv, ch, segw;
-  int C;  // the cost of all chunks
-  int S;  // shares
-
-  // the cost line's position where slot b starts
-  __device__ __forceinline__ int slot_cost(int b) const {
-    return segw * cumc[b] + HP_TILE_W * cum[b];
-  }
-  // the first tile of the first chunk that starts at or past cost position
-  // cp (U at C)
-  __device__ __forceinline__ int tile_at(int cp) const {
-    int lo = 0, hi = B - 1;  // the last slot starting at or before cp
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (slot_cost(mid) <= cp) lo = mid;
-      else hi = mid - 1;
-    }
-    const int nt = (cum[lo + 1] - cum[lo]) / Hv;
-    const int nch = (cumc[lo + 1] - cumc[lo]) / Hv;
-    const int stride = segw + HP_TILE_W * ch;  // from one chunk's start to the next's
-    const int wb = segw * nch + HP_TILE_W * nt;
-    const int r = cp - slot_cost(lo);
-    const int hv = r / wb;
-    const int k = (r - hv * wb + stride - 1) / stride;
-    // k == nch: the next head's first tile (the next slot's, or U)
-    return cum[lo] + hv * nt + (k < nch ? k * ch : nt);
-  }
-  __device__ __forceinline__ int begin(int c) const {
-    return tile_at((int)((int64_t)c * C / S));
-  }
-};
-
-__device__ __forceinline__ HpShares hp_shares(const int* cum, const int* cumc, int B, int Hv,
-                                              int ch, int segw, int G) {
-  HpShares sh;
-  sh.cum = cum;
-  sh.cumc = cumc;
-  sh.B = B;
-  sh.Hv = Hv;
-  sh.ch = ch;
-  sh.segw = segw;
-  sh.C = segw * cumc[B] + HP_TILE_W * cum[B];
-  sh.S = max(1, min(G, sh.C / (2 * (segw + HP_TILE_W * ch))));
-  return sh;
-}
-
-// cum, cumc [0..B] and spos [0..B) from pos, by one warp (the caller syncs)
-__device__ __forceinline__ void hp_units(const int* __restrict__ pos, int B, int W,
-                                         int table_keys, int Hv, int ch, int* cum, int* cumc,
-                                         int* spos) {
-  const int lane = threadIdx.x & 31;
-  int carry = 0, carryc = 0;
-  for (int b0 = 0; b0 < B; b0 += 32) {
-    const int b = b0 + lane;
-    const int p = b < B ? pos[b] : 0;
-    const int nt = b < B ? hp_tiles(p, W, table_keys) : 0;
-    int x = Hv * nt;
-    int xc = Hv * ((nt + ch - 1) / ch);
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      const int yc = __shfl_up_sync(0xffffffffu, xc, o);
-      if (lane >= o) {
-        x += y;
-        xc += yc;
-      }
-    }
-    if (b < B) {
-      cum[b + 1] = carry + x;
-      cumc[b + 1] = carryc + xc;
-      spos[b] = p;
-    }
-    carry += __shfl_sync(0xffffffffu, x, 31);
-    carryc += __shfl_sync(0xffffffffu, xc, 31);
-  }
-  if (lane == 0) {
-    cum[0] = 0;
-    cumc[0] = 0;
-  }
-}
-
-struct HpUnit {
-  int b, hv, t, nt;  // slot, virtual head, tile, the slot's live tiles
-};
-
-__device__ __forceinline__ HpUnit hp_unit(const int* cum, int B, int Hv, int u) {
-  int lo = 0, hi = B - 1;  // the last slot with cum[b] <= u
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (cum[mid] <= u) lo = mid;
-    else hi = mid - 1;
-  }
-  HpUnit x;
-  x.b = lo;
-  x.nt = (cum[lo + 1] - cum[lo]) / Hv;
-  const int r = u - cum[lo];
-  x.hv = r / x.nt;
-  x.t = r - x.hv * x.nt;
-  return x;
-}
-
-// -- the producers' copies --------------------------------------------------
-
-// Lane i's block of tile t (lanes past the tile's box count: unused): its
-// id through the slot's table row, or NB (outside the pool: the box
-// arrives as zeros) when it holds no live key
-__device__ __forceinline__ int hp_block(const int* trow, int t, int n_keys, int Tb, int NB,
-                                        int lane) {
-  const int box = min(Tb, HP_KEYS);
-  const int j = t * HP_KEYS / Tb + lane;
-  return lane < HP_KEYS / box && j * Tb < n_keys ? trow[j] : NB;
-}
-
-// Byte offset of 16-byte chunk c (columns 8 c .. 8 c + 7) of key row r in
-// a bf16 K or V tile: the 256-byte row is two 128-byte lines, 2 r (columns
-// 0-63) and 2 r + 1 (64-127), whose chunks TMA's 128-byte swizzle places at
-// chunk ^ (line % 8). ldmatrix reads of 8 rows then meet 2-way bank
-// conflicts (rows r and r + 4 share a swizzle), the price of one TMA box a
-// block instead of one a 64-column half.
-__device__ __forceinline__ int hp_kv_off(int r, int c) {
-  const int line = 2 * r + (c >> 3);
-  return line * 128 + (((c & 7) ^ (line & 7)) << 4);
-}
-
-// One warp brings tile t onto ``bar``: lane i < 64 / box its block's boxes
-// (box = min(T, 64) rows at row (64 t) % T of the block, so a tile is one
-// box of a block when T >= 64 and 64 / T blocks when T < 64). bf16: the K
-// and V rows, each box a block's whole 256-byte rows as 128-byte lines,
-// 128-byte swizzled (hp_kv_off); int8: the K and V codes (whole 128-byte
-// rows, unswizzled), and the f32 scales of every row by 16-byte cp.async
-// (lane l: four rows of K, l < 16, or of V), tracked by the same barrier
-// (cp.async.mbarrier.arrive), so TMA takes one request a block and
-// operand. Lane 0 arms the barrier with the boxes' bytes: every box counts
-// in full, zero-filled or not.
-template <bool QUANT>
-__device__ __forceinline__ void hp_issue(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-                                         const float* ks, const float* vs, unsigned char* kd,
-                                         unsigned char* vd, float* sd, uint64_t* bar, int blk,
-                                         int t, int h, int layer, int Tb, int NB, int L,
-                                         int Hkv, int lane) {
-  const int box = min(Tb, HP_KEYS);
-  const int row0 = (t * HP_KEYS) % Tb;
-  const int lh = layer * Hkv + h;  // the pool's (layer, head) as one dim
-  if constexpr (QUANT) {
-    const int r = 4 * (lane & 15);
-    const int rb = __shfl_sync(0xffffffffu, blk, r / box);  // the block of rows r .. r + 3
-    const float* src = (lane < 16 ? ks : vs) + ((int64_t)rb * L * Hkv + lh) * Tb + row0 + r % box;
-    cp_async16(sd + (lane >> 4) * HP_KEYS + r, rb < NB ? src : ks, rb < NB);
-    cp_async_mbar_arrive(bar);
-    __syncwarp();
-    if (lane == 0) mbar_arrive_expect_tx(bar, 2 * HP_CODES);
-  } else {
-    if (lane == 0) mbar_arrive_expect_tx(bar, HP_STAGE);
-  }
-  __syncwarp();
-  if (lane >= HP_KEYS / box) return;
-  if constexpr (QUANT) {
-    tma_load_4d(kd + lane * box * HP_D, tm_k, bar, 0, row0, lh, blk);
-    tma_load_4d(vd + lane * box * HP_D, tm_v, bar, 0, row0, lh, blk);
-  } else {
-    tma_load_4d(kd + lane * box * HP_D * 2, tm_k, bar, 0, 2 * row0, lh, blk);
-    tma_load_4d(vd + lane * box * HP_D * 2, tm_v, bar, 0, 2 * row0, lh, blk);
-  }
-}
-
-// One warp brings the Q rows of (slot b, kv head h, row group rg) into
-// the Q buffer on ``bar``: lane r bundle row 32 rg + r, reading q[b, R /
-// group, h * group + R % group] (256 bytes, one bulk copy); rows past the
-// bundle are not copied (the consumers zero them)
-__device__ __forceinline__ void hp_issue_q(unsigned char* dst, uint64_t* bar, const bf16* q,
-                                           int b, int h, int rg, int W, int Hq, int group,
-                                           int rows, int MR, int lane) {
-  const int n = min(MR, rows - rg * HP_ROWS);
-  if (lane == 0) mbar_arrive_expect_tx(bar, n * HP_D * 2);
-  __syncwarp();
-  if (lane < n) {
-    const int R = rg * HP_ROWS + lane;
-    const int wq = R / group;
-    bulk_load(dst + lane * HP_Q_ROW,
-              q + ((int64_t)(b * W + wq) * Hq + h * group + (R - wq * group)) * HP_D, HP_D * 2,
-              bar);
-  }
-}
-
-// The int8 producers' share of one code stage -> one bf16 ring stage: 8
-// codes (one 8-byte read) times their row's scale, rounded to bf16, into
-// one 16-byte chunk of the swizzled halves the consumers read. Keys at or
-// past ``live`` (of this tile) take scale 0, so they are zeros whatever
-// the block held.
-// Each thread takes 16 codes at a time (one 16-byte read, two 16-byte
-// writes), four such in flight: the pass is a chain of short dependent
-// ALU ops, so its pace is set by how many independent ones a warp has.
-template <int NP>
-__device__ __forceinline__ void hp_dequant(unsigned char* dst, const unsigned char* codes,
-                                           int live, int pt) {
-  const float* sc = reinterpret_cast<const float*>(codes + 2 * HP_CODES);
-#pragma unroll 4
-  for (int i = pt; i < 2 * HP_KEYS * 8; i += 32 * NP) {
-    const int op = i >> 9;       // 0: K, 1: V
-    const int r = (i >> 3) & 63;  // key row
-    const int c = i & 7;          // chunk of 16 codes: columns 16 c .. 16 c + 15
-    const uint4 w = *reinterpret_cast<const uint4*>(codes + op * HP_CODES + r * 128 + c * 16);
-    const float scale = r < live ? sc[op * HP_KEYS + r] : 0.f;
-    unsigned char* tile = dst + op * HP_TILE;
-    *reinterpret_cast<uint4*>(tile + hp_kv_off(r, 2 * c)) =
-        dequant8_bf16(make_uint2(w.x, w.y), scale);
-    *reinterpret_cast<uint4*>(tile + hp_kv_off(r, 2 * c + 1)) =
-        dequant8_bf16(make_uint2(w.z, w.w), scale);
-  }
-}
-
-template <bool QUANT, int M>
-__global__ void __launch_bounds__(Hp<QUANT, M>::THREADS, Hp<QUANT, M>::CTAS_PER_SM)
-paged_decode_hopper_kernel(const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v,
-                           const float* __restrict__ k_scale,  // int8: [NB, L, Hkv, Tb]
-                           const float* __restrict__ v_scale,
-                           const bf16* __restrict__ q,  // [B, W, Hq, 128]
-                           const int* __restrict__ tbl,  // [B, nbt]
-                           const int* __restrict__ pos,  // [B]
-                           bf16* __restrict__ out,       // [B, W, Hq, 128]
-                           float* __restrict__ part_acc,  // [2 G, MR, 128]
-                           float* __restrict__ part_ml,   // [2 G, MR, 2]
-                           int B, int W, int Hq, int Hkv, int Tb, int NB, int L, int nbt,
-                           int layer, float scale_log2) {
-  using S = Hp<QUANT, M>;
-  constexpr int MR = S::MR;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
-  uint64_t* empty = full + S::STAGES;
-  uint64_t* code_full = empty + S::STAGES;  // int8 only
-  uint64_t* code_empty = code_full + S::CODE_STAGES;
-  uint64_t* q_full = code_empty + S::CODE_STAGES;
-  int* cum = reinterpret_cast<int*>(smem + S::SLOTS);
-  int* cumc = cum + B + 1;
-  int* spos = cumc + B + 1;
-  const int group = Hq / Hkv;
-  const int rows = group * W;
-  const int RG = (rows + HP_ROWS - 1) / HP_ROWS;
-  const int Hv = Hkv * RG;
-  const int table_keys = nbt * Tb;
-  // read through a shuffle, so the compiler sees the role uniform per warp
-  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
-  const int lane = threadIdx.x & 31;
-
-  if (warp == 0) hp_units(pos, B, W, table_keys, Hv, S::CH, cum, cumc, spos);
-  if (threadIdx.x == 32) {
-    for (int s = 0; s < S::STAGES; ++s) {
-      // bf16: one arrival with the TMA bytes; int8: one a dequant warp
-      mbar_init(full + s, QUANT ? S::DEQUANT : 1);
-      mbar_init(empty + s, 4);  // every consumer warp
-    }
-    for (int s = 0; s < S::CODE_STAGES; ++s) {
-      mbar_init(code_full + s, 1);
-      mbar_init(code_empty + s, S::DEQUANT);
-    }
-    for (int s = 0; s < S::QBUF; ++s) mbar_init(q_full + s, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const HpShares sh = hp_shares(cum, cumc, B, Hv, S::CH, S::SEG_W, gridDim.x);
-  if ((int)blockIdx.x >= sh.S) return;
-  const int begin = sh.begin(blockIdx.x);
-  const int end = sh.begin(blockIdx.x + 1);
-  auto n_keys_of = [&](int b) { return min(max(spos[b] + W, 1), table_keys); };
-
-  if (warp == 4) {
-    // ---- the TMA warp. ``n`` counts the share's tiles: bf16 ring stage
-    // n % STAGES (bf16), code stage n % CODE_STAGES (int8)
-    if (lane == 0) {
-      tma_prefetch_desc(&tm_k);
-      tma_prefetch_desc(&tm_v);
-    }
-    // tile n of the share: its unit, live keys and (this lane's) block,
-    // read three tiles ahead of its issue, so a table read's latency is
-    // paid once for the first three tiles and then overlaps the issues
-    // (when stages come free faster than a read returns, a read a tile
-    // ahead would set the pace)
-    struct Next {
-      HpUnit x;
-      int nk, blk;
-    };
-    auto next = [&](int n) {
-      Next y;
-      y.x = hp_unit(cum, B, Hv, begin + n);
-      y.nk = n_keys_of(y.x.b);
-      y.blk = hp_block(tbl + (int64_t)y.x.b * nbt, y.x.t, y.nk, Tb, NB, lane);
-      return y;
-    };
-    const int n_units = end - begin;
-    Next y0 = next(0);
-    Next y1 = n_units > 1 ? next(1) : y0;
-    Next y2 = n_units > 2 ? next(2) : y0;
-    for (int n = 0; n < n_units; ++n) {
-      const Next cur = y0;
-      y0 = y1;
-      y1 = y2;
-      if (n + 3 < n_units) y2 = next(n + 3);
-      if constexpr (!QUANT) {
-        const int s = n % S::STAGES;
-        unsigned char* st = smem + s * HP_STAGE;
-        mbar_wait(empty + s, ((n / S::STAGES) & 1) ^ 1);
-        hp_issue<false>(&tm_k, &tm_v, nullptr, nullptr, st, st + HP_TILE, nullptr, full + s,
-                        cur.blk, cur.x.t, cur.x.hv / RG, layer, Tb, NB, L, Hkv, lane);
-      } else {
-        const int cs = n % S::CODE_STAGES;
-        unsigned char* cd = smem + S::CODES + cs * HP_CODE_STAGE;
-        mbar_wait(code_empty + cs, ((n / S::CODE_STAGES) & 1) ^ 1);
-        hp_issue<true>(&tm_k, &tm_v, k_scale, v_scale, cd, cd + HP_CODES,
-                       reinterpret_cast<float*>(cd + 2 * HP_CODES), code_full + cs, cur.blk,
-                       cur.x.t, cur.x.hv / RG, layer, Tb, NB, L, Hkv, lane);
-      }
-    }
-    return;
-  }
-  if constexpr (QUANT) {
-    if (warp > 4) {
-      // ---- the dequant warps: each code stage into the bf16 stage of the
-      // same tile; each warp hands both back on its own (mbarriers, no
-      // barrier among them)
-      const int pt = threadIdx.x - 160;
-      for (int n = 0; n < end - begin; ++n) {
-        const int cs = n % S::CODE_STAGES;
-        const int s = n % S::STAGES;
-        const HpUnit x = hp_unit(cum, B, Hv, begin + n);
-        mbar_wait(code_full + cs, (n / S::CODE_STAGES) & 1);
-        mbar_wait(empty + s, ((n / S::STAGES) & 1) ^ 1);
-        hp_dequant<S::DEQUANT>(smem + s * HP_STAGE, smem + S::CODES + cs * HP_CODE_STAGE,
-                               n_keys_of(x.b) - x.t * HP_KEYS, pt);
-        __syncwarp();
-        if (lane == 0) {
-          mbar_arrive(full + s);
-          mbar_arrive(code_empty + cs);  // this warp has read code stage cs
-        }
-      }
-      return;
-    }
-  }
-
-  // ---- consumers: warp w scores keys 16 w .. 16 w + 15 of each tile
-  // against every row, and accumulates output columns 32 w .. 32 w + 31
-  // of every row over all 64 keys (P goes through shared memory), so the
-  // warps share one running max a row and need no merge at the end
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  float* smax = reinterpret_cast<float*>(smem + S::MAXES);  // [4][MR]
-  float* ssum = reinterpret_cast<float*>(smem + S::SUMS);   // [4][MR]
-  unsigned char* sp = smem + S::P;                          // [MR][64] bf16, swizzled
-  // ldmatrix rows and chunks of this lane: K row k_r of this warp's keys
-  // (chunk 2 ks + k_x); V row 16 kk + v_r, chunk v_c + 2 pp (this warp's
-  // 32 columns); P rows (+ 16 mt)
-  const int k_r = 16 * warp + (lane >> 4) * 8 + (lane & 7);
-  const int k_x = (lane >> 3) & 1;
-  const int v_r = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int v_c = 4 * warp + (lane >> 4);
-  const int x7 = lane & 7;
-
-  // Q of a segment (the share's tiles of one (slot, virtual head)): warp 0
-  // brings it into Q buffer (segment index) % QBUF, the first QBUF
-  // segments' now and each later one's as soon as every warp holds the Q
-  // of the segment QBUF before it in registers
-  auto issue_q = [&](int u, int qb) {
-    const HpUnit y = hp_unit(cum, B, Hv, u);
-    const int hy = y.hv / RG;
-    hp_issue_q(smem + S::Q + qb * MR * HP_Q_ROW, q_full + qb, q, y.b, hy, y.hv - hy * RG, W,
-               Hq, group, rows, MR, lane);
-  };
-  // the unit after the segment that starts at unit u
-  auto seg_end = [&](int u) {
-    const HpUnit y = hp_unit(cum, B, Hv, u);
-    return u + min(y.nt - y.t, end - u);
-  };
-  if (warp == 0) {
-    for (int i = 0, v = begin; i < S::QBUF && v < end; ++i, v = seg_end(v)) issue_q(v, i);
-  }
-  int it = 0;   // tiles consumed: ring stage it % STAGES
-  int sgc = 0;  // segments begun: Q buffer sgc % QBUF, phase (sgc / QBUF) & 1
-  for (int u = begin; u < end;) {
-    // a segment: the share's tiles of one (slot, virtual head)
-    const HpUnit x = hp_unit(cum, B, Hv, u);
-    const int seg = min(x.nt - x.t, end - u);
-    const int h = x.hv / RG;
-    const int rg = x.hv - h * RG;
-    const int p0 = spos[x.b];
-    const int nk = n_keys_of(x.b);
-    // Q fragments of bundle rows R = 32 rg + 16 mt + g (+ 8) from the Q
-    // buffer (rows past the bundle zeroed: never written). The rows'
-    // causal frontiers pos + R / group, inside the live keys
-    uint32_t qf[M][8][4];
-    int lim[M][2];
-    {
-      mbar_wait(q_full + sgc % S::QBUF, (sgc / S::QBUF) & 1);
-      const unsigned char* sq = smem + S::Q + (sgc % S::QBUF) * MR * HP_Q_ROW;
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt) {
-        bool ok[2];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int R = rg * HP_ROWS + mt * 16 + g + 8 * hh;
-          ok[hh] = R < rows;
-          lim[mt][hh] = min(p0 + R / group, nk - 1);
-        }
-#pragma unroll
-        for (int ks = 0; ks < 8; ++ks) {
-          ldmatrix_x4(qf[mt][ks],
-                      sq + (mt * 16 + (lane & 15)) * HP_Q_ROW + (2 * ks + (lane >> 4)) * 16);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!ok[e & 1]) qf[mt][ks][e] = 0u;
-        }
-      }
-      ++sgc;
-    }
-    float o[M][4][4];
-    float m[M][2], l[M][2];
-    // a chunk starts afresh: (m, l, O) = (-1e30, 0, 0)
-    auto reset = [&]() {
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[mt][i][e] = 0.f;
-        m[mt][0] = m[mt][1] = NEG_INF_F;  // running max of rows g and g + 8 (base 2)
-        l[mt][0] = l[mt][1] = 0.f;        // this lane's share of their sums
-      }
-    };
-    // a chunk's end: each row's sum over the 4 warps' keys, then the
-    // output (the head's only chunk) or the chunk's partial for the merge
-    const int nch = (x.nt + S::CH - 1) / S::CH;
-    const int64_t chunk0 = cumc[x.b] + (int64_t)x.hv * nch;  // the head's chunk 0
-    auto finish = [&](int64_t idx) {
-      float lt[M][2];
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float v = l[mt][hh];
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (t4 == 0) ssum[warp * MR + mt * 16 + g + 8 * hh] = v;
-        }
-      named_bar_sync(BAR_CONSUMERS, 128);
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = mt * 16 + g + 8 * hh;
-          lt[mt][hh] = (ssum[r] + ssum[MR + r]) + (ssum[2 * MR + r] + ssum[3 * MR + r]);
-        }
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = mt * 16 + g + 8 * hh;
-          const int R = rg * HP_ROWS + r;
-          if (R >= rows) continue;
-          const int wq = R / group;
-          if (nch == 1) {
-            const float inv = 1.f / fmaxf(lt[mt][hh], 1e-30f);
-            bf16* orow =
-                out + ((int64_t)(x.b * W + wq) * Hq + h * group + (R - wq * group)) * HP_D;
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              *reinterpret_cast<__nv_bfloat162*>(orow + 32 * warp + 8 * i + 2 * t4) =
-                  __floats2bfloat162_rn(o[mt][i][2 * hh] * inv, o[mt][i][2 * hh + 1] * inv);
-          } else {
-            float* prow = part_acc + (idx * MR + r) * HP_D;
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              *reinterpret_cast<float2*>(prow + 32 * warp + 8 * i + 2 * t4) =
-                  make_float2(o[mt][i][2 * hh], o[mt][i][2 * hh + 1]);
-            if (warp == 0 && t4 == 0)
-              *reinterpret_cast<float2*>(part_ml + (idx * MR + r) * 2) =
-                  make_float2(m[mt][hh], lt[mt][hh]);
-          }
-        }
-    };
-    reset();
-
-    for (int k = 0; k < seg; ++k, ++it) {
-      const int s = it % S::STAGES;
-      const unsigned char* st = smem + s * HP_STAGE;
-      mbar_wait(full + s, (it / S::STAGES) & 1);
-
-      // S = Q K^T: every row x this warp's 16 keys; each K fragment feeds
-      // every m-tile
-      float sc[M][2][4];
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[mt][i][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        uint32_t kf[4];  // keys +0 .. +7 and +8 .. +15, dims 16 ks .. + 15
-        ldmatrix_x4(kf, st + hp_kv_off(k_r, 2 * ks + k_x));
-#pragma unroll
-        for (int mt = 0; mt < M; ++mt) {
-          mma_bf16_16816(sc[mt][0], qf[mt][ks], kf[0], kf[1]);
-          mma_bf16_16816(sc[mt][1], qf[mt][ks], kf[2], kf[3]);
-        }
-      }
-      // scale (base 2), mask past each row's frontier, and this warp's
-      // row maxes to the others
-      const int kbase = (x.t + k) * HP_KEYS + 16 * warp + 2 * t4;
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float mx = NEG_INF_F;
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
-              const float v = kbase + nt * 8 + (e & 1) > lim[mt][hh] ? NEG_INF_F
-                                                                     : sc[mt][nt][e] * scale_log2;
-              sc[mt][nt][e] = v;
-              mx = fmaxf(mx, v);
-            }
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          if (t4 == 0) smax[warp * MR + mt * 16 + g + 8 * hh] = mx;
-        }
-      named_bar_sync(BAR_CONSUMERS, 128);
-      // every warp has this segment's Q in registers: its buffer may take
-      // the Q of the segment QBUF after it
-      if (k == 0 && warp == 0) {
-        int v = u + seg;
-        for (int i = 1; i < S::QBUF && v < end; ++i) v = seg_end(v);
-        if (v < end) issue_q(v, (sgc - 1) % S::QBUF);
-      }
-
-      // the tile's row max, the online softmax, and P (rounded to bf16: the
-      // JAX p.astype(v.dtype)) into shared memory; a row that has seen no
-      // live key yet keeps p = 0, so (m, l, O) stay (-1e30, 0, 0)
-#pragma unroll
-      for (int mt = 0; mt < M; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = mt * 16 + g + 8 * hh;
-          const float mx = fmaxf(fmaxf(m[mt][hh], fmaxf(smax[r], smax[MR + r])),
-                                 fmaxf(smax[2 * MR + r], smax[3 * MR + r]));
-          const float mref = mx == NEG_INF_F ? 0.f : mx;
-          const float corr = fast_exp2(m[mt][hh] - mref);
-          m[mt][hh] = mx;
-          float sum = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const float pa = fast_exp2(sc[mt][nt][2 * hh] - mref);
-            const float pb = fast_exp2(sc[mt][nt][2 * hh + 1] - mref);
-            sum += pa + pb;
-            *reinterpret_cast<uint32_t*>(sp + r * 128 + (((2 * warp + nt) ^ g) << 4) + t4 * 4) =
-                pack_bf16(pa, pb);
-          }
-          l[mt][hh] = l[mt][hh] * corr + sum;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {  // x 1 is exact: no branch, no divergence
-            o[mt][i][2 * hh] *= corr;
-            o[mt][i][2 * hh + 1] *= corr;
-          }
-        }
-      named_bar_sync(BAR_CONSUMERS, 128);
-
-      // O[:, 32 w .. 32 w + 31] += P V over the tile's 64 keys; each V
-      // fragment feeds every m-tile
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t pa[M][4];
-#pragma unroll
-        for (int mt = 0; mt < M; ++mt)
-          ldmatrix_x4(pa[mt],
-                      sp + (mt * 16 + (lane & 15)) * 128 + (((2 * kk + (lane >> 4)) ^ x7) << 4));
-#pragma unroll
-        for (int pp = 0; pp < 2; ++pp) {
-          uint32_t vf[4];  // keys +0 .. +15, columns +0 .. +7 and +8 .. +15
-          ldmatrix_x4_trans(vf, st + HP_TILE + hp_kv_off(16 * kk + v_r, v_c + 2 * pp));
-#pragma unroll
-          for (int mt = 0; mt < M; ++mt) {
-            mma_bf16_16816(o[mt][2 * pp], pa[mt], vf[0], vf[1]);
-            mma_bf16_16816(o[mt][2 * pp + 1], pa[mt], vf[2], vf[3]);
-          }
-        }
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);
-      const int tt = x.t + k;  // the head's tile: a chunk ends here?
-      if ((tt + 1) % S::CH == 0 || tt + 1 == x.nt) {
-        finish(chunk0 + tt / S::CH);
-        reset();
-      }
-    }
-    u += seg;
-  }
-}
-
-// Merge the partials of one (slot, virtual head, m-tile) of
-// paged_decode_hopper_kernel: one a chunk, at chunk ids cumc[b] + hv nch
-// .. + nch - 1, merged in chunk order (a head of one chunk was written as
-// output by the decode kernel). A thread merges 4 adjacent columns of a
-// row over the partials (or, with few live rows, over its group's share of
-// them), 8 at a time, rescaling to the running max (base 2).
-template <int M>
-__global__ void __launch_bounds__(HP_COMBINE_THREADS)
-paged_combine_hopper_kernel(const float* __restrict__ part_acc,
-                            const float* __restrict__ part_ml, bf16* __restrict__ out,
-                            const int* __restrict__ pos, int B, int W, int Hq, int Hkv, int Tb,
-                            int nbt) {
-  constexpr int MR = 16 * M;
-  constexpr int CH = hp_chunk(M);
-  extern __shared__ int cmb[];  // tiles, chunks [B + 1 each] before each slot; positions [B]
-  const int group = Hq / Hkv;
-  const int rows = group * W;
-  const int RG = (rows + HP_ROWS - 1) / HP_ROWS;
-  const int Hv = Hkv * RG;
-  const int hv = blockIdx.x / M;
-  const int mt = blockIdx.x - hv * M;
-  const int b = blockIdx.y;
-  const int h = hv / RG;
-  const int rg = hv - h * RG;
-  const int nch = (hp_tiles(pos[b], W, nbt * Tb) + CH - 1) / CH;
-  if (rg * HP_ROWS + mt * 16 >= rows || nch == 1) return;
-  if (threadIdx.x < 32) hp_units(pos, B, W, nbt * Tb, Hv, CH, cmb, cmb + B + 1, cmb + 2 * B + 2);
-  __syncthreads();
-  const int64_t first = cmb[B + 1 + b] + (int64_t)hv * nch;  // the head's chunk 0
-  // (row, 4 columns) items of this m-tile's live rows; with few rows the
-  // threads left over split the partials into P groups, merged in group
-  // order after (a fixed order for a given W and slot length)
-  const int rows_here = min(16, rows - (rg * HP_ROWS + mt * 16));
-  const int items = rows_here * (HP_D / 4);
-  const int P = min(nch, max(1, HP_COMBINE_THREADS / items));
-  __shared__ float sg[HP_COMBINE_THREADS * 6];  // each group's (m, l, 4 columns)
-  const int item = threadIdx.x % items;
-  const int grp = threadIdx.x / items;
-  const int rr = item / (HP_D / 4);
-  const int d = (item - rr * (HP_D / 4)) * 4;
-  const int r = mt * 16 + rr;
-  if (grp < P) {
-    // the group's partials in batches of 8: every load of a batch in
-    // flight at once, then one rescale to the batch's max (base 2)
-    const int i0 = grp * nch / P, i1 = (grp + 1) * nch / P;
-    float mx = NEG_INF_F, l = 0.f;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int ib = i0; ib < i1; ib += 8) {
-      float2 ml[8];
-      float4 v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        ml[j] = make_float2(NEG_INF_F, 0.f);
-        v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ib + j < i1) {
-          const int64_t pr = (first + ib + j) * MR + r;
-          ml[j] = *reinterpret_cast<const float2*>(part_ml + pr * 2);
-          v[j] = *reinterpret_cast<const float4*>(part_acc + pr * HP_D + d);
-        }
-      }
-      float bm = mx;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bm = fmaxf(bm, ml[j].x);
-      const float a = exp2f(mx - bm);
-      l *= a;
-      acc.x *= a;
-      acc.y *= a;
-      acc.z *= a;
-      acc.w *= a;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float w = exp2f(ml[j].x - bm);
-        l = fmaf(ml[j].y, w, l);
-        acc.x = fmaf(v[j].x, w, acc.x);
-        acc.y = fmaf(v[j].y, w, acc.y);
-        acc.z = fmaf(v[j].z, w, acc.z);
-        acc.w = fmaf(v[j].w, w, acc.w);
-      }
-      mx = bm;
-    }
-    float* gs = sg + (grp * items + item) * 6;
-    gs[0] = mx;
-    gs[1] = l;
-    gs[2] = acc.x;
-    gs[3] = acc.y;
-    gs[4] = acc.z;
-    gs[5] = acc.w;
-  }
-  __syncthreads();
-  if (grp > 0) return;
-  float mx = NEG_INF_F;
-  for (int p = 0; p < P; ++p) mx = fmaxf(mx, sg[(p * items + item) * 6]);
-  float l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int p = 0; p < P; ++p) {
-    const float* gs = sg + (p * items + item) * 6;
-    const float w = exp2f(gs[0] - mx);
-    l = fmaf(gs[1], w, l);
-    acc.x = fmaf(gs[2], w, acc.x);
-    acc.y = fmaf(gs[3], w, acc.y);
-    acc.z = fmaf(gs[4], w, acc.z);
-    acc.w = fmaf(gs[5], w, acc.w);
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  const int R = rg * HP_ROWS + r;
-  const int wq = R / group;
-  bf16* orow = out + ((int64_t)(b * W + wq) * Hq + h * group + (R - wq * group)) * HP_D + d;
-  *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
-  *reinterpret_cast<__nv_bfloat162*>(orow + 2) = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
-}
-
-// The mma.sync body's attributes, set once a device: room for its largest
-// shared memory (the size depends on split_tiles and Tb), all of the SM's
-// 228 KB to shared memory.
-template <typename KV, int D>
+// The kernel's attributes, set once a device: room for its largest shared
+// memory (the size depends on split_tiles and Tb), all of the SM's 228 KB to
+// shared memory.
+template <typename KV, int D, int MT>
 cudaError_t paged_mma_attributes() {
   constexpr int kMaxDevices = 64;
   static std::atomic<bool> done[kMaxDevices];
@@ -1690,17 +905,17 @@ cudaError_t paged_mma_attributes() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  e = cudaFuncSetAttribute(paged_decode_mma_kernel<KV, D>,
+  e = cudaFuncSetAttribute(paged_decode_mma_kernel<KV, D, MT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(paged_decode_mma_kernel<KV, D>,
+    e = cudaFuncSetAttribute(paged_decode_mma_kernel<KV, D, MT>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
   return e;
 }
 
-template <typename KV, int D>
+template <typename KV, int D, int MT>
 int launch_paged_mma(const void* q, const void* kp, const void* vp, const float* ks,
                      const float* vs, const int* tbl, const int* pos, void* out,
                      float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv, int Tb,
@@ -1710,170 +925,49 @@ int launch_paged_mma(const void* q, const void* kp, const void* vp, const float*
   const int tiles = (nbt * Tb + TILE_KEYS - 1) / TILE_KEYS;
   const int split_tiles = (tiles + n_splits - 1) / n_splits;
   const int rows = (Hq / Hkv) * W;
-  const size_t smem = paged_mma_smem_bytes(QUANT, D, split_tiles, Tb);
-  const size_t combine_smem = (2 * (size_t)n_splits + 1) * rows * sizeof(float);
+  const size_t smem = paged_mma_smem_bytes(QUANT, D, MT, split_tiles, Tb);
+  const size_t combine_smem =
+      (2 * (size_t)n_splits + 1) * std::min(rows, COMBINE_ROWS) * sizeof(float);
   if (smem > SMEM_MAX || combine_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t e = paged_mma_attributes<KV, D>();
+  cudaError_t e = paged_mma_attributes<KV, D, MT>();
   if (e != cudaSuccess) return (int)e;
-  const int m_tiles = (rows + 15) / 16;
-  paged_decode_mma_kernel<KV, D><<<dim3(Hkv, B, n_splits * m_tiles), NTH, smem, stream>>>(
+  const int row_groups = ((rows + 15) / 16 + MT - 1) / MT;
+  paged_decode_mma_kernel<KV, D, MT><<<dim3(Hkv, B, n_splits * row_groups), NTH, smem,
+                                       stream>>>(
       static_cast<const bf16*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
       tbl, pos, static_cast<bf16*>(out), part_acc, part_ml, W, Hq, Hkv, Tb, L, nbt, layer,
       n_splits, split_tiles, scale * LOG2E, ks, vs);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return (int)e;
-  paged_combine_mma_kernel<D><<<dim3(Hkv, B), NTH, combine_smem, stream>>>(
-      part_acc, part_ml, static_cast<bf16*>(out), pos, W, Hq, Hkv, Tb, nbt, n_splits,
-      split_tiles);
+  paged_combine_mma_kernel<D>
+      <<<dim3(Hkv, B, (rows + COMBINE_ROWS - 1) / COMBINE_ROWS), NTH, combine_smem, stream>>>(
+          part_acc, part_ml, static_cast<bf16*>(out), pos, W, Hq, Hkv, Tb, nbt, n_splits,
+          split_tiles);
   return (int)cudaGetLastError();
 }
 
-template <typename KV>
-int dispatch_mma(int D, const void* q, const void* kp, const void* vp, const float* ks,
-                 const float* vs, const int* tbl, const int* pos, void* out,
-                 float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv, int Tb,
-                 int L, int nbt, int layer, int n_splits, float scale, cudaStream_t s) {
-  switch (D) {
-    case 64:
-      return launch_paged_mma<KV, 64>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml,
-                                      B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits, scale, s);
-    case 256:
-      return launch_paged_mma<KV, 256>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml,
-                                       B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+// paged_decode_mma_kernel at head dim D, with the CTA's m-tile count picked
+// from the bundle's rows
+template <typename KV, int D>
+int launch_paged_mma_d(const void* q, const void* kp, const void* vp, const float* ks,
+                       const float* vs, const int* tbl, const int* pos, void* out,
+                       float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv,
+                       int Tb, int L, int nbt, int layer, int n_splits, float scale,
+                       cudaStream_t s) {
+  if constexpr (D <= 128) {
+    if (mma_tiles_per_cta(D, (Hq / Hkv) * W) == 2)
+      return launch_paged_mma<KV, D, 2>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml,
+                                        B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits, scale, s);
   }
+  return launch_paged_mma<KV, D, 1>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml, B, W,
+                                    Hq, Hkv, Tb, L, nbt, layer, n_splits, scale, s);
 }
 
-// The tensor map of a pool [NB, L, Hkv, Tb, 128] (contiguous, so its
-// strides follow from its shape), its (layer, head) pairs as one dim:
-// bf16 {64, 2 Tb, L Hkv, NB} innermost first, each 256-byte key row as two
-// 128-byte lines, boxes of 2 min(Tb, 64) lines (a block's rows, or 64 of
-// them) with the 128-byte swizzle; int8 {128, Tb, L Hkv, NB}, boxes of
-// min(Tb, 64) whole 128-byte rows, unswizzled. A pool lives as long as its
-// engine, so its maps are encoded once and kept, keyed by (address,
-// storage type, shape), at most POOL_MAPS of them (the oldest goes first).
-constexpr int POOL_MAPS = 16;
-
-struct PoolMap {
-  const void* p;
-  bool int8;
-  int nb, layers, hkv, tb;
-  CUtensorMap map;
-};
-
-bool pool_map(CUtensorMap* out, const void* p, bool int8, int NB, int L, int Hkv, int Tb) {
-  static std::mutex mu;
-  static PoolMap cache[POOL_MAPS];
-  static int used = 0, next = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    const PoolMap& c = cache[i];
-    if (c.p == p && c.int8 == int8 && c.nb == NB && c.layers == L && c.hkv == Hkv &&
-        c.tb == Tb) {
-      *out = c.map;
-      return true;
-    }
-  }
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t row = int8 ? HP_D : HP_D * 2;  // bytes of a key row
-  const int box = std::min(Tb, HP_KEYS);
-  const cuuint64_t dims[4] = {int8 ? 128u : 64u, (cuuint64_t)(int8 ? Tb : 2 * Tb),
-                              (cuuint64_t)L * Hkv, (cuuint64_t)NB};
-  const cuuint64_t strides[3] = {128, row * Tb, row * Tb * Hkv * L};
-  const cuuint32_t boxes[4] = {int8 ? 128u : 64u, (cuuint32_t)(int8 ? box : 2 * box), 1u, 1u};
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  PoolMap c{p, int8, NB, L, Hkv, Tb, {}};
-  if (fn(&c.map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-         const_cast<void*>(p), dims, strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  cache[next] = c;
-  next = (next + 1) % POOL_MAPS;
-  used = std::min(used + 1, POOL_MAPS);
-  *out = c.map;
-  return true;
-}
-
-template <bool QUANT, int M>
-cudaError_t hopper_attributes() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  e = cudaFuncSetAttribute(paged_decode_hopper_kernel<QUANT, M>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(paged_decode_hopper_kernel<QUANT, M>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
-  return e;
-}
-
-// M m16 tiles a CTA: the rows of a virtual head, min(group x W, 32)
-int hopper_m(int rows) { return std::min(rows, HP_ROWS) > 16 ? 2 : 1; }
-
-// The merge's dynamic shared memory: the slot table
-size_t hopper_combine_smem(int B) { return (3 * (size_t)B + 2) * 4; }
-
-size_t hopper_smem(bool quant, int M, int B) {
-  if (quant) return M == 1 ? Hp<true, 1>::bytes(B) : Hp<true, 2>::bytes(B);
-  return M == 1 ? Hp<false, 1>::bytes(B) : Hp<false, 2>::bytes(B);
-}
-
-// The CTAs of paged_decode_hopper_kernel<QUANT, M> the card holds at once
-// with B slots (the slot table is in shared memory), or 0 if it cannot say
-template <bool QUANT, int M>
-int hopper_wave(int sms, int B) {
-  int blocks = 0;
-  if (hopper_attributes<QUANT, M>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, paged_decode_hopper_kernel<QUANT, M>,
-                                                    Hp<QUANT, M>::THREADS,
-                                                    Hp<QUANT, M>::bytes(B)) != cudaSuccess)
-    return 0;
-  return blocks * sms;
-}
-
-template <bool QUANT, int M>
-int launch_hopper(const void* q, const void* kp, const void* vp, const float* ks,
-                  const float* vs, const int* tbl, const int* pos, void* out, float* part_acc,
-                  float* part_ml, int B, int W, int Hq, int Hkv, int Tb, int L, int NB, int nbt,
-                  int layer, int G, float scale, cudaStream_t stream) {
-  using S = Hp<QUANT, M>;
-  CUtensorMap tk, tv;
-  if (!pool_map(&tk, kp, QUANT, NB, L, Hkv, Tb) || !pool_map(&tv, vp, QUANT, NB, L, Hkv, Tb))
-    return (int)cudaErrorInvalidValue;
-  if (hopper_combine_smem(B) > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t e = hopper_attributes<QUANT, M>();
-  if (e != cudaSuccess) return (int)e;
-  paged_decode_hopper_kernel<QUANT, M><<<G, S::THREADS, S::bytes(B), stream>>>(
-      tk, tv, ks, vs, static_cast<const bf16*>(q), tbl, pos, static_cast<bf16*>(out),
-      part_acc, part_ml, B, W, Hq, Hkv, Tb, NB, L, nbt, layer, scale * LOG2E);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int rows = (Hq / Hkv) * W;
-  const int Hv = Hkv * ((rows + HP_ROWS - 1) / HP_ROWS);
-  paged_combine_hopper_kernel<M><<<dim3(Hv * M, B), HP_COMBINE_THREADS,
-                                   hopper_combine_smem(B), stream>>>(
-      part_acc, part_ml, static_cast<bf16*>(out), pos, B, W, Hq, Hkv, Tb, nbt);
-  return (int)cudaGetLastError();
-}
-
-template <bool QUANT>
-int dispatch_hopper(const void* q, const void* kp, const void* vp, const float* ks,
-                    const float* vs, const int* tbl, const int* pos, void* out,
-                    float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv, int Tb,
-                    int L, int NB, int nbt, int layer, int G, float scale, cudaStream_t s) {
-  if (hopper_m((Hq / Hkv) * W) == 1)
-    return launch_hopper<QUANT, 1>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml, B, W,
-                                   Hq, Hkv, Tb, L, NB, nbt, layer, G, scale, s);
-  return launch_hopper<QUANT, 2>(q, kp, vp, ks, vs, tbl, pos, out, part_acc, part_ml, B, W, Hq,
-                                 Hkv, Tb, L, NB, nbt, layer, G, scale, s);
+// The tensor-core body's rule: bf16 q over a bf16 pool (K1) or an int8 one
+// (K1q), D in {64, 128, 256}.
+bool uses_mma(int dtype, int kv_dtype, int D) {
+  return dtype == DTYPE_BF16 && (kv_dtype == DTYPE_BF16 || kv_dtype == DTYPE_INT8) &&
+         (D == 64 || D == 128 || D == 256);
 }
 
 template <typename T, typename KV>
@@ -1898,27 +992,27 @@ int launch_paged(const void* q, const void* kp, const void* vp, const float* ks,
   return (int)cudaGetLastError();
 }
 
-// -- dispatch by type, head dim and block size -----------------------------------
-
-enum Body { BODY_FMA = 0, BODY_MMA = 1, BODY_HOPPER = 2 };
-
-// The Hopper body's block sizes: a tile is whole boxes of whole blocks
-// (64 % T == 0) or a box inside one block (T % 64 == 0), and a box of T
-// rows of 128 bytes starts on the 1024-byte swizzle period (T % 8 == 0,
-// which also makes a block's scales a 16-byte multiple for bulk copies)
-bool hopper_blocks(int Tb) {
-  return Tb % 8 == 0 && (Tb % HP_KEYS == 0 || HP_KEYS % Tb == 0);
-}
-
-// The body that serves q in ``dtype`` over a pool in ``kv_dtype`` (q's,
-// or int8 codes) at head dim D and T-token blocks; -1 for a pair no body
-// takes
-int body_of(int dtype, int kv_dtype, int D, int Tb) {
-  if (kv_dtype != dtype && kv_dtype != DTYPE_INT8) return -1;
-  if (dtype == DTYPE_F32) return BODY_FMA;
-  if (dtype != DTYPE_BF16) return -1;
-  if (D == 128) return hopper_blocks(Tb) ? BODY_HOPPER : BODY_FMA;
-  return D == 64 || D == 256 ? BODY_MMA : BODY_FMA;
+template <typename KV>
+int dispatch_mma(int D, const void* q, const void* kp, const void* vp, const float* ks,
+                 const float* vs, const int* tbl, const int* pos, void* out,
+                 float* part_acc, float* part_ml, int B, int W, int Hq, int Hkv, int Tb,
+                 int L, int nbt, int layer, int n_splits, float scale, cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return launch_paged_mma_d<KV, 64>(q, kp, vp, ks, vs, tbl, pos, out, part_acc,
+                                        part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer,
+                                        n_splits, scale, s);
+    case 128:
+      return launch_paged_mma_d<KV, 128>(q, kp, vp, ks, vs, tbl, pos, out, part_acc,
+                                         part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer,
+                                         n_splits, scale, s);
+    case 256:
+      return launch_paged_mma_d<KV, 256>(q, kp, vp, ks, vs, tbl, pos, out, part_acc,
+                                         part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer,
+                                         n_splits, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1926,115 +1020,89 @@ int body_of(int dtype, int kv_dtype, int D, int Tb) {
 extern "C" {
 
 // How a shape is served, decided once per shape by the wrapper: returns the
-// body (body_of: 0 FMA, 1 mma.sync, 2 Hopper; -1 for a type pair none
-// takes, -2 if the card's occupancy query failed) and sets the split count
-// to launch with, the shared memory a CTA needs (the wrapper refuses shapes
-// above the card's 227 KB) and the rows of f32 scratch the split merge
-// needs (each D accumulators and (max, sum); 0 for none).
-//  * Hopper: n_splits is the grid, the CTAs the card holds at once (two
-//    an SM, one for int8 at M = 2 or with a large slot table), fewer when
-//    the table's width holds fewer units; the kernel divides the live
-//    units among them on the card. Scratch: two partials a CTA.
-//  * mma.sync: a fixed number of 64-key tiles a split (2 to 8, so a full
-//    table would give about two CTAs an SM), as many splits as the table's
-//    width needs; a slot's CTAs past its live tiles exit at once.
-//  * FMA: the table's tiles divided among about two CTAs an SM, at most 16
-//    splits, whatever the slot's length.
-int paged_decode_plan(int dtype, int kv_dtype, int B, int W, int Hq, int Hkv, int D, int Tb,
-                      int nbt, int sms, int* n_splits, size_t* smem, size_t* part_rows) {
-  const int body = body_of(dtype, kv_dtype, D, Tb);
+// body (1: paged_decode_mma_kernel<bf16, D>, 2: paged_decode_mma_kernel<
+// int8_t, D>, 0: paged_decode_kernel, -1: a type pair neither takes) and
+// sets the split count to launch with and the shared memory a CTA needs
+// (the wrapper refuses shapes above the card's 227 KB).
+// The tensor-core body splits by work: a fixed number of 64-key tiles a
+// split (2 to 8, so a full table would give about two CTAs an SM), as many
+// splits as the table's width needs, and a slot's CTAs past its live tiles
+// exit at once. The FMA body divides the table's tiles among about two CTAs
+// an SM (``sms``), at most 16 splits, whatever the slot's length.
+int paged_decode_plan(int dtype, int kv_dtype, int B, int W, int Hq, int Hkv, int D,
+                      int Tb, int nbt, int sms, int* n_splits, size_t* smem) {
   const int tiles = (nbt * Tb + TILE_KEYS - 1) / TILE_KEYS;
-  const int rows = (Hq / Hkv) * W;
-  const bool quant = kv_dtype == DTYPE_INT8;
-  if (body == BODY_HOPPER) {
-    const int M = hopper_m(rows);
-    const int Hv = Hkv * ((rows + HP_ROWS - 1) / HP_ROWS);
-    // one wave of CTAs: a second wave would start only as the first ends
-    const int wave = quant ? (M == 1 ? hopper_wave<true, 1>(sms, B) : hopper_wave<true, 2>(sms, B))
-                           : (M == 1 ? hopper_wave<false, 1>(sms, B)
-                                     : hopper_wave<false, 2>(sms, B));
-    if (wave <= 0) return -2;
-    *n_splits = std::min(wave, B * Hv * tiles);
-    *smem = hopper_smem(quant, M, B);
-    // a partial a chunk, at most: every slot's table full
-    *part_rows = (size_t)B * Hv * ((tiles + hp_chunk(M) - 1) / hp_chunk(M)) * 16 * M;
-  } else if (body == BODY_MMA) {
+  if (uses_mma(dtype, kv_dtype, D)) {
     // tiles a split: the full table's CTA-tiles over about two CTAs an SM,
     // within [MIN_SPLIT_TILES, MAX_SPLIT_TILES]; short slots use fewer splits
-    const int cta_tiles = tiles * B * Hkv * ((rows + 15) / 16);
+    const int rows = (Hq / Hkv) * W;
+    const int mt = mma_tiles_per_cta(D, rows);
+    const int cta_tiles = tiles * B * Hkv * (((rows + 15) / 16 + mt - 1) / mt);
     const int st = std::min(MAX_SPLIT_TILES,
                             std::max(MIN_SPLIT_TILES, (cta_tiles + 2 * sms - 1) / (2 * sms)));
     *n_splits = (tiles + st - 1) / st;
-    *smem = paged_mma_smem_bytes(quant, D, (tiles + *n_splits - 1) / *n_splits, Tb);
-    *part_rows = *n_splits > 1 ? (size_t)B * Hkv * *n_splits * rows : 0;
-  } else if (body == BODY_FMA) {
-    const int want = (2 * sms + B * Hkv - 1) / (B * Hkv);
-    *n_splits = std::max(1, std::min(std::min(16, tiles), want));
-    *smem = smem_bytes(rows, D, tile_blocks_for(Tb) * Tb, dtype == DTYPE_F32 ? 4 : 2);
-    *part_rows = *n_splits > 1 ? (size_t)B * Hkv * *n_splits * rows : 0;
+    const bool quant = kv_dtype == DTYPE_INT8;
+    *smem = paged_mma_smem_bytes(quant, D, mt, (tiles + *n_splits - 1) / *n_splits, Tb);
+    return quant ? 2 : 1;
   }
-  return body;
+  if (!(kv_dtype == dtype || kv_dtype == DTYPE_INT8) ||
+      (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return -1;
+  const int want = (2 * sms + B * Hkv - 1) / (B * Hkv);
+  *n_splits = std::max(1, std::min(std::min(16, tiles), want));
+  *smem = smem_bytes((Hq / Hkv) * W, D, tile_blocks_for(Tb) * Tb,
+                     dtype == DTYPE_F32 ? 4 : 2);
+  return 0;
 }
 
-// q and out in ``dtype`` (DTYPE_F32 or DTYPE_BF16); the pools [NB, L,
-// Hkv, Tb, D] in ``kv_dtype``: the same, or DTYPE_INT8 with their f32
-// scales k_scale / v_scale (null otherwise; D % 16 == 0; 16-byte aligned
-// for the Hopper body). ``n_splits`` as paged_decode_plan gives it, and
-// part_acc [part_rows * D] / part_ml [part_rows * 2] f32 scratch allocated
-// by the caller (null when part_rows is 0). Returns cudaGetLastError()
-// after the launches (0 = launched).
+// q and out in ``dtype`` (DTYPE_F32 or DTYPE_BF16); the pools in
+// ``kv_dtype``: the same, or DTYPE_INT8 with their f32 scales k_scale /
+// v_scale (null otherwise; D % 16 == 0). ``n_splits`` as paged_decode_plan
+// gives it. Returns cudaGetLastError() after the launches (0 = launched).
+// With n_splits > 1, part_acc [B*Hkv*n_splits*rows*D] and part_ml
+// [B*Hkv*n_splits*rows*2] are f32 scratch allocated by the caller.
 int paged_decode_attention(int dtype, int kv_dtype, const void* q, const void* k_pool,
                            const void* v_pool, const float* k_scale,
                            const float* v_scale, const int* tbl, const int* pos,
                            void* out, float* part_acc, float* part_ml, int B, int W,
-                           int Hq, int Hkv, int D, int Tb, int L, int NB, int nbt, int layer,
+                           int Hq, int Hkv, int D, int Tb, int L, int nbt, int layer,
                            int n_splits, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_splits < 1) return (int)cudaErrorInvalidValue;
-  const bool quant = kv_dtype == DTYPE_INT8;
-  if (quant && (D % 16 || k_scale == nullptr || v_scale == nullptr))
+  if (kv_dtype == DTYPE_INT8 && (D % 16 || k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  switch (body_of(dtype, kv_dtype, D, Tb)) {
-    case BODY_HOPPER:
-      if (part_acc == nullptr || part_ml == nullptr) return (int)cudaErrorInvalidValue;
-      if (quant) {
-        if ((reinterpret_cast<uintptr_t>(k_scale) | reinterpret_cast<uintptr_t>(v_scale)) & 15)
-          return (int)cudaErrorInvalidValue;
-        return dispatch_hopper<true>(q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out,
-                                     part_acc, part_ml, B, W, Hq, Hkv, Tb, L, NB, nbt, layer,
-                                     n_splits, scale, s);
-      }
-      return dispatch_hopper<false>(q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
-                                    part_acc, part_ml, B, W, Hq, Hkv, Tb, L, NB, nbt, layer,
-                                    n_splits, scale, s);
-    case BODY_MMA:
-      if (quant)
-        return dispatch_mma<int8_t>(D, q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out,
-                                    part_acc, part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer,
-                                    n_splits, scale, s);
-      return dispatch_mma<bf16>(D, q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
-                                part_acc, part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits,
-                                scale, s);
-    case BODY_FMA:
-      if (quant) {
-        if (dtype == DTYPE_BF16)
-          return launch_paged<bf16, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out,
-                                            part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L, nbt,
-                                            layer, n_splits, scale, s);
-        return launch_paged<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out,
-                                           part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L, nbt,
-                                           layer, n_splits, scale, s);
-      }
-      if (dtype == DTYPE_BF16)
-        return launch_paged<bf16, bf16>(q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
-                                        part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L, nbt, layer,
-                                        n_splits, scale, s);
-      return launch_paged<float, float>(q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
-                                        part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L, nbt, layer,
-                                        n_splits, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (uses_mma(dtype, kv_dtype, D)) {
+    if (kv_dtype == DTYPE_INT8)
+      return dispatch_mma<int8_t>(D, q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out,
+                                  part_acc, part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer,
+                                  n_splits, scale, s);
+    return dispatch_mma<bf16>(D, q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
+                              part_acc, part_ml, B, W, Hq, Hkv, Tb, L, nbt, layer, n_splits,
+                              scale, s);
   }
+  if (kv_dtype == DTYPE_INT8) {
+    if (dtype == DTYPE_BF16)
+      return launch_paged<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tbl,
+                                                 pos, out, part_acc, part_ml, B, W, Hq,
+                                                 Hkv, D, Tb, L, nbt, layer, n_splits,
+                                                 scale, s);
+    if (dtype == DTYPE_F32)
+      return launch_paged<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tbl, pos,
+                                         out, part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L,
+                                         nbt, layer, n_splits, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kv_dtype != dtype) return (int)cudaErrorInvalidValue;
+  if (dtype == DTYPE_BF16)
+    return launch_paged<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr,
+                                                      tbl, pos, out, part_acc, part_ml,
+                                                      B, W, Hq, Hkv, D, Tb, L, nbt, layer,
+                                                      n_splits, scale, s);
+  if (dtype == DTYPE_F32)
+    return launch_paged<float, float>(q, k_pool, v_pool, nullptr, nullptr, tbl, pos, out,
+                                      part_acc, part_ml, B, W, Hq, Hkv, D, Tb, L, nbt,
+                                      layer, n_splits, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -41,8 +41,8 @@ _f = ctypes.c_float
 SIGNATURES = {
     "paged_attention": {
         "paged_decode_attention": (
-            [_i, _i] + [_p] * 10 + [_i] * 11 + [_f, _p], _i),
-        "paged_decode_plan": ([_i] * 10 + [_p, _p, _p], _i),
+            [_i, _i] + [_p] * 10 + [_i] * 10 + [_f, _p], _i),
+        "paged_decode_plan": ([_i] * 10 + [_p, _p], _i),
     },
     "flash_attention": {
         "flash_attention": (

@@ -3,30 +3,25 @@
 
 Port of ``nats_llm_studio_tpu/ops/paged_attention.py``
 ``paged_decode_attention``, both branches of its ``pallas_call``. The
-kernels (``csrc/paged_attention.cu``) read each slot's live blocks through
-its block table, straight out of the pool [NB, L, Hkv, T, D] at the
-runtime ``layer``, and a second kernel merges what was split. The
-library's ``body_of`` picks the body, once per shape, by type, head dim
-and block size, with no fallback between bodies:
-
-* ``hopper``: bf16 q at D = 128 (every main-path model) over a bf16 pool
-  (K1) or an int8 ``KVQ`` pool (K1q: codes [NB, L, Hkv, T, D] and f32
-  scales [NB, L, Hkv, T]), T % 8 == 0 and T a divisor or a multiple of 64.
-  One wave of CTAs divides the live 64-key tiles of every (slot, kv head),
-  in fixed chunks of a few tiles, evenly on the card (a slot's result
-  depends only on its own chunks, not on the rest of the batch); K/V tiles
-  arrive by TMA under tensor maps encoded once per pool; under int8
-  dequant warps convert each tile for the consumers;
-* ``mma``: bf16 q at D = 64 and 256, mma.sync tiles;
-* ``fma``: f32 q over either pool, and bf16 q at any other D or block size.
-
+kernels (``csrc/paged_attention.cu``) run one CTA per (slot, kv-head,
+split), each walking its share of the slot's live blocks through the block
+table and reading the pool [NB, L, Hkv, T, D] in place at the runtime
+``layer``; a second kernel merges the splits. bf16 q at D 64, 128 or 256
+runs the tensor-core body (``mma``), over a bf16 pool (K1) or an int8
+``KVQ`` pool (K1q: codes [NB, L, Hkv, T, D] and f32 scales [NB, L, Hkv, T]
+gathered into a code ring and dequantized by each warp into the bf16 tiles
+it reads); at D <= 128 one CTA holds a bundle of up to 32 rows (a
+speculative verify's 28) whole. Every other shape, and f32 q over either
+pool, runs the FMA body (``fma``).
+The library's ``paged_decode_plan`` picks the body and the split count
+once per shape, by type, with no fallback between bodies.
 The Mosaic tiling rule of the JAX path (``paged_decode_eligible``) does not
 apply: any T and any D <= 256 with D % 8 == 0 (D % 16 == 0 for int8
 codes) is served.
 
 ``paged_decode_attention`` launches K1, or K1q for a KVQ pool, for CUDA
 tensors and uses ``paged_decode_attention_plain`` only for CPU tensors.
-Each wrapper counts its launches (``launches``) and, by body, in
+Each wrapper counts its launches (``launches``) and, by body,
 ``body_launches`` and, for bf16 q, ``bf16_body_launches``.
 """
 
@@ -41,16 +36,18 @@ from .kvcache import KVQ, dequantize, is_quantized
 from .layers import NEG_INF, softmax_pv
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can use
-BODIES = ("fma", "mma", "hopper")  # the library's body codes (csrc Body)
+BODIES = ("fma", "mma")  # the counters' names
+_BODY_OF_PLAN = ("fma", "mma", "mma")  # paged_decode_plan's body code -> its name
 _PLANS: dict = {}
 
 
-def _plan(q, kp, tbl) -> tuple[str, int, int]:
-    """(body, n_splits, part_rows) for this shape, decided once per shape
-    by the library's ``paged_decode_plan``: the body's name (``BODIES``),
-    the split count (for ``hopper`` the grid's CTAs) and the rows of f32
-    scratch the split merge needs (0 for none). Raises if the shape needs
-    more shared memory than a block can use."""
+def _plan(q, kp, tbl) -> tuple[int, int]:
+    """(body, n_splits) for this shape, decided once per shape by the
+    library's ``paged_decode_plan``: body 1 is the tensor-core kernel over
+    a bf16 pool (bf16 q, D 64/128/256), body 2 the same kernel over an int8
+    pool (bf16 q, D 64/128/256), body 0 the FMA kernel (every other q dtype,
+    pool and D). Raises if the shape needs more shared memory than a block
+    can use."""
     b, w, hq, d = q.shape
     hkv, t = kp.shape[2], kp.shape[3]
     key = (q.device, q.dtype, kp.dtype, b, w, hq, hkv, d, t, tbl.shape[1])
@@ -58,19 +55,17 @@ def _plan(q, kp, tbl) -> tuple[str, int, int]:
     if plan is None:
         lib = _build.load_library("paged_attention")
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits, smem, rows = ctypes.c_int(0), ctypes.c_size_t(0), ctypes.c_size_t(0)
+        splits, smem = ctypes.c_int(0), ctypes.c_size_t(0)
         body = lib.paged_decode_plan(
             _build.dtype_code(q.dtype), _build.dtype_code(kp.dtype), b, w, hq, hkv, d, t,
-            tbl.shape[1], sms, ctypes.byref(splits), ctypes.byref(smem), ctypes.byref(rows))
-        if body == -2:
-            raise RuntimeError("paged decode: the card's occupancy query failed")
+            tbl.shape[1], sms, ctypes.byref(splits), ctypes.byref(smem))
         if body < 0:
             raise TypeError(f"paged decode: no kernel takes q {q.dtype} over a {kp.dtype} pool")
         if smem.value > SMEM_LIMIT:
             raise ValueError(
                 f"paged decode: {smem.value} bytes of shared memory needed (rows="
                 f"{(hq // hkv) * w}, T={t}, D={d}); the card allows {SMEM_LIMIT}")
-        plan = _PLANS[key] = (BODIES[body], splits.value, rows.value)
+        plan = _PLANS[key] = (body, splits.value)
     return plan
 
 
@@ -135,9 +130,8 @@ def paged_decode_attention_kvq(q, k_pool: KVQ, v_pool: KVQ, tbl, pos, layer: int
     """K1q: ``paged_decode_attention`` over an int8 KVQ pool. Each tile's
     codes are taken as signed int8, multiplied by their f32 scale and
     rounded to q's dtype before the products, as the JAX kernel does.
-    bf16 q at D = 128 runs the Hopper body (dequantized by its producer
-    warps), at D 64 and 256 the mma.sync body, f32 q and other head dims
-    the FMA body."""
+    bf16 q at D 64, 128 or 256 runs the tensor-core body (plan body 2),
+    f32 q and other head dims the FMA body."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tbl, pos, layer, scale)
     name = "paged_decode_attention_kvq"
@@ -197,9 +191,11 @@ def _launch(name: str, q, kp, vp, ks, vs, tbl, pos, layer: int, scale: float, ou
         if tn in ("q", "k_pool", "v_pool") and x.data_ptr() % 16:
             raise ValueError(f"{name}: {tn} must be 16-byte aligned")
     lib = _build.load_library("paged_attention")
-    body, splits, n = _plan(q, kp, tbl)
+    rows = (hq // hkv) * w
+    body, splits = _plan(q, kp, tbl)
     part_acc = part_ml = None
-    if n:  # the splits' accumulators, then their (max, sum), merged on the card
+    if splits > 1:  # per-split accumulators, then (max, sum), merged on the card
+        n = b * hkv * splits * rows
         part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
         part_acc, part_ml = part[:n * d], part[n * d:]
     rc = lib.paged_decode_attention(
@@ -210,10 +206,10 @@ def _launch(name: str, q, kp, vp, ks, vs, tbl, pos, layer: int, scale: float, ou
         tbl.data_ptr(), pos.data_ptr(), out.data_ptr(),
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
-        b, w, hq, hkv, d, t, n_layers, nbp, tbl.shape[1], int(layer), splits, float(scale),
+        b, w, hq, hkv, d, t, n_layers, tbl.shape[1], int(layer), splits, float(scale),
         _build.current_stream(q.device))
     _build.check_launch(name, rc)
-    return body
+    return _BODY_OF_PLAN[body]
 
 
 for _fn in (paged_decode_attention, paged_decode_attention_kvq):

@@ -3,7 +3,8 @@
 the kernels, their split merge, their wrappers' host cost, and the model's
 decode step and verify.
 
-    python3 scripts/decode_attention_ms.py [--root DIR] [--breakdown N [N ...]] [--no-model]
+    python3 scripts/decode_attention_ms.py [--root DIR] [--ab DIR] [--breakdown N [N ...]]
+                                           [--no-model]
 
 * rows: K1 (``paged_decode_attention``, bf16 pool) and K1q
   (``paged_decode_attention_kvq``, the same draws quantized to an int8
@@ -18,17 +19,19 @@ decode step and verify.
   between launches (``cuda_ms`` less the kernels' sum) show apart.
 * host: the host microseconds a wrapper call takes at each row: 200 calls
   queued behind a device-side sleep, so none waits on the card, timed on
-  the host clock, the garbage collector off; the least of five runs, and
-  all five.
+  the host clock, the garbage collector off; the median and the least of
+  20 runs. With ``--ab DIR`` the wrappers of the checkout DIR are imported
+  beside this one's (as the package ``other_tree``, its library built
+  from DIR's sources) and the two trees' runs alternate in one process,
+  so a difference of a few µs shows above the host's drift: the median
+  of the 20 paired differences.
 * ``--breakdown N ...``: the same rows with the library's split count
   forced to each N (``paged_decode_attention`` of the checkout's kernel
-  library called with its own scratch; the count is the library's
-  ``n_splits``: splits a slot for a body that splits by the table's width,
-  where 32 / 16 / 8 are 2 / 4 / 8 tiles a split at this 64-tile table; the
-  grid's CTAs for the Hopper body, which divides the work among them on
-  the card), each under the profiler; and W = 7 with a GQA group of 2 (16
-  q heads over the 8 kv heads: a 14-row bundle) beside the 28-row bundle,
-  the same K/V bytes.
+  library called on scratch of the size the wrapper gives that count:
+  B x Hkv x N x bundle rows; at this 64-tile table 32 / 16 / 8 splits are
+  2 / 4 / 8 tiles a split), each under the profiler; and W = 7 with a GQA
+  group of 2 (16 q heads over the 8 kv heads: a 14-row bundle) beside the
+  28-row bundle, the same K/V bytes.
 * model (unless ``--no-model``): random bf16 weights at Meta-Llama-3-8B's
   published widths, 32 layers (``prefill_forward_ms.random_params``), and
   ``chip_smoke.decode_profile`` over a bf16 and an int8 pool: device ms of
@@ -47,6 +50,7 @@ from __future__ import annotations
 import argparse
 import gc
 import importlib.util
+import statistics
 import sys
 import time
 import types
@@ -93,31 +97,68 @@ def row_times(torch, smoke, pa) -> None:
         torch.cuda.empty_cache()
 
 
-def host_times(torch, smoke, pa, calls: int = 200, runs: int = 5) -> None:
+def host_run(torch, kern, args, calls: int) -> float:
+    """Host µs a call over ``calls`` calls queued behind a device-side sleep."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        kern(*args)
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def other_tree(root: Path):
+    """(paged_attention, kvcache) of the checkout at ``root``, imported as
+    the package ``other_tree`` beside this process's own, its kernel
+    library built from that checkout's sources into that checkout."""
+    pkg = root.resolve() / "nats_llm_studio_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "other_tree", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    sys.modules["other_tree"] = mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    importlib.import_module("other_tree.ops._build").build_all(("paged_attention",))
+    return (importlib.import_module("other_tree.ops.paged_attention"),
+            importlib.import_module("other_tree.ops.kvcache"))
+
+
+def host_times(torch, smoke, pa, other=None, calls: int = 200, runs: int = 20) -> None:
+    """Each row's host µs a call, ``runs`` runs of ``calls``. With ``other``
+    (``other_tree``'s pair) the two checkouts' runs alternate in this one
+    process (this, other, other, this, ...) and the median of the paired
+    differences is printed too."""
+    from nats_llm_studio_tpu_torch.ops.kvcache import is_quantized
+
     for name, make, kern in rows(smoke, pa):
         args = make(torch, torch.Generator(device="cuda").manual_seed(SEED),
                     smoke.LLAMA3_8B)["args"]
-        kern(*args)
-        us = []
+        sides = [("this", kern, args)]
+        if other is not None:
+            opa, okv = other
+            oargs = tuple(okv.KVQ(a.q, a.s) if is_quantized(a) else a for a in args)
+            sides.append(("other", getattr(opa, kern.__name__), oargs))
+        for _, k, a in sides:
+            k(*a)
+        us = {tag: [] for tag, _, _ in sides}
         gc.disable()  # no collection inside a timed run
-        for _ in range(runs):
-            torch.cuda.synchronize()
-            torch.cuda._sleep(100_000_000)
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                kern(*args)
-            us.append((time.perf_counter() - t0) / calls * 1e6)
+        for i in range(runs):
+            for tag, k, a in sides if i % 2 == 0 else sides[::-1]:
+                us[tag].append(host_run(torch, k, a, calls))
         gc.enable()
         torch.cuda.synchronize()
-        print(f"host {name}: {min(us):.2f} us a call ({', '.join(f'{u:.2f}' for u in us)})",
-              flush=True)
-        del args
+        for tag, v in us.items():
+            print(f"host {name} ({tag} tree): median {statistics.median(v):.2f} us a call, "
+                  f"least {min(v):.2f} ({', '.join(f'{u:.2f}' for u in v)})", flush=True)
+        if other is not None:
+            d = [a - b for a, b in zip(us["this"], us["other"])]
+            print(f"host {name}: this tree less the other, median of {runs} paired runs "
+                  f"{statistics.median(d):+.2f} us a call", flush=True)
+        del args, sides
         torch.cuda.empty_cache()
 
 
 def forced(torch, pa, args, n_splits: int):
-    """A call of the checkout's library with ``n_splits`` forced, on
-    scratch large enough for either body's use of it."""
+    """A call of the checkout's library with ``n_splits`` forced, on the
+    scratch the wrapper would allocate for that count."""
     from nats_llm_studio_tpu_torch.ops import _build
     from nats_llm_studio_tpu_torch.ops.kvcache import is_quantized
 
@@ -127,14 +168,10 @@ def forced(torch, pa, args, n_splits: int):
         kp, ks, vp, vs = kp.q, kp.s, vp.q, vp.s
     b, w, hq, d = q.shape
     hkv, t, n_layers = kp.shape[2], kp.shape[3], kp.shape[1]
-    n = max(b * hkv, 2) * n_splits * max((hq // hkv) * w, 32)
+    n = b * hkv * n_splits * (hq // hkv) * w
     part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lib = _build.load_library("paged_attention")
-    # the pool's block count is an argument of the libraries that map the
-    # pool for TMA (one more int than before it)
-    arity = len(_build.SIGNATURES["paged_attention"]["paged_decode_attention"][0])
-    nb = [kp.shape[0]] if arity > 24 else []
 
     def call():
         rc = lib.paged_decode_attention(
@@ -142,7 +179,7 @@ def forced(torch, pa, args, n_splits: int):
             kp.data_ptr(), vp.data_ptr(), ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None, tbl.data_ptr(), pos.data_ptr(),
             out.data_ptr(), part[:n * d].data_ptr(), part[n * d:].data_ptr(), b, w, hq, hkv, d,
-            t, n_layers, *nb, tbl.shape[1], int(layer), n_splits, float(scale),
+            t, n_layers, tbl.shape[1], int(layer), n_splits, float(scale),
             _build.current_stream(q.device))
         _build.check_launch("paged_decode_attention", rc)
         return out
@@ -192,6 +229,9 @@ def main() -> int:
                     help="also force the split count to each N, and time W=7 at a 14-row "
                          "bundle")
     ap.add_argument("--no-model", action="store_true", help="skip the 32-layer decode profile")
+    ap.add_argument("--ab", type=Path, metavar="DIR",
+                    help="time the host µs a call against DIR's wrappers in this process, "
+                         "runs alternating")
     args = ap.parse_args()
 
     import torch
@@ -208,7 +248,7 @@ def main() -> int:
     print(f"card: {smoke.card_line()}; root {args.root}; build "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     row_times(torch, smoke, pa)
-    host_times(torch, smoke, pa)
+    host_times(torch, smoke, pa, other_tree(args.ab) if args.ab else None)
     if args.breakdown:
         breakdown(torch, smoke, pa, args.breakdown)
     if not args.no_model:

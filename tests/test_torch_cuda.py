@@ -14,24 +14,24 @@ FMA body; the flash cases cover all three at ragged query, key and window
 edges (the Hopper body's through TMA's zero fill, each case counted on its
 per-body launch counter), starts off the tile grid, windows from an
 offset key, scales views off 16 bytes, groups 1 to 8 and D 64 to 256.
-bf16 K1 and K1q at D = 128 run the Hopper body of csrc/paged_attention.cu
-(a grid that divides the live 64-key tiles on the card, TMA tiles under a
-tensor map cached per pool, int8 dequantized by producer warps), at D 64
-and 256 its mma.sync body, every other K1 and K1q shape (f32, other head
-dims, block sizes under 8) the FMA body, each case checked on the
-wrapper's per-body launch counter; the paged cases cover bundles of 1 to
-56 rows, block sizes 8 to 128, a 4096-key slot beside slots at positions
-0 to 5, every slot at 0, 1 to 64 slots, tables whose unused entries are
-the null block, GQA groups 1 to 8, all-null tables, a second pool at
-another address under the same shape, a slot's bits alone and in other
-batches and, for K1q, key rows with scales spread over decades; both also at the speculative verify's width (W = 7,
-a 28-row bundle held by one CTA). The sampling cases hold ``_pick`` and
+bf16 K1 and K1q at D 64, 128 and 256 run the tensor-core body of
+csrc/paged_attention.cu (over a bf16 pool, and over int8 codes
+dequantized in shared memory), every other K1 and K1q shape the FMA body,
+each case checked on the wrapper's per-body launch counter; the paged
+cases cover bundles of 1 to 56 rows (one m-tile, two m-tiles held by one
+CTA at D <= 128 and by two at D = 256, and two CTAs of two), block sizes
+8 to 128, a 4096-key slot beside slots at positions 0 to 5, every slot at
+0, 1 to 64 slots, tables whose unused entries are the null block, GQA
+groups 1 to 8, all-null tables, slots with fewer live tiles than splits
+and, for K1q, key rows with scales spread over decades; both also at the
+speculative verify's width (W = 7, a 28-row bundle held by one CTA). The
+sampling cases hold ``_pick`` and
 ``spec_accept_from_noise`` on the card to the CPU on shared noise. The
 overload cases, on a 2-layer bf16 model written here: the brownout
 headroom signal makes no ``mem_get_info`` call over a served chat's
 owner-loop passes; an engine whose owner loop crashed gives its memory
 back at the restart (within 1%) and serves the same greedy text; the
-profile subject's capture names ``paged_decode_hopper_kernel``. The
+profile subject's capture names ``paged_decode_mma_kernel``. The
 efficiency cases: the card's name finds its row of the H100 peak table;
 the HBM ledger over ``torch.cuda.memory_stats`` stays quiet over freed
 allocations and fires once on held ones; with an engine serving, adverts
@@ -164,10 +164,9 @@ def test_flash_chunk_kernel_matches_plain(gen, dtype, b, c, hq, hkv, d, kw, s, s
     (2, 1, 32, 8, 256, 16, 128, [2047, 0], False),        # D=256, a slot of one live key
 ])
 def test_paged_decode_mma_body_matches_plain(gen, b, w, hq, hkv, d, t, nbt, pos, null):
-    """The bf16 tensor-core bodies of K1: the Hopper body at D = 128, the
-    mma.sync body at D 64 and 256. Slot tables run over distinct blocks
-    1..; with ``null`` the last slot's table is all null blocks. In the
-    4096-key tables most of the table of the short slots is dead."""
+    """The bf16 tensor-core body of K1. Slot tables run over distinct
+    blocks 1..; with ``null`` the last slot's table is all null blocks. In
+    the 4096-key tables most splits of the short slots hold no live tile."""
     nb = 1 + b * nbt
     kp = _rn(gen, nb, 2, hkv, t, d, dtype=torch.bfloat16)
     vp = _rn(gen, nb, 2, hkv, t, d, dtype=torch.bfloat16)
@@ -176,12 +175,12 @@ def test_paged_decode_mma_body_matches_plain(gen, b, w, hq, hkv, d, t, nbt, pos,
         tbl[-1] = 0
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
     q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
-    body = "hopper" if d == 128 else "mma"
-    assert pa._plan(q, kp, tbl)[0] == body
-    before = (pa.paged_decode_attention.launches, pa.paged_decode_attention.body_launches[body])
+    assert pa._plan(q, kp, tbl)[0] == 1
+    counter = pa.paged_decode_attention
+    before = (counter.launches, counter.bf16_body_launches["mma"])
     got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, d ** -0.5)
-    assert (pa.paged_decode_attention.launches,
-            pa.paged_decode_attention.body_launches[body]) == (before[0] + 1, before[1] + 1)
+    assert (counter.launches, counter.bf16_body_launches["mma"]) == (before[0] + 1,
+                                                                      before[1] + 1)
     _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, d ** -0.5),
            torch.bfloat16)
 
@@ -195,10 +194,12 @@ def test_paged_decode_other_bf16_head_dims_take_the_fma_body(gen, d):
     vp = _rn(gen, nb, 2, hkv, t, d, dtype=torch.bfloat16)
     tbl, pos = _table(b, nbt, w, t)
     q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
-    assert pa._plan(q, kp, tbl)[0] == "fma"
-    before = pa.paged_decode_attention.launches
+    assert pa._plan(q, kp, tbl)[0] == 0
+    counter = pa.paged_decode_attention
+    before = (counter.launches, counter.bf16_body_launches["fma"])
     got = pa.paged_decode_attention(q, kp, vp, tbl, pos, 0, d ** -0.5)
-    assert pa.paged_decode_attention.launches == before + 1
+    assert (counter.launches, counter.bf16_body_launches["fma"]) == (before[0] + 1,
+                                                                      before[1] + 1)
     _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos, 0, d ** -0.5),
            torch.bfloat16)
 
@@ -256,9 +257,8 @@ KVQ_MMA_CASES = [
 @pytest.mark.parametrize("b,w,hq,hkv,d,t,nbt,pos,null,spread", KVQ_MMA_CASES)
 def test_paged_decode_kvq_mma_body_matches_plain(gen, b, w, hq, hkv, d, t, nbt, pos, null,
                                                  spread):
-    """K1q's tensor-core bodies (bf16 q over an int8 pool whose null block
-    holds codes 0 and scales 1): the Hopper body at D = 128, the mma.sync
-    body at D 64 and 256. With ``spread`` each K row is drawn at a
+    """K1q's tensor-core body (bf16 q over an int8 pool whose null block
+    holds codes 0 and scales 1). With ``spread`` each K row is drawn at a
     scale log-uniform over 1e-3..30 and each V row over 1e-3..1 before it
     is quantized, so every key row has its own scale (a scale taken from
     the wrong row or block moves the output); V stays below 1 so one bf16
@@ -280,12 +280,12 @@ def test_paged_decode_kvq_mma_body_matches_plain(gen, b, w, hq, hkv, d, t, nbt, 
         tbl[-1] = 0
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
     q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
-    body = "hopper" if d == 128 else "mma"
-    assert pa._plan(q, kp.q, tbl)[0] == body
+    assert pa._plan(q, kp.q, tbl)[0] == 2
     counter = pa.paged_decode_attention_kvq
-    before = (counter.launches, counter.body_launches[body])
+    before = (counter.launches, counter.bf16_body_launches["mma"])
     got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, d ** -0.5)
-    assert (counter.launches, counter.body_launches[body]) == (before[0] + 1, before[1] + 1)
+    assert (counter.launches, counter.bf16_body_launches["mma"]) == (before[0] + 1,
+                                                                      before[1] + 1)
     _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, d ** -0.5),
            torch.bfloat16)
 
@@ -299,10 +299,11 @@ def test_paged_decode_kvq_other_shapes_take_the_fma_body(gen, dtype, d):
     kp, vp = _kvq(gen, nb, 2, hkv, t, d), _kvq(gen, nb, 2, hkv, t, d)
     tbl, pos = _table(b, nbt, w, t)
     q = _rn(gen, b, w, hq, d, dtype=dtype)
-    assert pa._plan(q, kp.q, tbl)[0] == "fma"
-    before = pa.paged_decode_attention_kvq.launches
+    assert pa._plan(q, kp.q, tbl)[0] == 0
+    counter = pa.paged_decode_attention_kvq
+    before = (counter.launches, counter.body_launches["fma"])
     got = pa.paged_decode_attention(q, kp, vp, tbl, pos, 1, d ** -0.5)
-    assert pa.paged_decode_attention_kvq.launches == before + 1
+    assert (counter.launches, counter.body_launches["fma"]) == (before[0] + 1, before[1] + 1)
     _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos, 1, d ** -0.5), dtype)
 
 
@@ -596,8 +597,9 @@ def test_prefill_chunk_group_matches_single_admits(gen, kv_quant):
 def test_paged_decode_verify_width7_one_cta_over_the_bundle(gen, quant):
     """The verify shape: W = 7 query rows a slot (k = 6 drafts) with
     Llama-3's GQA group of 4, a 28-row bundle (two m16 tiles) that one CTA
-    of the Hopper body holds whole, over slots whose 7 fresh rows cross a
-    block edge; one launch, on the Hopper body."""
+    of the tensor-core body holds whole, over slots whose 7 fresh rows
+    cross a block edge; the tensor-core body (plan body 1, or 2 over an
+    int8 pool) and one launch."""
     b, w, hq, hkv, d, t, nbt = 4, 7, 32, 8, 128, 16, 64
     pos = [1017 - w, 250, 13, 700]
     nb = 1 + b * nbt
@@ -611,18 +613,16 @@ def test_paged_decode_verify_width7_one_cta_over_the_bundle(gen, quant):
     tbl = torch.arange(1, nb, dtype=torch.int32, device="cuda").reshape(b, nbt)
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
     q = _rn(gen, b, w, hq, d, dtype=torch.bfloat16)
-    assert pa._plan(q, codes, tbl)[0] == "hopper"
-    before = (counter.launches, counter.body_launches["hopper"])
+    assert pa._plan(q, codes, tbl)[0] == (2 if quant else 1)
+    before = (counter.launches, counter.bf16_body_launches["mma"])
     got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, d ** -0.5)
-    assert (counter.launches, counter.body_launches["hopper"]) == (before[0] + 1, before[1] + 1)
+    assert (counter.launches, counter.bf16_body_launches["mma"]) == (before[0] + 1,
+                                                                      before[1] + 1)
     _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, d ** -0.5),
            torch.bfloat16)
 
 
-# -- the Hopper body of K1 and K1q: the split on the card, the TMA ring, the map cache ----
-
-
-def _hopper_pools(gen, quant, nb, hkv, t, d=128, layers=2):
+def _bundle_pools(gen, quant, nb, hkv, t, d=128, layers=2):
     """A bf16 pool or an int8 one (its null block 0 holding codes 0 and
     scales 1) of ``nb`` blocks."""
     shape = (nb, layers, hkv, t, d)
@@ -648,7 +648,7 @@ def _live_tables(b, nbt, w, t, pos, null):
     return tbl.cuda(), nxt
 
 
-HOPPER_CASES = [
+BUNDLE_CASES = [
     # b, w, hq, hkv, t, nbt, pos, null
     (8, 1, 32, 8, 16, 256, [4095, 0, 1, 2, 3, 4, 5, 5], False),  # one long slot, seven at 0-5
     (8, 1, 32, 8, 16, 64, [0] * 8, False),                       # every slot at position 0
@@ -656,102 +656,33 @@ HOPPER_CASES = [
     (64, 1, 32, 8, 16, 16, [(37 * i) % 250 for i in range(64)], True),  # B = 64
     (4, 2, 8, 8, 8, 64, [500, 3, 257, 130], True),               # group 1, W = 2, T = 8
     (4, 7, 32, 8, 32, 32, [1017 - 7, 250, 13, 700], False),      # group 4, W = 7, T = 32
-    (3, 7, 64, 8, 64, 16, [1000, 63, 5], True),                  # group 8, W = 7: two row groups
+    (3, 7, 64, 8, 64, 16, [1000, 63, 5], True),                  # group 8, W = 7: two CTAs of two
     (3, 1, 64, 8, 16, 64, [1023, 512, 9], False),                # group 8, W = 1
     (2, 4, 16, 2, 128, 8, [1000, 129], True),                    # T = 128: a block holds two tiles
 ]
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
-@pytest.mark.parametrize("b,w,hq,hkv,t,nbt,pos,null", HOPPER_CASES)
-def test_paged_decode_hopper_body_matches_plain(gen, quant, b, w, hq, hkv, t, nbt, pos, null):
-    """The Hopper body at D = 128 where its work split, its TMA boxes or its
-    merge could go wrong: runs of tiles that span many (slot, head) pairs,
-    slots of one tile, 1 to 64 slots, tables whose dead entries are the
-    null block (boxes past the live keys arrive as zeros), groups 1 to 8
-    (56 rows: two row groups of one kv head), W = 1, 2 and 7, blocks of 8
-    to 128 tokens; one launch, on the Hopper body."""
+@pytest.mark.parametrize("b,w,hq,hkv,t,nbt,pos,null", BUNDLE_CASES)
+def test_paged_decode_d128_bundles_match_plain(gen, quant, b, w, hq, hkv, t, nbt, pos, null):
+    """The tensor-core body at D = 128 where its split, its two-tile CTA or
+    its row-split merge could go wrong: one long slot beside slots of one
+    tile, slots at position 0, 1 to 64 slots, tables whose dead entries are
+    the null block, groups 1 to 8 (56 rows: two CTAs of two m-tiles a kv
+    head), W = 1, 2 and 7, blocks of 8 to 128 tokens; one launch, on the
+    tensor-core body."""
     tbl, nb = _live_tables(b, nbt, w, t, pos, null)
-    kp, vp = _hopper_pools(gen, quant, nb, hkv, t)
+    kp, vp = _bundle_pools(gen, quant, nb, hkv, t)
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
     q = _rn(gen, b, w, hq, 128, dtype=torch.bfloat16)
     counter = pa.paged_decode_attention_kvq if quant else pa.paged_decode_attention
-    assert pa._plan(q, kp.q if quant else kp, tbl)[0] == "hopper"
-    before = (counter.launches, counter.body_launches["hopper"])
+    assert pa._plan(q, kp.q if quant else kp, tbl)[0] == (2 if quant else 1)
+    before = (counter.launches, counter.bf16_body_launches["mma"])
     got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, 128 ** -0.5)
-    assert (counter.launches, counter.body_launches["hopper"]) == (before[0] + 1, before[1] + 1)
+    assert (counter.launches, counter.bf16_body_launches["mma"]) == (before[0] + 1,
+                                                                      before[1] + 1)
     _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, 128 ** -0.5),
            torch.bfloat16)
-
-
-@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
-@pytest.mark.parametrize("w", [1, 7])
-def test_paged_decode_hopper_slot_result_independent_of_the_batch(gen, quant, w):
-    """A slot's output does not depend on the other slots of the batch: the
-    Hopper body divides the work by the whole batch's live tiles, but a
-    slot's numerics follow only its own chunks. The same 1500-token slot
-    alone, beside a short slot, and among slots of other lengths gives the
-    same bits (a request decodes the same text beside any traffic)."""
-    hq, hkv, t, nbt = 32, 8, 16, 128
-    target = 1500 - w
-    batches = [[target], [target, 5], [700, target, 2000 - w, 40, 3]]
-    tbl_all, nb = _live_tables(1, nbt, w, t, [nbt * t - w], False)
-    kp, vp = _hopper_pools(gen, quant, nb, hkv, t)
-    q1 = _rn(gen, 1, w, hq, 128, dtype=torch.bfloat16)
-    outs = []
-    for pos in batches:
-        b = len(pos)
-        i = pos.index(target)
-        tbl = tbl_all.repeat(b, 1)
-        q = _rn(gen, b, w, hq, 128, dtype=torch.bfloat16)
-        q[i] = q1[0]
-        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, 128 ** -0.5)
-        torch.cuda.synchronize()
-        outs.append(got[i].clone())
-    assert all(torch.equal(outs[0], o) for o in outs[1:])
-
-
-@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
-@pytest.mark.parametrize("t", [4, 24])
-def test_paged_decode_blocks_off_the_hopper_rule_take_the_fma_body(gen, quant, t):
-    """bf16 q at D = 128 over blocks the Hopper body's rule refuses (T < 8,
-    or neither a divisor nor a multiple of 64) runs the FMA body, and the
-    wrapper counts it there."""
-    b, w, hq, hkv, nbt = 3, 2, 8, 2, 24
-    pos = [5, 40, nbt * t - w]
-    tbl, nb = _live_tables(b, nbt, w, t, pos, False)
-    kp, vp = _hopper_pools(gen, quant, nb, hkv, t)
-    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    q = _rn(gen, b, w, hq, 128, dtype=torch.bfloat16)
-    counter = pa.paged_decode_attention_kvq if quant else pa.paged_decode_attention
-    assert pa._plan(q, kp.q if quant else kp, tbl)[0] == "fma"
-    before = counter.bf16_body_launches["fma"]
-    got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 1, 128 ** -0.5)
-    assert counter.bf16_body_launches["fma"] == before + 1
-    _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 1, 128 ** -0.5),
-           torch.bfloat16)
-
-
-@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
-def test_paged_decode_tensor_maps_follow_the_pool(gen, quant):
-    """The Hopper body's tensor maps are cached per pool: the same pool
-    called twice, then a second pool of the same shape at another address
-    (other values), then the first again: each call matches the plain
-    version over the pool it was given."""
-    b, w, hq, hkv, t, nbt = 4, 1, 32, 8, 16, 32
-    pos = [500, 77, 300, 5]
-    tbl, nb = _live_tables(b, nbt, w, t, pos, False)
-    pools = [_hopper_pools(gen, quant, nb, hkv, t) for _ in range(2)]
-    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    q = _rn(gen, b, w, hq, 128, dtype=torch.bfloat16)
-    first, second = pools
-    ptr = (lambda p: p.q.data_ptr()) if quant else (lambda p: p.data_ptr())
-    assert ptr(first[0]) != ptr(second[0])
-    for kp, vp in (first, first, second, first):
-        got = pa.paged_decode_attention(q, kp, vp, tbl, pos_t, 0, 128 ** -0.5)
-        _check(got, pa.paged_decode_attention_plain(q, kp, vp, tbl, pos_t, 0, 128 ** -0.5),
-               torch.bfloat16)
 
 
 @pytest.mark.parametrize("v", [300, 128256])
@@ -941,7 +872,7 @@ def test_kvq_slot_suspend_and_resume_on_the_card(gen, tmp_path):
 def test_profile_trace_names_the_paged_decode_kernel(gen, tmp_path):
     """The worker's profile subject (torch.profiler initialized once on the
     event loop's thread, the capture in a worker thread while the owner
-    thread launches) exports a Chrome trace that names K1's Hopper
+    thread launches) exports a Chrome trace that names K1's tensor-core
     kernel."""
     import asyncio
     import json
@@ -975,7 +906,7 @@ def test_profile_trace_names_the_paged_decode_kernel(gen, tmp_path):
 
     for answer in asyncio.run(run()):
         assert answer["ok"], answer
-        assert "paged_decode_hopper_kernel" in open(answer["data"]["trace_file"]).read()
+        assert "paged_decode_mma_kernel" in open(answer["data"]["trace_file"]).read()
 
 
 # -- the efficiency plane and cluster membership on the card ---------------------
